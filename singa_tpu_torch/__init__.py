@@ -1,0 +1,22 @@
+"""singa_tpu_torch: the PyTorch and CUDA port of singa_tpu.
+
+The JAX package `singa_tpu` is the reference; this package grows beside
+it slice by slice and imports nothing of it (nor JAX).  Slice 1 is
+transformer-LM inference: the scoring forward (`NeuralNet.apply`), KV
+cache decode (`models.generate`) and the bucketed engine
+(`serve.engine`), with two hand-written Hopper kernels built from
+`csrc/` at first use: the packed flash-attention forward (K1,
+`ops.attention`) and the fused LM-head forward (K2, `ops.head_loss`).
+
+Entry points run on CUDA unless the caller passes device='cpu'.
+"""
+
+from .config import (ConfigError, ModelConfig, config_to_dict,
+                     load_model_config, model_config_from_dict,
+                     model_config_from_text)
+from .core.net import NeuralNet, build_net
+from .device import resolve_device
+from .models.generate import forward_cached, generate, init_cache
+from .models.transformer import synthetic_token_batches, transformer_lm
+from .serve.engine import InferenceEngine, ServeSpec
+from .weights import numpy_params, params_from_numpy

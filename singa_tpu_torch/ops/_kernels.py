@@ -1,0 +1,123 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each `singa_tpu_torch/csrc/<name>.cu` is a plain C interface compiled by
+`nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+-Xcompiler -fPIC` into `build/kernels/` at the root of the checkout (a
+git-ignored directory), at first use, and loaded with `ctypes`.  The
+library name carries a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  `build()`
+starts one nvcc per source, all at once.
+
+Nothing here runs when the module is imported: the CPU tests import
+every module of the package, and this machine may have no nvcc at all.
+
+Each C entry takes every pointer and the stream as `void*`, its sizes as
+`int`, and returns `cudaGetLastError()` after the launch; `launch`
+raises when that is not 0 and otherwise adds one to the kernel's count
+in `LAUNCHES`, the count a run reads to show that its path went through
+the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel name -> argtypes of its C entry (same name), stream last
+SIGNATURES = {
+    # q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, dtype, stream
+    "flash_fwd": [_P] * 5 + [_I] * 8 + [_P],
+    # h, w, labels, lse, ll, hit, N, E, V, dtype, stream
+    "head_fwd": [_P] * 6 + [_I] * 4 + [_P],
+}
+LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+_entries: Dict[str, tuple] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    for cand in ((os.path.join(CUDA_HOME, "bin", "nvcc")
+                  if CUDA_HOME else None), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's kernels are built from "
+                       "singa_tpu_torch/csrc with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(
+        src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD / f"lib{name}-{digest}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile the named kernels (all by default) that are not built yet,
+    one nvcc process per source, started together.  Returns nvcc's
+    output (ptxas register and spill lines) for each source built now."""
+    jobs = {}
+    for name in (list(names) if names is not None else list(SIGNATURES)):
+        out = _target(name)
+        if out.exists():
+            continue
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    logs = {}
+    for name, (proc, tmp, out) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, out)
+        logs[name] = log
+    return logs
+
+
+def _entry(name: str):
+    with _lock:
+        got = _entries.get(name)
+        if got is None:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            fn = getattr(lib, name)
+            fn.argtypes = SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            got = _entries[name] = (fn, err)
+    return got
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel `name` on the current stream without synchronising;
+    raise on a refused launch, else count it."""
+    fn, err_string = _entry(name)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} "
+                           f"({err_string(err).decode()})")
+    LAUNCHES[name] += 1

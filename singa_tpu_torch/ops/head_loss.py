@@ -1,0 +1,112 @@
+"""Kernel K2, the fused LM-head forward, and its loss.
+
+Port of `singa_tpu/ops/head_loss.py:35-133`.  K2 replaces the TPU kernel
+`_fwd_kernel` (`:35`, launched by `_head_stats_pallas`, `:80-106`) with
+the hand-written CUDA kernel in `csrc/head_fwd.cu`: one pass over vocab
+tiles computes logits = h·Wᵀ with W in the tied (V, E) layout and keeps
+only three per-token statistics — the online log-sum-exp, the exact
+label logit, and the argmax hit (lowest index wins ties).  The logits
+never reach device memory.
+
+`head_stats` launches the kernel for a CUDA tensor and runs
+`head_stats_plain`, the same online pass step by step in PyTorch, for a
+CPU tensor.  Forward only: the chunked backward (`_fused_bwd`) comes
+with training.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _kernels
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def eligible(h, w_vE, bn: int = 512, bv: int = 2048) -> bool:
+    """The JAX package's rule for taking the fused head
+    (singa_tpu/ops/head_loss.py:109-114), unchanged."""
+    n, e = h.shape
+    v = w_vE.shape[0]
+    return (n % bn == 0 and v % bv == 0 and e % 128 == 0
+            and h.dtype == w_vE.dtype
+            and h.dtype in (torch.bfloat16, torch.float32))
+
+
+def head_stats_plain(h, w_vE, labels, bv: int = 2048
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's plain PyTorch version: the kernel's online pass over vocab
+    blocks of `bv` columns, in f32.  Returns (lse, label logit, hit)."""
+    n = h.shape[0]
+    v = w_vE.shape[0]
+    dev = h.device
+    hf = h.float()
+    lbl = labels.long()
+    m = torch.full((n,), float("-inf"), device=dev)
+    d = torch.zeros((n,), device=dev)
+    amax = torch.zeros((n,), dtype=torch.long, device=dev)
+    ll = torch.zeros((n,), device=dev)
+    for v0 in range(0, v, bv):
+        logits = hf @ w_vE[v0:v0 + bv].float().T
+        # argmax returns the first maximal column: lowest index wins
+        bidx = torch.argmax(logits, dim=1)
+        bmax = torch.gather(logits, 1, bidx[:, None])[:, 0]
+        m_new = torch.maximum(m, bmax)
+        d = d * torch.exp(m - m_new) + torch.sum(
+            torch.exp(logits - m_new[:, None]), dim=1)
+        amax = torch.where(bmax > m, bidx + v0, amax)
+        m = m_new
+        col = v0 + torch.arange(logits.shape[1], device=dev)
+        ll = ll + torch.sum(torch.where(col[None, :] == lbl[:, None],
+                                        logits, torch.zeros((), device=dev)),
+                            dim=1)
+    return m + torch.log(d), ll, (amax == lbl).float()
+
+
+def _head_stats_cuda(h, w_vE, labels):
+    n, e = h.shape
+    v = w_vE.shape[0]
+    if w_vE.device != h.device or labels.device != h.device:
+        raise ValueError("head_fwd: h, w and labels must share a device")
+    if h.dtype != w_vE.dtype or h.dtype not in _DTYPE_CODE:
+        raise ValueError(f"head_fwd takes h and w of one dtype, float32 "
+                         f"or bfloat16; got {h.dtype} and {w_vE.dtype}")
+    if not (h.is_contiguous() and w_vE.is_contiguous()):
+        raise ValueError("head_fwd needs contiguous h and w")
+    if labels.dtype.is_floating_point:
+        raise ValueError("head_fwd needs integer labels")
+    lbl = labels.to(torch.int32).contiguous()
+    lse, ll, hit = torch.empty((3, n), dtype=torch.float32, device=h.device)
+    with torch.cuda.device(h.device):
+        _kernels.launch("head_fwd", h.data_ptr(), w_vE.data_ptr(),
+                        lbl.data_ptr(), lse.data_ptr(), ll.data_ptr(),
+                        hit.data_ptr(), n, e, v, _DTYPE_CODE[h.dtype])
+    return lse, ll, hit
+
+
+def head_stats(h, w_vE, labels
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(lse, label logit, hit) per token for h (N, E), w_vE (V, E),
+    labels (N,).  A CUDA tensor launches K2; a CPU tensor runs
+    `head_stats_plain`."""
+    if h.dim() != 2 or w_vE.dim() != 2 or h.shape[1] != w_vE.shape[1] \
+            or labels.shape != (h.shape[0],):
+        raise ValueError(f"bad head shapes h {tuple(h.shape)}, w "
+                         f"{tuple(w_vE.shape)}, labels "
+                         f"{tuple(labels.shape)}")
+    if h.is_cuda:
+        return _head_stats_cuda(h, w_vE, labels)
+    if h.device.type == "cpu":
+        return head_stats_plain(h, w_vE, labels)
+    raise ValueError(f"head_stats runs on cuda or cpu, not {h.device}")
+
+
+def fused_lm_xent(h, w_vE, labels, scale: float = 1.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, top-1 precision) for an LM head with (V, E) weight through
+    the fused forward."""
+    n = h.shape[0]
+    lse, ll, hit = head_stats(h, w_vE, labels)
+    return scale * torch.sum(lse - ll) / n, scale * torch.sum(hit) / n

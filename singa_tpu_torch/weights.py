@@ -1,0 +1,70 @@
+"""Carrying weights into the port.
+
+`params_from_numpy` takes a `{name: ndarray}` dict — the JAX package's
+params as numpy, or weights drawn with `numpy_params` — to the port's
+params on a device.  Both packages key params by the same names and keep
+the same layouts ((E, H·D) projections, the (V, E) embedding table), so
+the move is one-to-one; it is checked name by name and shape by shape
+against the port net's `param_specs`, and a missing, extra or misshaped
+entry raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from .device import DeviceLike, resolve_device
+
+
+def params_from_numpy(net, arrays: Mapping[str, np.ndarray],
+                      device: DeviceLike = None,
+                      dtype: Optional[torch.dtype] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """`arrays` as port params on `device` (CUDA unless the caller passes
+    device='cpu'), in `dtype` (default: each array's own)."""
+    dev = resolve_device(device)
+    specs = net.param_specs
+    missing = sorted(set(specs) - set(arrays))
+    extra = sorted(set(arrays) - set(specs))
+    if missing or extra:
+        raise ValueError(f"weights do not match the net: missing "
+                         f"{missing}, unexpected {extra}")
+    out = {}
+    for name in sorted(specs):
+        arr = np.asarray(arrays[name])
+        if tuple(arr.shape) != tuple(specs[name].shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)}, the net "
+                             f"declares {tuple(specs[name].shape)}")
+        if arr.dtype.name == "bfloat16":   # ml_dtypes, which torch can't read
+            t = torch.tensor(arr.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.tensor(arr)
+        out[name] = t.to(device=dev, dtype=dtype or t.dtype)
+    return out
+
+
+def numpy_params(net, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random float32 weights for `net` drawn with numpy from `seed`,
+    from each spec's init distribution (kConstant, kUniform, kGaussain —
+    what the transformer LM declares)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, spec in sorted(net.param_specs.items()):
+        cfg, shape = spec.cfg, spec.shape
+        if cfg.init_method == "kConstant":
+            x = np.full(shape, cfg.value, np.float32)
+        elif cfg.init_method == "kUniform":
+            x = rng.uniform(cfg.low, cfg.high, shape).astype(np.float32)
+            x = x * cfg.value if cfg.value else x
+        elif cfg.init_method == "kGaussain":
+            x = (cfg.mean + cfg.std * rng.standard_normal(
+                shape, dtype=np.float32))
+            x = x * cfg.value if cfg.value else x
+        else:
+            raise ValueError(f"{name}: numpy_params does not draw "
+                             f"{cfg.init_method}")
+        out[name] = x.astype(np.float32)
+    return out
