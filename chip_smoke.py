@@ -10,13 +10,13 @@ non-zero before the last line is printed:
 1. Card and build: the card's name and power limit, then nvcc builds
    every kernel from singa_tpu_torch/csrc (one process per source, in
    parallel); build time and ptxas resource lines are printed.
-2. Kernels against their plain PyTorch versions on the card, at the
+2. K1 and K2 against their plain PyTorch versions on the card, at the
    bench shapes and a few more (GQA, non-causal, every head dim, both
    dtypes, ragged edges), each with its stated tolerance; kernel, plain
    and library times by CUDA events.
-3. The scoring forward, the slice's main path: the repo's bench stack
-   (transformer_lm 12L, E=768, 12 heads of 64, V=32768, S=1024, B=8,
-   bf16 compute) with random weights from a numpy seed, through
+3. The scoring forward: the repo's bench stack (transformer_lm 12L,
+   E=768, 12 heads of 64, V=32768, S=1024, B=8, bf16 compute) with
+   random weights from a numpy seed, through
    `NeuralNet.apply(train=False)`.  The launch counts are set to 0 just
    before and read just after: K1 must run 12 times and K2 once.  Then
    the same weights at 2 layers and batch 2 on the card and on the CPU:
@@ -25,10 +25,27 @@ non-zero before the last line is printed:
 4. Serving: the bucketed engine answers greedy and sampled generate
    requests and predict requests on the same stack (f32 weights); greedy
    answers must equal `generate` on the unpadded prompts.
+5. K3 and K4 (the flash backward) against their plain versions, at the
+   bench shape (timed, with SDPA's backward as the library yardstick)
+   and at GQA, non-causal, every head dim on ragged S, bf16, and with an
+   lse cotangent.
+6. Gradients, card against CPU: one `Trainer.gradients` of the 2-layer
+   stack at batch 2 on both devices from the same weights; every param
+   must get a gradient on both, within a stated share of its largest
+   magnitude, and the card's run must launch K1, K3 and K4 twice each
+   and K2 once.
+7. Training, the slice's main path: `Trainer.train_step` takes Adam
+   steps of the full 12-layer bench stack at B=8 on synthetic token
+   batches; each step must launch K1, K3, K4 12 times and K2 once, and
+   the loss must fall.  Step time, tokens/s, the forward / backward /
+   update split and one profiled step are printed.  Then checkpoints:
+   at 2 layers, `Trainer.run` saves after k steps, a fresh `Trainer`
+   resumes from the snapshot and continues, and its params must equal
+   an uninterrupted run's bit for bit.
 
-The line before the last is one JSON object listing each kernel with
-its launches, error, times and bound; the line before that the card's
-`nvidia-smi` name and power limit; the last line
+The last lines are one JSON object listing each kernel with its
+launches (over phase 7's training run), error, times and bound; the
+card's `nvidia-smi` name and power limit; and
 {"ok": true, "device": {...}}.
 """
 
@@ -229,6 +246,114 @@ def phase_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: K3 and K4 against their plain versions
+
+
+def check_flash_bwd(b, s, h, hkv, d, dtype, causal, dev, seed,
+                    with_dlse=False, timed=False):
+    from singa_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    q = randn(b, s, h * d).to(dtype)
+    k = randn(b, s, hkv * d).to(dtype)
+    v = randn(b, s, hkv * d).to(dtype)
+    dout = randn(b, s, h * d).to(dtype)
+    with torch.no_grad():
+        out, lse = A.flash_attention_packed_lse(q, k, v, h, causal, hkv)
+    delta = (dout.float() * out.float()).reshape(b, s, h, d).sum(-1)
+    if with_dlse:
+        delta = delta - randn(b, s, h)
+    args = (q, k, v, dout, lse, delta, h, causal, hkv)
+    dq = A.flash_dq(*args)
+    dk, dv = A.flash_dkv(*args)
+    torch.cuda.synchronize()
+    ref = (A.flash_dq_plain(*args), *A.flash_dkv_plain(*args))
+    # both sides sum f32 products in another order: f32 outputs agree to
+    # ~1e-6 of their magnitude (tolerance 1e-4); a bf16 output may round
+    # one ulp (2^-8 relative) apart at its largest magnitude (tol 2^-7)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    tag = (f"b={b} s={s} h={h} hkv={hkv} d={d} "
+           f"{str(dtype).split('.')[-1]} causal={causal}"
+           + (" dlse" if with_dlse else ""))
+    errs = []
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        top = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        assert torch.isfinite(got.float()).all(), (tag, name)
+        assert err <= rtol * top, (tag, name, err, top)
+        errs.append((name, err, top))
+    res = {"dq": {"max_abs_err": errs[0][1]},
+           "dkv": {"max_abs_err": max(errs[1][1], errs[2][1])}}
+    if timed:
+        res["dq"]["ms"] = time_ms(lambda: A.flash_dq(*args), 10)
+        res["dkv"]["ms"] = time_ms(lambda: A.flash_dkv(*args), 10)
+        res["dq"]["plain_ms"] = time_ms(lambda: A.flash_dq_plain(*args), 3, 1)
+        res["dkv"]["plain_ms"] = time_ms(lambda: A.flash_dkv_plain(*args),
+                                         3, 1)
+        lib = (sdpa_backward_ms(q, k, v, dout, h, causal) if h == hkv
+               else None)
+        res["dq"]["library_ms"] = res["dkv"]["library_ms"] = lib
+        pairs = s * (s + 1) // 2 if causal else s * s
+        esz = q.element_size()
+        stats = 2 * b * s * h * 4                       # lse, delta
+        res["dq"]["bound_ms"], res["dq"]["bound_by"] = bound(
+            (3 * b * s * h * d + 2 * b * s * hkv * d) * esz + stats,
+            6.0 * d * pairs * b * h, dtype)
+        res["dkv"]["bound_ms"], res["dkv"]["bound_by"] = bound(
+            (2 * b * s * h * d + 4 * b * s * hkv * d) * esz + stats,
+            8.0 * d * pairs * b * h, dtype)
+    log(f"[kernels] K3/K4 {tag}: "
+        + ", ".join(f"max|d{n[1:]}| {e:.3g} (tol {rtol * t:.3g})"
+                    for n, e, t in errs)
+        + ("".join(f"; {n} kernel {r['ms']:.4f} ms, plain "
+                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                   f"({r['bound_by']})" for n, r in res.items())
+           + f"; SDPA backward {res['dq']['library_ms']} ms"
+           if timed else ""))
+    return res
+
+
+def sdpa_backward_ms(q, k, v, dout, num_heads, causal):
+    """PyTorch's SDPA backward at the same shape: its forward-and-backward
+    less its forward (both with autograd recording), by CUDA events —
+    the yardstick for K3 and K4 as a pair."""
+    b, s, hd = q.shape
+    d = hd // num_heads
+
+    def heads(x):      # SDPA's own (B, H, S, D) layout, contiguous
+        return x.view(b, s, num_heads, d).transpose(1, 2).contiguous()
+    qs, ks, vs = (heads(x).requires_grad_() for x in (q, k, v))
+    dos = heads(dout)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd():
+        return sdpa(qs, ks, vs, is_causal=causal)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qs, ks, vs), dos)
+    return time_ms(fwd_bwd, 10) - time_ms(fwd, 10)
+
+
+def phase_flash_bwd(dev):
+    bf16, f32 = torch.bfloat16, torch.float32
+    bench = check_flash_bwd(8, 1024, 12, 12, 64, bf16, True, dev, 41,
+                            timed=True)
+    check_flash_bwd(8, 1024, 12, 4, 64, bf16, True, dev, 42)    # GQA
+    check_flash_bwd(8, 1024, 12, 12, 64, bf16, False, dev, 43)  # non-causal
+    check_flash_bwd(2, 1024, 12, 12, 64, bf16, True, dev, 44,
+                    with_dlse=True)
+    # every tile width, padded widths, D past 64 in 64-wide chunks, ragged
+    for i, d in enumerate((8, 24, 64, 96, 128, 136, 264)):
+        check_flash_bwd(2, 200, 4, 2, d, f32, True, dev, 50 + i)
+        check_flash_bwd(2, 200, 4, 2, d, f32, False, dev, 60 + i,
+                        with_dlse=True)
+        check_flash_bwd(1, 256, 2, 1, d, bf16, True, dev, 70 + i)
+    return bench
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the scoring forward
 
 
@@ -388,6 +513,209 @@ def phase_serve(dev, arrays):
         f"distinct tokens, reproducible from its seed")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: gradients, card against CPU
+
+# of each gradient's largest magnitude on the CPU, about 4x the worst gap
+# an H100 showed (0.0126, attn1/wk): bf16 activations are rounded after
+# differently ordered f32 sums on the two sides
+GRAD_RTOL = 0.05
+SHAPES = {"data": {"input": (BENCH["seq_len"],),
+                   "target": (BENCH["seq_len"],)}}
+PER_STEP = {"flash_fwd": 12, "flash_dq": 12, "flash_dkv": 12, "head_fwd": 1}
+
+
+def small_cfg(**kw):
+    from singa_tpu_torch import transformer_lm
+    return transformer_lm(**{**BENCH, "num_layers": 2, "batchsize": 2,
+                             "precision": "bfloat16", **kw})
+
+
+def start(trainer, arrays, dev):
+    from singa_tpu_torch import params_from_numpy
+    net = trainer.train_net
+    params = params_from_numpy(net, {k: arrays[k] for k in net.param_specs},
+                               device=dev)
+    return params, trainer.updater.init(params)
+
+
+def phase_grads(dev, arrays):
+    from singa_tpu_torch import Trainer, synthetic_token_batches
+    from singa_tpu_torch.ops import _kernels
+    batch = next(synthetic_token_batches(2, BENCH["seq_len"],
+                                         BENCH["vocab_size"], seed=1))
+    res = {}
+    for d in (dev, "cpu"):
+        tr = Trainer(small_cfg(), SHAPES, device=d)
+        params, _ = start(tr, arrays, d)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics, grads = tr.gradients(params, batch)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            launches = dict(_kernels.LAUNCHES)
+        missing = sorted(k for k, g in grads.items() if g is None)
+        log(f"[grads] 2L b=2 on {d}: loss {float(metrics['loss']):.7f}, "
+            f"{len(grads)} params, none without a gradient: {not missing}"
+            f" ({time.perf_counter() - t0:.1f} s)")
+        assert not missing, (d, missing)
+        res[d] = {k: g.float().cpu() for k, g in grads.items()}
+    log(f"[grads] card launches {launches}")
+    # two attention layers and the head
+    assert launches == {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2,
+                        "head_fwd": 1}, launches
+    worst = 0.0
+    for name in sorted(res["cpu"]):
+        want, got = res["cpu"][name], res[dev][name]
+        top = want.abs().max().item()
+        gap = (got - want).abs().max().item()
+        worst = max(worst, gap / top)
+        log(f"[grads]   {name}: max|card - cpu| {gap:.3g}, max|cpu| "
+            f"{top:.3g}, ratio {gap / top:.3g} (tol {GRAD_RTOL})")
+        assert torch.isfinite(got).all() and gap <= GRAD_RTOL * top, name
+    log(f"[grads] worst ratio {worst:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training the bench stack, then checkpoints
+
+TRAIN_STEPS = 20
+# the mean loss of the last 5 steps must sit this far (nats) below the
+# first step's
+LOSS_MARGIN = 0.1
+
+
+def phase_train(dev, arrays):
+    from singa_tpu_torch import Trainer, synthetic_token_batches
+    from singa_tpu_torch.ops import _kernels
+    from singa_tpu_torch.ops.head_loss import (head_stats, logits_f32,
+                                               xent_backward)
+    from singa_tpu_torch import transformer_lm
+    b, s, vocab = BENCH["batchsize"], BENCH["seq_len"], BENCH["vocab_size"]
+    tr = Trainer(transformer_lm(**BENCH, precision="bfloat16"), SHAPES,
+                 device=dev)
+    params, opt = start(tr, arrays, dev)
+    data = synthetic_token_batches(b, s, vocab, seed=0)
+    batches = [next(data) for _ in range(TRAIN_STEPS)]
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    for step, batch in enumerate(batches):
+        before = dict(_kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = tr.train_step(params, opt, batch, step)
+        losses.append(float(m["loss"]))     # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
+        assert per == PER_STEP, (step, per)
+        assert math.isfinite(losses[-1]), losses
+    launches = dict(_kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    tail = sum(losses[-5:]) / 5
+    ms = sum(step_ms[2:]) / len(step_ms[2:])
+    log(f"[train] {BENCH['num_layers']}L b={b} s={s} Adam: {TRAIN_STEPS} "
+        f"steps, launches {launches}; loss first {losses[0]:.5f}, mean of "
+        f"last 5 {tail:.5f} (must be < first - {LOSS_MARGIN}); losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    assert tail < losses[0] - LOSS_MARGIN, losses
+    log(f"[train] step {ms:.3f} ms (mean of steps 2..{TRAIN_STEPS - 1}, "
+        f"host clock, synchronised; steps 0-1 {step_ms[0]:.1f}, "
+        f"{step_ms[1]:.1f} ms), {b * s / ms * 1e3:.1f} tokens/s; peak "
+        f"device memory {peak_gib:.2f} GiB")
+
+    # the step's split on the card's clock (CUDA events between the
+    # phases of one step): forward with autograd recording, backward,
+    # update; then the head's backward alone
+    batch = batches[-1]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    names = sorted(params)
+    for p in params.values():
+        p.requires_grad_(True)
+    ev[0].record()
+    loss, _, _ = tr.train_net.apply(params, batch, train=True,
+                                    compute_dtype=torch.bfloat16)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, [params[n] for n in names])
+    ev[2].record()
+    for p in params.values():
+        p.requires_grad_(False)
+    tr.updater.update(TRAIN_STEPS, dict(zip(names, grads)), params, opt,
+                      tr.multipliers)
+    ev[3].record()
+    torch.cuda.synchronize()
+    fwd_ms, bwd_ms, upd_ms = (ev[i].elapsed_time(ev[i + 1])
+                              for i in range(3))
+    g = torch.Generator(device=dev).manual_seed(9)
+    h = torch.randn((b * s, BENCH["embed_dim"]), generator=g,
+                    device=dev).to(torch.bfloat16)
+    w = params["embed/embedding"].to(torch.bfloat16)
+    labels = torch.randint(0, vocab, (b * s,), generator=g, device=dev)
+    lse = head_stats(h, w, labels)[0]
+    coef = torch.tensor(1.0 / (b * s), device=dev)
+    head_ms = time_ms(lambda: xent_backward(h, w, labels, lse, coef, 4096),
+                      3, 1)
+    # the head backward's f32 logits for one chunk: the bf16 product
+    # with an f32 output (what the port takes) against upcast operands
+    hc = h[:4096]
+    out_ms = time_ms(lambda: logits_f32(hc, w), 5, 1)
+    up_ms = time_ms(lambda: hc.float() @ w.float().T, 5, 1)
+    log(f"[train] head backward logits per 4096-token chunk: bf16 product "
+        f"with f32 output {out_ms:.3f} ms, f32 upcast product {up_ms:.3f} "
+        f"ms")
+    log(f"[train] split (CUDA events): forward {fwd_ms:.3f} ms, backward "
+        f"{bwd_ms:.3f} ms, update {upd_ms:.3f} ms; the head's backward "
+        f"alone {head_ms:.3f} ms")
+    profile("train_step", lambda: tr.train_step(params, opt, batch,
+                                                TRAIN_STEPS + 1), ms)
+    return launches
+
+
+def phase_resume(dev, arrays):
+    """k steps with checkpoint_frequency k, resume into a fresh Trainer
+    and continue: bit-for-bit the params and state of an uninterrupted
+    run (the kernels use no atomics; cuBLAS is deterministic on one
+    stream)."""
+    import shutil
+    import tempfile
+    from singa_tpu_torch import Trainer, synthetic_token_batches
+    k, total, bsz = 3, 6, 2
+
+    def trainer(steps):
+        cfg = small_cfg(batchsize=bsz)
+        cfg.train_steps, cfg.checkpoint_frequency = steps, k
+        return Trainer(cfg, SHAPES, device=dev)
+
+    def data(skip=0):
+        it = synthetic_token_batches(bsz, BENCH["seq_len"],
+                                     BENCH["vocab_size"], seed=2)
+        for _ in range(skip):
+            next(it)
+        return it
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    ws = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                          dir=os.path.join(REPO, "build"))
+    try:
+        whole = trainer(total)
+        pa, oa, _ = whole.run(*start(whole, arrays, dev), data())
+        first = trainer(k)
+        first.run(*start(first, arrays, dev), data(), workspace=ws)
+        again = trainer(total)
+        pc, oc, at = again.resume(*start(again, arrays, dev), ws)
+        assert at == k, at
+        pc, oc, _ = again.run(pc, oc, data(k), start_step=k)
+    finally:
+        shutil.rmtree(ws)
+    same_p = all(torch.equal(pa[n], pc[n]) for n in pa)
+    same_o = all(torch.equal(oa[sl][n], oc[sl][n]) for sl in oa
+                 for n in oa[sl])
+    log(f"[resume] 2L b={bsz}: {k} steps, snapshot, fresh Trainer resumes "
+        f"at step {at} and runs to {total}: params equal an uninterrupted "
+        f"run bit for bit: {same_p}; optimizer state: {same_o}")
+    assert same_p and same_o
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -416,18 +744,25 @@ def main() -> int:
     net = build(BENCH, BENCH["seq_len"])
     arrays = numpy_params(net, seed=0)
     launches = phase_forward(dev, arrays)
-    # the main path went through the kernels: 12 attention layers, 1 head
-    assert launches == {"flash_fwd": 12, "head_fwd": 1}, launches
+    # the forward went through the kernels: 12 attention layers, 1 head
+    assert launches == {"flash_fwd": 12, "head_fwd": 1, "flash_dq": 0,
+                        "flash_dkv": 0}, launches
     phase_serve(dev, arrays)
 
+    k34 = phase_flash_bwd(dev)
+    phase_grads(dev, arrays)
+    launches = phase_train(dev, arrays)
+    phase_resume(dev, arrays)
+
     kernels = []
-    for name, res, replaces, source in (
-            ("flash_fwd", k1, "singa_tpu/ops/attention.py:335",
-             "singa_tpu_torch/csrc/flash_fwd.cu"),
-            ("head_fwd", k2, "singa_tpu/ops/head_loss.py:35",
-             "singa_tpu_torch/csrc/head_fwd.cu")):
+    for name, res, replaces in (
+            ("flash_fwd", k1, "singa_tpu/ops/attention.py:335"),
+            ("head_fwd", k2, "singa_tpu/ops/head_loss.py:35"),
+            ("flash_dq", k34["dq"], "singa_tpu/ops/attention.py:418"),
+            ("flash_dkv", k34["dkv"], "singa_tpu/ops/attention.py:479")):
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": name, "route": "cuda",
+            "source": f"singa_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],

@@ -15,8 +15,12 @@ from .config import (ConfigError, ModelConfig, config_to_dict,
                      load_model_config, model_config_from_dict,
                      model_config_from_text)
 from .core.net import NeuralNet, build_net
+from .core.trainer import Trainer
+from .core.updater import Multipliers, Updater, learning_rate
 from .device import resolve_device
 from .models.generate import forward_cached, generate, init_cache
 from .models.transformer import synthetic_token_batches, transformer_lm
 from .serve.engine import InferenceEngine, ServeSpec
-from .weights import numpy_params, params_from_numpy
+from .utils.checkpoint import CheckpointManager
+from .weights import (numpy_params, opt_state_from_numpy, params_from_numpy,
+                      state_to_numpy)

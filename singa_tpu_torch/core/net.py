@@ -3,7 +3,8 @@
 Port of `singa_tpu/core/net.py:43-163`, `217-240` and `285-354`: the
 graph from `srclayers` edges, the topological sort, per-phase layer
 filtering by `exclude`, shape setup in topo order, the param index with
-`share_param` aliases, `init_params` and `apply`.  Mesh constraints,
+`share_param` aliases, `init_params`, `multipliers` (`:165-168`) and
+`apply`.  Mesh constraints,
 partition padding, remat and the relu+LRN fusion wait for the slices
 that need them.
 """
@@ -20,6 +21,7 @@ from ..device import DeviceLike, params_device, resolve_device
 from .graph import Graph
 from .init import init_param
 from .layers import Context, Layer, LayerError, ParamSpec, create_layer
+from .updater import Multipliers
 
 
 def _to_device(batch, device: torch.device):
@@ -111,6 +113,13 @@ class NeuralNet:
         return {name: init_param(gen, spec.cfg, spec.shape, spec.fan_in,
                                  dtype)
                 for name, spec in sorted(self.param_specs.items())}
+
+    def multipliers(self) -> Dict[str, Multipliers]:
+        """Each param's ParamProto learning_rate_multiplier and
+        weight_decay_multiplier, for the updater."""
+        return {name: Multipliers(spec.cfg.learning_rate_multiplier,
+                                  spec.cfg.weight_decay_multiplier)
+                for name, spec in self.param_specs.items()}
 
     def _resolve_params(self, params: Dict[str, torch.Tensor]):
         full = dict(params)

@@ -342,7 +342,7 @@ class LMHeadLossLayer(Layer, _HeadProjection):
         if self._use_fused(h2, w, is_vE):
             loss, prec = head_loss.fused_lm_xent(h2.contiguous(),
                                                  w.contiguous(), l2,
-                                                 self.scale)
+                                                 self.scale, self.chunk)
         else:
             loss, prec = loss_ops.chunked_lm_xent(
                 h2, w, l2, chunk_size=self.chunk, topk=self.topk,

@@ -4,8 +4,9 @@ Each `singa_tpu_torch/csrc/<name>.cu` is a plain C interface compiled by
 `nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC` into `build/kernels/` at the root of the checkout (a
 git-ignored directory), at first use, and loaded with `ctypes`.  The
-library name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  `build()`
+library name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  `build()`
 starts one nvcc per source, all at once.
 
 Nothing here runs when the module is imported: the CPU tests import
@@ -43,6 +44,12 @@ SIGNATURES = {
     "flash_fwd": [_P] * 5 + [_I] * 8 + [_P],
     # h, w, labels, lse, ll, hit, N, E, V, dtype, stream
     "head_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    # q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, dtype,
+    # stream
+    "flash_dq": [_P] * 7 + [_I] * 8 + [_P],
+    # q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal,
+    # dtype, stream
+    "flash_dkv": [_P] * 8 + [_I] * 8 + [_P],
 }
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _entries: Dict[str, tuple] = {}
@@ -66,8 +73,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 
 

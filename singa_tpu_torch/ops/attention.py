@@ -1,17 +1,26 @@
 """Attention ops of the port: the dense reference, RoPE, GQA expansion,
-and kernel K1, the packed flash-attention forward.
+and the packed flash attention with its three kernels.
 
-Port of `singa_tpu/ops/attention.py`.  K1 replaces the TPU kernel
-`_packed_fwd_kernel` (`:335`, launched by `_packed_forward`, `:548-584`)
-with the hand-written CUDA kernel in `csrc/flash_fwd.cu`.  Its wrapper,
-`flash_attention_packed_lse`, launches that kernel for a CUDA tensor and
-runs `flash_forward_plain`, the same online softmax step by step in
-PyTorch, for a CPU tensor; there is no other path between the two.
-`flash_attention` (strided (B, H, S, D)) is the packed kernel with one
-head per row, as in the JAX package (`:135-171`).
+Port of `singa_tpu/ops/attention.py`.  Three TPU kernels become
+hand-written CUDA kernels:
+  K1 `_packed_fwd_kernel` (`:335`)  -> `csrc/flash_fwd.cu`, forward O, lse
+  K3 `_packed_dq_kernel` (`:418`)   -> `csrc/flash_dq.cu`, dQ
+  K4 `_packed_dkv_kernel` (`:479`)  -> `csrc/flash_dkv.cu`, dK and dV
+Each has a plain PyTorch version here (`flash_forward_plain`,
+`flash_dq_plain`, `flash_dkv_plain`) that steps over the kernel's 64-row
+tiles in f32.  A CUDA tensor launches the kernel; a CPU tensor runs the
+plain version; there is no other path between the two.
+
+`_FlashPacked`, a `torch.autograd.Function`, carries K1 forward and K3
+plus K4 backward, as the JAX package's `custom_vjp`s do (`:644-722`):
+the backward forms delta = rowsum(dO*O) - dlse per head in f32 outside
+the kernels (`:596-603`).  `flash_attention_packed_lse` (differentiable
+in O and lse), `flash_attention_packed` and the strided
+`flash_attention` (K1 with one head per row, `:135-160`) all go
+through it.
 
 The TPU block geometry (`flash_blocks`, `_fit_block`) is not carried
-over: the CUDA kernel tiles on its own terms and takes any S and any
+over: the CUDA kernels tile on their own terms and take any S and any
 head_dim.  What stays is the shape rule that decides the route in
 kAttention (`flash_legal`), so one configuration takes the same path on
 both.
@@ -100,8 +109,32 @@ def expand_kv_heads(kv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return torch.repeat_interleave(kv, num_heads // hkv, dim=1)
 
 
+
+
 # ---------------------------------------------------------------------------
-# K1: packed flash-attention forward
+# K1, K3, K4: packed flash attention, forward and backward
+
+FLASH_BLOCK_Q = 64    # queries per q tile, as BQ in csrc/flash_dkv.cu
+
+
+def _packed_dims(q, k, num_heads: int, num_kv_heads: Optional[int]):
+    """(b, sq, sk, d, hkv, g) of packed q (B, Sq, H·D), k (B, Sk, Hkv·D)."""
+    b, sq, hd = q.shape
+    hkv = num_kv_heads or num_heads
+    return b, sq, k.shape[1], hd // num_heads, hkv, num_heads // hkv
+
+
+def _row_stats(t, hkv: int, g: int):
+    """(B, S, H) per-head row statistics → (B, Hkv, G, S) f32."""
+    b, s, _ = t.shape
+    return t.float().reshape(b, s, hkv, g).permute(0, 2, 3, 1)
+
+
+def _tile_probs(s, lse2, qpos, kpos, causal: bool):
+    """P = exp2(s − lse·log2e) of base-2 scores, causal-masked."""
+    if causal:
+        s = s.masked_fill(qpos < kpos, NEG_INF)
+    return torch.exp2(s - lse2)
 
 
 def flash_forward_plain(q, k, v, num_heads: int, causal: bool = True,
@@ -109,13 +142,10 @@ def flash_forward_plain(q, k, v, num_heads: int, causal: bool = True,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1's plain PyTorch version: the kernel's online softmax over kv
     tiles of `FLASH_BLOCK_K` keys, in f32, base 2 with scale·log2e
-    folded into q.  Same
-    inputs and outputs as `flash_attention_packed_lse`."""
-    b, sq, hd = q.shape
-    sk = k.shape[1]
-    d = hd // num_heads
-    hkv = num_kv_heads or num_heads
-    g = num_heads // hkv
+    folded into q.  Same inputs and outputs as
+    `flash_attention_packed_lse`."""
+    b, sq, sk, d, hkv, g = _packed_dims(q, k, num_heads, num_kv_heads)
+    hd = q.shape[2]
     qh = q.float().reshape(b, sq, hkv, g, d) * (LOG2E / math.sqrt(d))
     kh = k.float().reshape(b, sk, hkv, d)
     vh = v.float().reshape(b, sk, hkv, d)
@@ -147,20 +177,110 @@ def flash_forward_plain(q, k, v, num_heads: int, causal: bool = True,
             lse.reshape(b, sq, num_heads).contiguous())
 
 
+def flash_dq_plain(q, k, v, dout, lse, delta, num_heads: int,
+                   causal: bool = True,
+                   num_kv_heads: Optional[int] = None) -> torch.Tensor:
+    """K3's plain PyTorch version: dQ = scale·Σ dS·K over kv tiles of
+    `FLASH_BLOCK_K` keys in f32, with P recomputed from (q, k, lse) in
+    base 2 and dS = P∘(dO·Vᵀ − delta), as the kernel does.  dout, lse and
+    delta as `flash_dq` takes them; dQ in q's dtype."""
+    b, sq, sk, d, hkv, g = _packed_dims(q, k, num_heads, num_kv_heads)
+    scale = 1.0 / math.sqrt(d)
+    qh = q.float().reshape(b, sq, hkv, g, d) * (scale * LOG2E)
+    doh = dout.float().reshape(b, sq, hkv, g, d)
+    kh = k.float().reshape(b, sk, hkv, d)
+    vh = v.float().reshape(b, sk, hkv, d)
+    lse2 = _row_stats(lse, hkv, g)[..., None] * LOG2E
+    dl = _row_stats(delta, hkv, g)[..., None]
+    acc = torch.zeros((b, hkv, g, sq, d), device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kv_end = min(sk, sq) if causal else sk
+    for k0 in range(0, kv_end, FLASH_BLOCK_K):
+        kb = kh[:, k0:k0 + FLASH_BLOCK_K]
+        vb = vh[:, k0:k0 + FLASH_BLOCK_K]
+        kpos = k0 + torch.arange(kb.shape[1], device=q.device)[None, :]
+        p = _tile_probs(torch.einsum("bqhgd,bkhd->bhgqk", qh, kb), lse2,
+                        qpos, kpos, causal)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", doh, vb)
+        acc = acc + torch.einsum("bhgqk,bkhd->bhgqd", p * (dp - dl), kb)
+    dq = (acc * scale).permute(0, 3, 1, 2, 4)
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def flash_dkv_plain(q, k, v, dout, lse, delta, num_heads: int,
+                    causal: bool = True, num_kv_heads: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's plain PyTorch version: dV = Σ Pᵀ·dO and dK = scale·Σ dSᵀ·Q
+    over q tiles of `FLASH_BLOCK_Q` queries in f32, summed over each kv
+    head's group of q heads, with P and dS recomputed as in
+    `flash_dq_plain`.  (dK, dV) in k's and v's dtypes."""
+    b, sq, sk, d, hkv, g = _packed_dims(q, k, num_heads, num_kv_heads)
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, sq, hkv, g, d)
+    doh = dout.float().reshape(b, sq, hkv, g, d)
+    kh = k.float().reshape(b, sk, hkv, d)
+    vh = v.float().reshape(b, sk, hkv, d)
+    lse2 = _row_stats(lse, hkv, g)[..., None] * LOG2E
+    dl = _row_stats(delta, hkv, g)[..., None]
+    dk = torch.zeros((b, sk, hkv, d), device=q.device)
+    dv = torch.zeros((b, sk, hkv, d), device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    for q0 in range(0, sq, FLASH_BLOCK_Q):
+        sl = slice(q0, q0 + FLASH_BLOCK_Q)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, sl] * (scale * LOG2E),
+                         kh)
+        p = _tile_probs(s, lse2[..., sl, :], qpos[sl], kpos, causal)
+        dv = dv + torch.einsum("bhgqk,bqhgd->bkhd", p, doh[:, sl])
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", doh[:, sl], vh)
+        ds = p * (dp - dl[..., sl, :])
+        dk = dk + torch.einsum("bhgqk,bqhgd->bkhd", ds, qf[:, sl])
+    return ((dk * scale).reshape(k.shape).to(k.dtype),
+            dv.reshape(v.shape).to(v.dtype))
+
+
+def _check_packed(q, k, v, num_heads: int, kv_heads: int, dout=None,
+                  stats=()) -> None:
+    """Shapes of the packed layout: q (and dout) (B, Sq, H·D), k and v
+    (B, Sk, Hkv·D), row statistics (B, Sq, H)."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("flash attention takes packed (B, S, H·D) q, k, v")
+    b, sq, hd = q.shape
+    if (hd % num_heads or num_heads % kv_heads
+            or k.shape != v.shape or k.shape[0] != b
+            or k.shape[2] != kv_heads * (hd // num_heads)):
+        raise ValueError(f"bad packed shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} for "
+                         f"{num_heads} heads / {kv_heads} kv heads")
+    if dout is not None and dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
+    for t in stats:
+        if tuple(t.shape) != (b, sq, num_heads):
+            raise ValueError(f"lse and delta must be {(b, sq, num_heads)}, "
+                             f"not {tuple(t.shape)}")
+
+
+def _check_cuda(name: str, q, operands, stats=()):
+    """The kernels' contract: `operands` share q's device and dtype (f32
+    or bf16), row statistics are f32, everything is contiguous."""
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name} takes float32 or bfloat16, not {q.dtype}")
+    for t in operands:
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name}: an operand is {t.dtype} on "
+                             f"{t.device}, q is {q.dtype} on {q.device}")
+    for t in stats:
+        if t.device != q.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: lse and delta must be float32 on "
+                             f"{q.device}")
+    if not all(t.is_contiguous() for t in (q, *operands, *stats)):
+        raise ValueError(f"{name} needs contiguous operands")
+
+
 def _flash_forward_cuda(q, k, v, num_heads: int, causal: bool,
                         kv_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, sq, hd = q.shape
-    sk = k.shape[1]
-    d = hd // num_heads
-    for name, t in (("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"flash_fwd: {name} is {t.dtype} on {t.device}"
-                             f", q is {q.dtype} on {q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_fwd takes float32 or bfloat16, not "
-                         f"{q.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_fwd needs contiguous q, k, v")
+    b, sq, sk, d, _, _ = _packed_dims(q, k, num_heads, kv_heads)
+    _check_cuda("flash_fwd", q, (k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, sq, num_heads), dtype=torch.float32,
                       device=q.device)
@@ -172,6 +292,99 @@ def _flash_forward_cuda(q, k, v, num_heads: int, causal: bool,
     return out, lse
 
 
+def _flash_dq_cuda(q, k, v, dout, lse, delta, num_heads: int, causal: bool,
+                   kv_heads: int) -> torch.Tensor:
+    b, sq, sk, d, _, _ = _packed_dims(q, k, num_heads, kv_heads)
+    _check_cuda("flash_dq", q, (k, v, dout), (lse, delta))
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _kernels.launch("flash_dq", q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                        delta.data_ptr(), dq.data_ptr(), b, sq, sk,
+                        num_heads, kv_heads, d, int(causal),
+                        _DTYPE_CODE[q.dtype])
+    return dq
+
+
+def _flash_dkv_cuda(q, k, v, dout, lse, delta, num_heads: int,
+                    causal: bool, kv_heads: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, sq, sk, d, _, _ = _packed_dims(q, k, num_heads, kv_heads)
+    _check_cuda("flash_dkv", q, (k, v, dout), (lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        _kernels.launch("flash_dkv", q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+                        sq, sk, num_heads, kv_heads, d, int(causal),
+                        _DTYPE_CODE[q.dtype])
+    return dk, dv
+
+
+def _route(kernel, plain, q, *args):
+    """A CUDA tensor launches the kernel, a CPU tensor runs the plain
+    version; nothing else."""
+    if q.is_cuda:
+        return kernel(q, *args)
+    if q.device.type == "cpu":
+        return plain(q, *args)
+    raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+
+
+def flash_dq(q, k, v, dout, lse, delta, num_heads: int, causal: bool = True,
+             num_kv_heads: Optional[int] = None) -> torch.Tensor:
+    """dQ of packed flash attention (K3 on the card): dout in q's dtype,
+    lse and delta (B, Sq, H) f32 with delta = rowsum(dO∘O) − dlse."""
+    _check_packed(q, k, v, num_heads, num_kv_heads or num_heads, dout,
+                  (lse, delta))
+    return _route(_flash_dq_cuda, flash_dq_plain, q, k, v, dout, lse, delta,
+                  num_heads, causal, num_kv_heads or num_heads)
+
+
+def flash_dkv(q, k, v, dout, lse, delta, num_heads: int, causal: bool = True,
+              num_kv_heads: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) of packed flash attention (K4 on the card); arguments as
+    `flash_dq`."""
+    _check_packed(q, k, v, num_heads, num_kv_heads or num_heads, dout,
+                  (lse, delta))
+    return _route(_flash_dkv_cuda, flash_dkv_plain, q, k, v, dout, lse,
+                  delta, num_heads, causal, num_kv_heads or num_heads)
+
+
+class _FlashPacked(torch.autograd.Function):
+    """K1 forward, K3 and K4 backward (the JAX package's
+    `_packed_lse_vjp_fwd` / `_packed_lse_vjp_bwd`, `:701-718`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, causal, kv_heads):
+        out, lse = _route(_flash_forward_cuda, flash_forward_plain, q, k, v,
+                          num_heads, causal, kv_heads)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (num_heads, causal, kv_heads)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        num_heads, causal, kv_heads = ctx.args
+        if dout is None:
+            dout = torch.zeros_like(out)
+        b, sq, hd = q.shape
+        # delta[b, s, h] = rowsum(dO·O) within head h, from the saved O
+        # upcast to f32; the lse cotangent joins it (:596-603)
+        delta = torch.sum((dout.float() * out.float()).reshape(
+            b, sq, num_heads, hd // num_heads), dim=-1)
+        if dlse is not None:
+            delta = delta - dlse.float()
+        dor = dout.to(q.dtype).contiguous()
+        dq = flash_dq(q, k, v, dor, lse, delta, num_heads, causal, kv_heads)
+        dk, dv = flash_dkv(q, k, v, dor, lse, delta, num_heads, causal,
+                           kv_heads)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention_packed_lse(q, k, v, num_heads: int,
                                causal: bool = True,
                                num_kv_heads: Optional[int] = None
@@ -179,22 +392,11 @@ def flash_attention_packed_lse(q, k, v, num_heads: int,
     """Flash attention on the packed projection layout: q (B, Sq, H·D),
     k/v (B, Sk, Hkv·D) → (O (B, Sq, H·D) in q's dtype, natural-log lse
     (B, Sq, H) f32).  GQA is native: q head h reads kv head h // (H/Hkv).
-    A CUDA tensor launches K1; a CPU tensor runs `flash_forward_plain`."""
+    Differentiable in both outputs.  On CUDA tensors K1 runs forward and
+    K3 and K4 backward; on CPU tensors their plain versions."""
     kv_heads = num_kv_heads or num_heads
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError("flash attention takes packed (B, S, H·D) q, k, v")
-    b, sq, hd = q.shape
-    if (hd % num_heads or num_heads % kv_heads
-            or k.shape != v.shape or k.shape[0] != b
-            or k.shape[2] != kv_heads * (hd // num_heads)):
-        raise ValueError(f"bad packed shapes q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} for "
-                         f"{num_heads} heads / {kv_heads} kv heads")
-    if q.is_cuda:
-        return _flash_forward_cuda(q, k, v, num_heads, causal, kv_heads)
-    if q.device.type == "cpu":
-        return flash_forward_plain(q, k, v, num_heads, causal, kv_heads)
-    raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    _check_packed(q, k, v, num_heads, kv_heads)
+    return _FlashPacked.apply(q, k, v, num_heads, causal, kv_heads)
 
 
 def flash_attention_packed(q, k, v, num_heads: int, causal: bool = True,
@@ -206,7 +408,8 @@ def flash_attention_packed(q, k, v, num_heads: int, causal: bool = True,
 
 def flash_attention(q, k, v, causal: bool = True):
     """Strided (B, H, S, D) flash attention: (B·H, S, D) is the packed
-    layout with one head per row, so this is K1 with num_heads=1."""
+    layout with one head per row, so this is K1 (K3, K4 backward) with
+    num_heads=1."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     out, _ = flash_attention_packed_lse(

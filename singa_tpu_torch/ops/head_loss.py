@@ -1,6 +1,6 @@
-"""Kernel K2, the fused LM-head forward, and its loss.
+"""Kernel K2, the fused LM-head forward, and its loss with a backward.
 
-Port of `singa_tpu/ops/head_loss.py:35-133`.  K2 replaces the TPU kernel
+Port of `singa_tpu/ops/head_loss.py:35-167`.  K2 replaces the TPU kernel
 `_fwd_kernel` (`:35`, launched by `_head_stats_pallas`, `:80-106`) with
 the hand-written CUDA kernel in `csrc/head_fwd.cu`: one pass over vocab
 tiles computes logits = h·Wᵀ with W in the tied (V, E) layout and keeps
@@ -10,8 +10,10 @@ never reach device memory.
 
 `head_stats` launches the kernel for a CUDA tensor and runs
 `head_stats_plain`, the same online pass step by step in PyTorch, for a
-CPU tensor.  Forward only: the chunked backward (`_fused_bwd`) comes
-with training.
+CPU tensor.  `fused_lm_xent` is a `torch.autograd.Function` whose
+forward is that call and whose backward is the JAX package's chunked
+`_fused_bwd` (`:136-164`) in PyTorch: the JAX backward ran in XLA
+outside any Pallas kernel, so its products are `torch.matmul`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Tuple
 import torch
 
 from . import _kernels
+from .loss import _largest_divisor_leq
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -103,10 +106,67 @@ def head_stats(h, w_vE, labels
     raise ValueError(f"head_stats runs on cuda or cpu, not {h.device}")
 
 
-def fused_lm_xent(h, w_vE, labels, scale: float = 1.0
+def logits_f32(h, w_vE) -> torch.Tensor:
+    """h·Wᵀ with an f32 result, as the JAX product's
+    `preferred_element_type=f32`.  bf16 operands on CUDA go through
+    cuBLAS's bf16 product with an f32 output (f32 accumulation, tensor
+    cores); on the CPU, which has no such product, and for f32 operands
+    the operands are taken in f32 — the same products, summed in f32."""
+    if h.is_cuda and h.dtype == torch.bfloat16:
+        return torch.mm(h, w_vE.T, out_dtype=torch.float32)
+    return h.float() @ w_vE.float().T
+
+
+def xent_backward(h, w_vE, labels, lse, coef, chunk_size: int):
+    """Gradients of scale·mean(lse − label logit) w.r.t. h (N, E) and the
+    (V, E) weight, chunk by chunk over the tokens, from the forward's
+    per-token lse (`_fused_bwd`, singa_tpu/ops/head_loss.py:136-164):
+    logits = h·Wᵀ in f32, p = exp(logits − lse), dl = (p − onehot)·coef
+    cast to h's dtype, dh = dl·W, dW += dlᵀ·h accumulated in f32.  `coef`
+    is dloss·scale/n (a 0-d f32 tensor).  One (chunk, V) f32 block lives
+    at a time."""
+    n = h.shape[0]
+    c = _largest_divisor_leq(n, chunk_size)
+    lbl = labels.long()
+    dh = torch.empty_like(h)
+    dw = torch.zeros(w_vE.shape, dtype=torch.float32, device=h.device)
+    for i in range(0, n, c):
+        hc = h[i:i + c]
+        p = torch.exp(logits_f32(hc, w_vE) - lse[i:i + c, None])
+        p[torch.arange(p.shape[0], device=h.device), lbl[i:i + c]] -= 1.0
+        dl = (p * coef).to(h.dtype)
+        dh[i:i + c] = dl @ w_vE
+        dw += (dl.T @ hc).float()
+    return dh, dw.to(w_vE.dtype)
+
+
+class _FusedHead(torch.autograd.Function):
+    """K2 forward (saving the per-token lse), chunked PyTorch backward —
+    the JAX package's `fused_lm_xent` custom_vjp (`:117-167`)."""
+
+    @staticmethod
+    def forward(ctx, h, w_vE, labels, scale, chunk_size):
+        n = h.shape[0]
+        lse, ll, hit = head_stats(h, w_vE, labels)
+        ctx.save_for_backward(h, w_vE, labels, lse)
+        ctx.args = (scale, chunk_size)
+        prec = scale * torch.sum(hit) / n
+        ctx.mark_non_differentiable(prec)
+        return scale * torch.sum(lse - ll) / n, prec
+
+    @staticmethod
+    def backward(ctx, dloss, _dprec):      # precision is metric-only
+        h, w_vE, labels, lse = ctx.saved_tensors
+        scale, chunk_size = ctx.args
+        coef = dloss.float() * (scale / h.shape[0])
+        dh, dw = xent_backward(h, w_vE, labels, lse, coef, chunk_size)
+        return dh, dw, None, None, None
+
+
+def fused_lm_xent(h, w_vE, labels, scale: float = 1.0,
+                  chunk_size: int = 4096
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, top-1 precision) for an LM head with (V, E) weight through
-    the fused forward."""
-    n = h.shape[0]
-    lse, ll, hit = head_stats(h, w_vE, labels)
-    return scale * torch.sum(lse - ll) / n, scale * torch.sum(hit) / n
+    the fused forward (K2 on the card); differentiable in h and w_vE,
+    with the backward over token chunks of `chunk_size`."""
+    return _FusedHead.apply(h, w_vE, labels, scale, chunk_size)

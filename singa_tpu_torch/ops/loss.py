@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -54,14 +55,26 @@ def _largest_divisor_leq(n: int, target: int) -> int:
     return n
 
 
+def _chunk_stats(hc, lc, wf, topk: int, w_is_vE: bool):
+    """(Σ nll, Σ hits) of one token chunk; its (chunk, V) f32 logits."""
+    logits = hc.float() @ (wf.T if w_is_vE else wf)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, 1, lc[:, None])[:, 0]
+    return torch.sum(lse - ll), torch.sum(_hits(logits, lc, topk).float())
+
+
 def chunked_lm_xent(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                     chunk_size: int = 4096, topk: int = 1,
                     scale: float = 1.0, w_is_vE: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """LM-head projection + softmax-xent + top-k precision over token
-    chunks, so at most (chunk, V) logits exist at once.  h: (N, E);
-    w: (E, V), or with `w_is_vE` the (V, E) tied embedding layout
-    (contracted on E without a transposed copy)."""
+    chunks.  h: (N, E); w: (E, V), or with `w_is_vE` the (V, E) tied
+    embedding layout (contracted on E without a transposed copy).
+
+    Each chunk runs under activation checkpointing, as the JAX package's
+    `jax.checkpoint` per chunk (singa_tpu/ops/loss.py:83): its logits are
+    dropped after the forward and recomputed in the backward, so at most
+    one chunk's (chunk, V) f32 logits live at a time."""
     n = h.shape[0]
     c = _largest_divisor_leq(n, chunk_size)
     wf = w.float()
@@ -69,10 +82,10 @@ def chunked_lm_xent(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     nll = torch.zeros((), dtype=torch.float32, device=h.device)
     hits = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, n, c):
-        hc, lc = h[i:i + c].float(), labels[i:i + c]
-        logits = hc @ wf.T if w_is_vE else hc @ wf
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, 1, lc[:, None])[:, 0]
-        nll = nll + torch.sum(lse - ll)
-        hits = hits + torch.sum(_hits(logits, lc, topk).float())
+        d_nll, d_hits = checkpoint(_chunk_stats, h[i:i + c],
+                                   labels[i:i + c], wf, topk, w_is_vE,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+        nll = nll + d_nll
+        hits = hits + d_hits
     return scale * nll / n, scale * hits / n

@@ -1,4 +1,4 @@
-"""Carrying weights into the port.
+"""Carrying weights and optimizer state into the port and back out.
 
 `params_from_numpy` takes a `{name: ndarray}` dict — the JAX package's
 params as numpy, or weights drawn with `numpy_params` — to the port's
@@ -6,7 +6,9 @@ params on a device.  Both packages key params by the same names and keep
 the same layouts ((E, H·D) projections, the (V, E) embedding table), so
 the move is one-to-one; it is checked name by name and shape by shape
 against the port net's `param_specs`, and a missing, extra or misshaped
-entry raises.
+entry raises.  `opt_state_from_numpy` does the same for the optimizer
+state, `{"history": {name: array}, "update": {...}}` in both packages,
+and `state_to_numpy` takes the port's params and state back to numpy.
 """
 
 from __future__ import annotations
@@ -44,6 +46,29 @@ def params_from_numpy(net, arrays: Mapping[str, np.ndarray],
             t = torch.tensor(arr)
         out[name] = t.to(device=dev, dtype=dtype or t.dtype)
     return out
+
+
+def opt_state_from_numpy(net, state: Mapping[str, Mapping[str, np.ndarray]],
+                         device: DeviceLike = None
+                         ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's `opt_state` as numpy — one dict of arrays per
+    slot ("history", and "update" for kAdaDelta/kAdam) — as the port's,
+    each slot checked against the net as `params_from_numpy` checks."""
+    return {slot: params_from_numpy(net, arrays, device)
+            for slot, arrays in state.items()}
+
+
+def state_to_numpy(params: Mapping[str, torch.Tensor],
+                   opt_state: Optional[Mapping[str, Mapping[str,
+                                                          torch.Tensor]]]
+                   = None):
+    """(params, opt_state) as numpy dicts on the host, in the layout
+    both packages share; opt_state None gives None."""
+    def host(d):
+        return {k: v.detach().cpu().numpy() for k, v in d.items()}
+    return (host(params),
+            None if opt_state is None
+            else {slot: host(d) for slot, d in opt_state.items()})
 
 
 def numpy_params(net, seed: int = 0) -> Dict[str, np.ndarray]:

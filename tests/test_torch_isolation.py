@@ -16,6 +16,7 @@ import torch
 
 import singa_tpu_torch
 from singa_tpu_torch.core.net import build_net
+from singa_tpu_torch.core.trainer import Trainer
 from singa_tpu_torch.models.generate import init_cache
 from singa_tpu_torch.models.transformer import transformer_lm
 from singa_tpu_torch.serve.engine import InferenceEngine, ServeSpec
@@ -77,8 +78,8 @@ def test_entry_points_raise_without_cuda():
                     "behaviour is checked where there is none")
     cfg = transformer_lm(vocab_size=256, num_layers=1, embed_dim=32,
                          num_heads=2, head_dim=16, seq_len=16, batchsize=2)
-    net = build_net(cfg, "kTrain", {"data": {"input": (16,),
-                                             "target": (16,)}})
+    shapes = {"data": {"input": (16,), "target": (16,)}}
+    net = build_net(cfg, "kTrain", shapes)
     arrays = numpy_params(net, seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy(net, arrays)
@@ -89,6 +90,8 @@ def test_entry_points_raise_without_cuda():
     params = params_from_numpy(net, arrays, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(net, ServeSpec(), params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, shapes)
     # asked for the CPU, the same calls run there
     assert net.init_params(0, device="cpu")["embed/embedding"].device.type \
         == "cpu"
@@ -98,3 +101,10 @@ def test_entry_points_raise_without_cuda():
     out = eng.run_batch("generate", np.ones((2, 4), np.int32),
                         np.array([4, 2], np.int32))
     assert out.shape == (2, 2)
+    trainer = Trainer(cfg, shapes, device="cpu")
+    p, opt = trainer.init(0)
+    batch = {"data": {"input": np.ones((2, 16), np.int32),
+                      "target": np.ones((2, 16), np.int32)}}
+    _, _, metrics = trainer.train_step(p, opt, batch, 0)
+    assert p["embed/embedding"].device.type == "cpu"
+    assert np.isfinite(float(metrics["loss"]))
