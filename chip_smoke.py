@@ -34,7 +34,7 @@ non-zero before the last line is printed:
    must get a gradient on both, within a stated share of its largest
    magnitude, and the card's run must launch K1, K3 and K4 twice each
    and K2 once.
-7. Training, the slice's main path: `Trainer.train_step` takes Adam
+7. Training, slice 2's main path: `Trainer.train_step` takes Adam
    steps of the full 12-layer bench stack at B=8 on synthetic token
    batches; each step must launch K1, K3, K4 12 times and K2 once, and
    the loss must fall.  Step time, tokens/s, the forward / backward /
@@ -42,11 +42,25 @@ non-zero before the last line is printed:
    at 2 layers, `Trainer.run` saves after k steps, a fresh `Trainer`
    resumes from the snapshot and continues, and its params must equal
    an uninterrupted run's bit for bit.
+8. K5 and K6 (the LRN forward and backward) against their plain
+   versions at AlexNet-CIFAR10's norm1 and norm2 shapes (B=1024, relu
+   fused, bf16 and f32; timed in bf16 with `F.local_response_norm` on
+   relu(x) as the library yardstick), at a ragged shape (N=3, C=13,
+   L=3, beta=0.5, relu off) and at C=3000 (one pixel per block).
+9. AlexNet-CIFAR10, this slice's main path: `examples/cifar10/
+   alexnet.conf` through the port's config parser at full width, its own
+   batch 1024, bf16 compute, numpy-seeded weights, synthetic CIFAR-shaped
+   batches: 20 kSGD steps through `Trainer.train_step` and two more
+   through `Trainer.train_steps`, each step launching K5 and K6 twice and
+   K1-K4 never; images/s, the step's split, a profile and peak memory;
+   the eval step through `Trainer.evaluate` (K5 twice per step); then
+   the same weights at batch 4 in f32 on the card and on the CPU, whose
+   loss and every gradient must agree.
 
 The last lines are one JSON object listing each kernel with its
-launches (over phase 7's training run), error, times and bound; the
-card's `nvidia-smi` name and power limit; and
-{"ok": true, "device": {...}}.
+launches (K1-K4 over phase 7's training run, K5/K6 over phase 9's),
+error, times and bound; the card's `nvidia-smi` name and power limit;
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -522,7 +536,8 @@ def phase_serve(dev, arrays):
 GRAD_RTOL = 0.05
 SHAPES = {"data": {"input": (BENCH["seq_len"],),
                    "target": (BENCH["seq_len"],)}}
-PER_STEP = {"flash_fwd": 12, "flash_dq": 12, "flash_dkv": 12, "head_fwd": 1}
+PER_STEP = {"flash_fwd": 12, "flash_dq": 12, "flash_dkv": 12, "head_fwd": 1,
+            "lrn_fwd": 0, "lrn_bwd": 0}
 
 
 def small_cfg(**kw):
@@ -563,7 +578,7 @@ def phase_grads(dev, arrays):
     log(f"[grads] card launches {launches}")
     # two attention layers and the head
     assert launches == {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2,
-                        "head_fwd": 1}, launches
+                        "head_fwd": 1, "lrn_fwd": 0, "lrn_bwd": 0}, launches
     worst = 0.0
     for name in sorted(res["cpu"]):
         want, got = res["cpu"][name], res[dev][name]
@@ -716,6 +731,271 @@ def phase_resume(dev, arrays):
     assert same_p and same_o
 
 
+# ---------------------------------------------------------------------------
+# phase 8: K5 and K6 against their plain versions
+
+ALEX_SHAPES = {"norm1": (1024, 32, 32, 64), "norm2": (1024, 16, 16, 192)}
+
+
+def _ulp_bf16(top: float) -> float:
+    return 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def lrn_library_ms(a, g, local_size, alpha, beta, knorm):
+    """`F.local_response_norm` on the NCHW view of NHWC `a` (relu(x) when
+    the kernels fuse the ReLU): its forward, and its forward-and-backward
+    less its forward (autograd recording in both) — the yardstick for K5
+    and for K6."""
+    lrn_f = torch.nn.functional.local_response_norm
+    an = a.permute(0, 3, 1, 2).detach().requires_grad_()
+    gn = g.permute(0, 3, 1, 2)
+
+    def fwd():
+        return lrn_f(an, local_size, alpha, beta, knorm)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), an, gn)
+    f = time_ms(fwd, 10)
+    return f, time_ms(fwd_bwd, 10) - f
+
+
+def check_lrn(shape, dtype, local_size, alpha, beta, relu, dev, seed,
+              scale=1.0, timed=False):
+    from singa_tpu_torch.ops import lrn as L
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    args = (local_size, alpha, beta, 1.0, relu)
+    y, dx = L.lrn_fwd(x, *args), L.lrn_bwd(x, g, *args)
+    torch.cuda.synchronize()
+    ref_y, ref_dx = L.lrn_fwd_plain(x, *args), L.lrn_bwd_plain(x, g, *args)
+    tag = (f"{tuple(shape)} {str(dtype).split('.')[-1]} L={local_size} "
+           f"alpha={alpha} beta={beta} relu={relu}")
+    errs = {}
+    for name, got, want in (("lrn_fwd", y, ref_y), ("lrn_bwd", dx, ref_dx)):
+        top = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        # f32: the same f32 steps, another sqrt/pow: 1e-5 of the largest
+        # |value|; bf16: the same f32 values rounded, one ulp apart at most
+        tol = 1e-5 * top if dtype == torch.float32 else _ulp_bf16(top)
+        assert torch.isfinite(got.float()).all(), (tag, name)
+        assert err <= tol, (tag, name, err, tol)
+        errs[name] = {"max_abs_err": err}
+        log(f"[lrn] {name} {tag}: max err {err:.3g} (tol {tol:.3g}, "
+            f"max|value| {top:.3g})")
+    if timed:
+        esz, n = x.element_size(), x.numel()
+        a = torch.relu(x) if relu else x
+        lib_f, lib_b = lrn_library_ms(a, g, local_size, alpha, beta, 1.0)
+        for name, fn, plain, nbytes, ops, lib in (
+                ("lrn_fwd", lambda: L.lrn_fwd(x, *args),
+                 lambda: L.lrn_fwd_plain(x, *args), 2 * n * esz,
+                 (local_size + 7) * n, lib_f),
+                ("lrn_bwd", lambda: L.lrn_bwd(x, g, *args),
+                 lambda: L.lrn_bwd_plain(x, g, *args), 3 * n * esz,
+                 (2 * local_size + 13) * n, lib_b)):
+            r = errs[name]
+            r["ms"] = time_ms(fn, 20)
+            r["plain_ms"] = time_ms(plain, 5, 1)
+            r["library_ms"] = lib
+            # f32 arithmetic outside the tensor cores
+            r["bound_ms"], r["bound_by"] = bound(nbytes, ops, torch.float32)
+            log(f"[lrn] {name} {tag}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, F.local_response_norm"
+                f"{' on relu(x)' if relu else ''} {lib:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return errs
+
+
+def phase_lrn(dev):
+    """Returns each kernel's record at norm1 (the larger shape)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    timed = {}
+    for name, shape in ALEX_SHAPES.items():
+        # inputs ~30: the window sum moves n = 1 + (alpha/L)·s visibly
+        timed[name] = check_lrn(shape, bf16, 5, 1e-4, 0.75, True, dev, 80,
+                                scale=30.0, timed=True)
+        check_lrn(shape, f32, 5, 1e-4, 0.75, True, dev, 81, scale=30.0)
+    for dtype in (f32, bf16):
+        check_lrn((3, 7, 5, 13), dtype, 3, 1.0, 0.5, False, dev, 82)
+        # C > 2048: one pixel per block, the kernels' wide-row geometry
+        check_lrn((2, 3, 3, 3000), dtype, 5, 1.0, 0.75, True, dev, 83)
+    return timed["norm1"]
+
+
+# ---------------------------------------------------------------------------
+# phase 9: AlexNet-CIFAR10, the slice's main path
+
+ALEX_CONF = os.path.join(REPO, "examples", "cifar10", "alexnet.conf")
+RGB_SHAPES = {"data": {"pixel": (3, 32, 32), "label": ()}}
+ALEX_STEPS = 20
+ALEX_BATCH = 1024   # alexnet.conf's own batchsize
+ALEX_PER_STEP = {"flash_fwd": 0, "head_fwd": 0, "flash_dq": 0,
+                 "flash_dkv": 0, "lrn_fwd": 2, "lrn_bwd": 2}
+# card against CPU at batch 4, f32, train=False: of each gradient's
+# largest magnitude on the CPU, about 5x the worst gap an H100 showed
+# (conv1/weight 0.0035: cuDNN and the CPU sum the first layers' small,
+# cancelling gradients in another order)
+ALEX_GRAD_RTOL = 0.02
+ALEX_LOSS_RTOL = 1e-5
+# the mean loss of the last 5 steps must sit this far (nats) below the
+# first step's
+ALEX_MARGIN = 0.1
+
+
+def alexnet_trainer(dev, precision, test_steps=0):
+    from singa_tpu_torch import Trainer, load_model_config
+    cfg = load_model_config(ALEX_CONF)
+    cfg.precision = precision
+    cfg.test_steps = test_steps
+    return Trainer(cfg, RGB_SHAPES, device=dev, log_fn=lambda msg: None)
+
+
+def phase_alexnet(dev):
+    from singa_tpu_torch import (numpy_params, params_from_numpy,
+                                 synthetic_image_batches)
+    from singa_tpu_torch.ops import _kernels
+    tr = alexnet_trainer(dev, "bfloat16", test_steps=1)
+    b = tr.train_net.layers["data"].batchsize
+    assert b == ALEX_BATCH, b
+    arrays = numpy_params(tr.train_net, seed=0)
+    params = params_from_numpy(tr.train_net, arrays, device=dev)
+    opt = tr.updater.init(params)
+    data = synthetic_image_batches(b, (3, 32, 32), seed=0, stream_seed=1)
+    batches = [next(data) for _ in range(ALEX_STEPS + 2)]
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    for step in range(ALEX_STEPS):
+        before = dict(_kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = tr.train_step(params, opt, batches[step], step)
+        losses.append(float(m["loss"]))     # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
+        assert per == ALEX_PER_STEP, (step, per)
+        assert math.isfinite(losses[-1]), losses
+    stacked = {"data": {k: np.stack([bt["data"][k] for bt in batches[-2:]])
+                        for k in ("pixel", "label")}}
+    params, opt, ms2 = tr.train_steps(params, opt, stacked, ALEX_STEPS, 2,
+                                      stacked=True)
+    losses += [float(v) for v in ms2["loss"]]
+    launches = dict(_kernels.LAUNCHES)
+    n_all = ALEX_STEPS + 2
+    assert launches == {k: v * n_all for k, v in ALEX_PER_STEP.items()}, \
+        launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = sum(step_ms[2:]) / len(step_ms[2:])
+    log(f"[alexnet] alexnet.conf b={b} bf16 kSGD: {n_all} steps "
+        f"({ALEX_STEPS} train_step + 2 train_steps), launches {launches}; "
+        f"losses " + " ".join(f"{x:.4f}" for x in losses))
+    check_alexnet_loss(losses)
+    log(f"[alexnet] step {ms:.3f} ms (mean of steps 2..{ALEX_STEPS - 1}, "
+        f"host clock, synchronised; steps 0-1 {step_ms[0]:.1f}, "
+        f"{step_ms[1]:.1f} ms), {b / ms * 1e3:.1f} images/s; peak device "
+        f"memory {peak_gib:.2f} GiB")
+
+    # the step's split on the card's clock, as phase 7
+    batch = batches[-1]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    names = sorted(params)
+    for p in params.values():
+        p.requires_grad_(True)
+    ev[0].record()
+    loss, _, _ = tr.train_net.apply(params, batch, train=True,
+                                    compute_dtype=torch.bfloat16,
+                                    rng=tr.seed, step=n_all)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, [params[n] for n in names])
+    ev[2].record()
+    for p in params.values():
+        p.requires_grad_(False)
+    tr.updater.update(n_all, dict(zip(names, grads)), params, opt,
+                      tr.multipliers)
+    ev[3].record()
+    torch.cuda.synchronize()
+    fwd_ms, bwd_ms, upd_ms = (ev[i].elapsed_time(ev[i + 1])
+                              for i in range(3))
+    log(f"[alexnet] split (CUDA events): forward {fwd_ms:.3f} ms, backward "
+        f"{bwd_ms:.3f} ms, update {upd_ms:.3f} ms")
+    profile("alexnet_train_step", lambda: tr.train_step(
+        params, opt, batch, n_all + 1), ms, top=12)
+
+    # the eval step (scoring forward) through Trainer.evaluate
+    _kernels.reset_launches()
+    avg = tr.evaluate(params, iter(batches[:1]), 1, tr.test_step)
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHES) == {**{k: 0 for k in ALEX_PER_STEP},
+                                       "lrn_fwd": 2}, _kernels.LAUNCHES
+    assert math.isfinite(avg["loss"]) and 0.0 <= avg["precision"] <= 1.0
+    n_eval = 10
+
+    def evaluate():
+        return tr.evaluate(params, iter(batches[:n_eval]), n_eval,
+                           tr.test_step)
+    evaluate()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluate()
+    eval_ms = (time.perf_counter() - t0) * 1e3 / n_eval
+    log(f"[alexnet] eval step (Trainer.evaluate, {n_eval} batches, host "
+        f"clock, metrics on the host): {eval_ms:.3f} ms, "
+        f"{b / eval_ms * 1e3:.1f} images/s; loss {avg['loss']:.5f}, "
+        f"precision {avg['precision']:.5f}")
+    profile("alexnet_eval_step", lambda: tr.test_step(params, batches[0]),
+            eval_ms)
+    compare_alexnet(dev, arrays)
+    return launches
+
+
+def check_alexnet_loss(losses):
+    """The mean loss of the last 5 steps must sit ALEX_MARGIN nats below
+    the first step's.  At this config's lr (0.01, momentum 0.9, fc
+    biases 1.0) the loss first climbs for a few steps, then comes down."""
+    top = max(losses)
+    tail = sum(losses[-5:]) / 5
+    log(f"[alexnet] loss first {losses[0]:.5f}, peak {top:.5f} at step "
+        f"{losses.index(top)}, mean of last 5 {tail:.5f} (must be < first "
+        f"- {ALEX_MARGIN}); ln 10 = {math.log(10):.5f}")
+    assert tail < losses[0] - ALEX_MARGIN, losses
+
+
+def compare_alexnet(dev, arrays):
+    """The training weights at full width, batch 4, f32, train=False
+    (no dropout, no mirror; K5/K6 on the card, their plain versions on
+    the CPU): loss and every gradient, card against CPU."""
+    from singa_tpu_torch import params_from_numpy, synthetic_image_batches
+    batch = next(synthetic_image_batches(4, (3, 32, 32), seed=3))
+    res = {}
+    for d in (dev, "cpu"):
+        tr = alexnet_trainer(d, "float32")
+        net = tr.train_net
+        params = params_from_numpy(net, arrays, device=d)
+        for p in params.values():
+            p.requires_grad_(True)
+        loss, _, _ = net.apply(params, batch, train=False)
+        names = sorted(params)
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        res[d] = (float(loss.detach()), {n: g.float().cpu()
+                                for n, g in zip(names, grads)})
+    (lc, gc), (lp, gp) = res[dev], res["cpu"]
+    log(f"[alexnet] b=4 f32 card loss {lc:.7f}, cpu loss {lp:.7f} (rtol "
+        f"{ALEX_LOSS_RTOL})")
+    assert abs(lc - lp) <= ALEX_LOSS_RTOL * abs(lp), (lc, lp)
+    worst = 0.0
+    for name in sorted(gp):
+        top = gp[name].abs().max().item()
+        gap = (gc[name] - gp[name]).abs().max().item()
+        ratio = gap / top if top > 0 else gap
+        worst = max(worst, ratio)
+        log(f"[alexnet]   {name}: max|card - cpu| {gap:.3g}, max|cpu| "
+            f"{top:.3g}, ratio {ratio:.3g} (tol {ALEX_GRAD_RTOL})")
+        assert torch.isfinite(gc[name]).all() and ratio <= ALEX_GRAD_RTOL, \
+            name
+    log(f"[alexnet] card against CPU: worst gradient ratio {worst:.3g}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -746,7 +1026,7 @@ def main() -> int:
     launches = phase_forward(dev, arrays)
     # the forward went through the kernels: 12 attention layers, 1 head
     assert launches == {"flash_fwd": 12, "head_fwd": 1, "flash_dq": 0,
-                        "flash_dkv": 0}, launches
+                        "flash_dkv": 0, "lrn_fwd": 0, "lrn_bwd": 0}, launches
     phase_serve(dev, arrays)
 
     k34 = phase_flash_bwd(dev)
@@ -754,12 +1034,18 @@ def main() -> int:
     launches = phase_train(dev, arrays)
     phase_resume(dev, arrays)
 
+    k56 = phase_lrn(dev)
+    launches.update({k: v for k, v in phase_alexnet(dev).items()
+                     if k in ("lrn_fwd", "lrn_bwd")})
+
     kernels = []
     for name, res, replaces in (
             ("flash_fwd", k1, "singa_tpu/ops/attention.py:335"),
             ("head_fwd", k2, "singa_tpu/ops/head_loss.py:35"),
             ("flash_dq", k34["dq"], "singa_tpu/ops/attention.py:418"),
-            ("flash_dkv", k34["dkv"], "singa_tpu/ops/attention.py:479")):
+            ("flash_dkv", k34["dkv"], "singa_tpu/ops/attention.py:479"),
+            ("lrn_fwd", k56["lrn_fwd"], "singa_tpu/ops/lrn_pallas.py:62"),
+            ("lrn_bwd", k56["lrn_bwd"], "singa_tpu/ops/lrn_pallas.py:70")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"singa_tpu_torch/csrc/{name}.cu",

@@ -8,6 +8,11 @@ cache decode (`models.generate`) and the bucketed engine
 `csrc/` at first use: the packed flash-attention forward (K1,
 `ops.attention`) and the fused LM-head forward (K2, `ops.head_loss`).
 
+Slice 2 trains the LM: K3 and K4 (the flash backward), the updaters,
+the `Trainer` and checkpoints.  Slice 3 is the vision zoo
+(`core.layers`, `models.vision`) with AlexNet-CIFAR10 training, and K5
+and K6, the cross-channel LRN forward and backward (`ops.lrn`).
+
 Entry points run on CUDA unless the caller passes device='cpu'.
 """
 
@@ -17,9 +22,12 @@ from .config import (ConfigError, ModelConfig, config_to_dict,
 from .core.net import NeuralNet, build_net
 from .core.trainer import Trainer
 from .core.updater import Multipliers, Updater, learning_rate
+from .data import synthetic_image_batches
 from .device import resolve_device
 from .models.generate import forward_cached, generate, init_cache
 from .models.transformer import synthetic_token_batches, transformer_lm
+from .models.vision import (alexnet_cifar10, alexnet_cifar10_full,
+                            alexnet_imagenet, lenet_mnist, mlp_mnist)
 from .serve.engine import InferenceEngine, ServeSpec
 from .utils.checkpoint import CheckpointManager
 from .weights import (numpy_params, opt_state_from_numpy, params_from_numpy,

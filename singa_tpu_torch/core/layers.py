@@ -1,25 +1,39 @@
-"""Layer base of the port: the registry and the per-call context.
+"""Layer base of the port, the registry, the per-call context, and the
+vision layer zoo.
 
-Port of `singa_tpu/core/layers.py:35-116` and `create_layer`
-(`:602-613`).  A layer keeps the JAX package's two duties:
+Port of `singa_tpu/core/layers.py` (the base, `:35-116`; the zoo,
+`:122-599`; `create_layer`, `:602-613`).  A layer keeps the JAX
+package's two duties:
 
   setup(src_shapes)        shape inference + param spec declaration
   apply(params, srcs, ctx) forward compute on torch tensors
 
-`params` is a plain dict keyed by the JAX names (`embed/embedding`,
-`attn0/wq`, `ln_f/scale`, ...), so one weights dict fits both packages.
-Only the sequence family (core/seq_layers.py) is ported so far; the
-conv/vision zoo comes with its own slice.
+`params` is a plain dict keyed by the JAX names (`conv1/weight`,
+`attn0/wq`, ...), so one weights dict fits both packages.  The zoo here
+(the reference's registry keys, neuralnet.cc:13-44): kShardData,
+kLMDBData, kMnistImage, kRGBImage, kLabel, kConvolution, kPooling, kLRN,
+kInnerProduct, kReLU, kTanh, kSigmoid, kDropout, kSoftmaxLoss, kConcate,
+kSlice, kSplit, kBridgeSrc, kBridgeDst.  Vision activations are NHWC at
+every layer boundary, as in the JAX zoo.  The sequence family lives in
+core/seq_layers.py and registers on import.
+
+Not ported yet (ROADMAP.md A6, A7): kMnistImage's elastic distortion
+(`ops/augment.py`) and kRGBImage's `meanfile` (`data/records.py`); a
+config that asks for either raises instead of skipping it.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config.schema import LayerConfig, ParamConfig
+from ..ops import activations, conv, dropout, linear, lrn, pool
+from ..ops.loss import softmax_loss_metrics
 
 
 class LayerError(ValueError):
@@ -34,12 +48,50 @@ class ParamSpec:
     cfg: ParamConfig
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def fold_in(seed: int, *data: int) -> int:
+    """A 64-bit generator seed from `seed` and `data`, each folded in by
+    one splitmix64 round: the counterpart of chained
+    `jax.random.fold_in` (different numbers, the same structure)."""
+    h = _splitmix64(int(seed) & _MASK64)
+    for d in data:
+        h = _splitmix64(h ^ (int(d) & _MASK64))
+    return h
+
+
 @dataclass
 class Context:
-    """Per-call state threaded through Layer.apply."""
+    """Per-call state threaded through Layer.apply.  `rng` is the seed of
+    the call (the trainer's), `step` the global step and `layer_index`
+    the layer's place in the topological order; `device` is the params'
+    device."""
     batch: Dict[str, Any]
     train: bool
     compute_dtype: Optional[torch.dtype] = None
+    rng: Optional[int] = None
+    layer_index: int = 0
+    step: Optional[int] = None
+    device: Optional[torch.device] = None
+
+    def layer_rng(self) -> torch.Generator:
+        """This layer's generator at this step, seeded from (rng, step,
+        layer index) — `fold_in(fold_in(rng, step), layer_index)` in the
+        JAX package (`:64-67`, `core/trainer.py:396`) — so a resumed run
+        draws what an uninterrupted one draws without stored state."""
+        if self.rng is None:
+            raise LayerError("layer needs an rng but none was provided")
+        gen = torch.Generator(device=self.device or "cpu")
+        gen.manual_seed(fold_in(self.rng, self.step or 0, self.layer_index))
+        return gen
 
 
 LAYER_REGISTRY: Dict[str, type] = {}
@@ -83,6 +135,423 @@ class Layer:
         key = f"{self.name}/{pcfg.name or default_name}"
         self.param_specs.append(ParamSpec(key, tuple(shape), fan_in, pcfg))
         return key
+
+
+def _cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    return x if dtype is None else x.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# data / parser layers
+
+
+@register_layer("kShardData")
+class ShardDataLayer(Layer):
+    """Input layer (layer.cc:646-673): the record batch the host supplies
+    in ctx.batch[self.name]."""
+
+    is_data = True
+
+    def setup(self, src_shapes, sample_shapes: Optional[Dict] = None):
+        bs = self.cfg.data_param.batchsize if self.cfg.data_param else 0
+        self.batchsize = bs
+        self.sample_shapes = sample_shapes or {}
+        self.out_shape = {k: (bs,) + tuple(v)
+                          for k, v in self.sample_shapes.items()}
+
+    def apply(self, params, srcs, ctx):
+        try:
+            return ctx.batch[self.name]
+        except KeyError:
+            raise LayerError(
+                f"batch missing entry for data layer {self.name!r}; "
+                f"have {list(ctx.batch)}") from None
+
+
+@register_layer("kLMDBData")
+class LMDBDataLayer(ShardDataLayer):
+    """LMDB-backed data layer (layer.cc:237-328); on the device it is
+    ShardData: the host pipeline supplies the batch."""
+
+
+@register_layer("kMnistImage")
+class MnistImageLayer(Layer):
+    """Parser (layer.cc:380-473): uint8 pixels → x/norm_a − norm_b, output
+    (B, s, s); `resize` rescales bilinearly (with antialiasing, as
+    `jax.image.resize`).  The elastic distortion (MnistProto kernel,
+    sigma, alpha, beta, gamma) is not ported yet: a config that turns it
+    on raises in training rather than train without it."""
+
+    def setup(self, src_shapes):
+        p = self.cfg.mnist_param
+        self.norm_a = p.norm_a if p else 1.0
+        self.norm_b = p.norm_b if p else 0.0
+        self.distort_on = bool(p and (
+            (p.alpha > 0 and p.kernel > 0) or p.beta > 0 or p.gamma > 0))
+        self.resize = p.resize if p else 0
+        pix = tuple(src_shapes[0]["pixel"])
+        if self.resize:
+            pix = pix[:1] + (self.resize, self.resize) + pix[3:]
+        self.out_shape = pix
+
+    def apply(self, params, srcs, ctx):
+        if self.distort_on and ctx.train:
+            raise LayerError(
+                f"{self.name}: mnist_param asks for elastic distortion, "
+                f"which the port does not run yet (ops/augment.py, "
+                f"ROADMAP.md A6)")
+        x = srcs[0]["pixel"].float()
+        if self.resize and tuple(x.shape[1:3]) != (self.resize,) * 2:
+            x = _resize_bilinear(x, self.resize)
+        x = x / self.norm_a - self.norm_b
+        return _cast(x, ctx.compute_dtype)
+
+
+def _resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, H, W[, C]) → (B, size, size[, C]), `jax.image.resize`'s
+    antialiased bilinear."""
+    t = x.unsqueeze(1) if x.dim() == 3 else x.permute(0, 3, 1, 2)
+    t = F.interpolate(t, size=(size, size), mode="bilinear",
+                      antialias=True, align_corners=False)
+    return t[:, 0] if x.dim() == 3 else t.permute(0, 2, 3, 1)
+
+
+@register_layer("kRGBImage")
+class RGBImageLayer(Layer):
+    """Parser (layer.cc:571-643): mean-subtract, random crop and mirror in
+    training, center crop in eval, scale.  Host batches arrive
+    channels-first (B, 3, H, W); the parser transposes once to NHWC.
+    Crop offsets and mirror coins are drawn per image from the layer's
+    generator, as the reference draws them per record; mirroring is
+    train-only (the JAX package's two deviations, `:265-275`).  The mean
+    comes with the batch (`mean`); a configured `meanfile` needs
+    `data/records.py`, not ported yet (ROADMAP.md A7), and raises."""
+
+    def setup(self, src_shapes):
+        p = self.cfg.rgbimage_param
+        self.scale = p.scale if p else 1.0
+        self.cropsize = p.cropsize if p else 0
+        self.mirror = bool(p.mirror) if p else False
+        if p and p.meanfile:
+            raise LayerError(
+                f"{self.name}: rgbimage_param.meanfile {p.meanfile!r} needs "
+                f"the record reader (data/records.py, ROADMAP.md A7), which "
+                f"the port does not have yet; supply the mean with the "
+                f"batch as its 'mean' field")
+        b, c, h, w = src_shapes[0]["pixel"]   # (B, C, H, W) host layout
+        if self.cropsize:
+            h = w = self.cropsize
+        self.out_shape = (b, h, w, c)
+
+    def apply(self, params, srcs, ctx):
+        x = srcs[0]["pixel"].float()
+        mean = srcs[0].get("mean")
+        if mean is not None:
+            x = x - mean
+        x = x.permute(0, 2, 3, 1)   # → NHWC
+        b, h, w, c = x.shape
+        cs = self.cropsize
+        crop = bool(cs and (h > cs or w > cs))
+        gen = (ctx.layer_rng() if ctx.train and (self.mirror or crop)
+               else None)
+        if crop:
+            if ctx.train:
+                oh = torch.randint(0, max(h - cs, 1), (b,), generator=gen,
+                                   device=x.device)
+                ow = torch.randint(0, max(w - cs, 1), (b,), generator=gen,
+                                   device=x.device)
+                ar = torch.arange(cs, device=x.device)
+                rows = (oh[:, None] + ar)[:, :, None]
+                cols = (ow[:, None] + ar)[:, None, :]
+                x = x[torch.arange(b, device=x.device)[:, None, None],
+                      rows, cols]
+            else:
+                oh, ow = (h - cs) // 2, (w - cs) // 2
+                x = x[:, oh:oh + cs, ow:ow + cs]
+        if self.mirror and ctx.train:
+            flip = torch.rand((b,), generator=gen, device=x.device) < 0.5
+            x = torch.where(flip[:, None, None, None], x.flip(2), x)
+        x = x * self.scale
+        return _cast(x.contiguous(), ctx.compute_dtype)
+
+
+@register_layer("kLabel")
+class LabelLayer(Layer):
+    """Parser (layer.cc:416-432): int labels, shape (B,)."""
+
+    def setup(self, src_shapes):
+        self.out_shape = tuple(src_shapes[0]["label"])
+
+    def apply(self, params, srcs, ctx):
+        return srcs[0]["label"]
+
+
+# ---------------------------------------------------------------------------
+# neuron layers
+
+
+def _nhwc_shape(shape):
+    """Conv and pool take 3-D (B, H, W) inputs as one channel
+    (layer.cc:31-36) → (B, H, W, 1)."""
+    if len(shape) == 3:
+        return (shape[0], shape[1], shape[2], 1)
+    return tuple(shape)
+
+
+def _as_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.unsqueeze(-1) if x.dim() == 3 else x
+
+
+@register_layer("kConvolution")
+class ConvolutionLayer(Layer):
+    """layer.cc:26-123.  Weight in the reference layout (num_filters,
+    C·k·k); compute is one `F.conv2d` (ops/conv.py)."""
+
+    def setup(self, src_shapes):
+        p = self.cfg.convolution_param
+        if p is None or not p.kernel:
+            raise LayerError(f"{self.name}: convolution_param.kernel required")
+        b, h, w, c = _nhwc_shape(src_shapes[0])
+        self.channels = c
+        self.kernel, self.stride, self.pad = p.kernel, p.stride, p.pad
+        self.bias_term = p.bias_term
+        self.out_shape = (b, conv.conv_out_size(h, p.kernel, p.stride, p.pad),
+                          conv.conv_out_size(w, p.kernel, p.stride, p.pad),
+                          p.num_filters)
+        col_height = c * p.kernel * p.kernel
+        self.w_key = self._declare(0, "weight", (p.num_filters, col_height),
+                                   fan_in=col_height)
+        if self.bias_term:
+            self.b_key = self._declare(1, "bias", (p.num_filters,), fan_in=0)
+
+    def apply(self, params, srcs, ctx):
+        bias = params[self.b_key] if self.bias_term else None
+        return conv.conv2d(_as_nhwc(srcs[0]), params[self.w_key], bias,
+                           kernel=self.kernel, stride=self.stride,
+                           pad=self.pad, channels=self.channels)
+
+
+@register_layer("kPooling")
+class PoolingLayer(Layer):
+    def setup(self, src_shapes):
+        p = self.cfg.pooling_param
+        if p is None or not p.kernel:
+            raise LayerError(f"{self.name}: pooling_param.kernel required")
+        b, h, w, c = _nhwc_shape(src_shapes[0])
+        self.kernel, self.stride, self.mode = p.kernel, p.stride, p.pool
+        self.out_shape = (b, pool.pooled_size(h, p.kernel, p.stride),
+                          pool.pooled_size(w, p.kernel, p.stride), c)
+
+    def apply(self, params, srcs, ctx):
+        x = _as_nhwc(srcs[0])
+        if self.mode == "MAX":
+            return pool.max_pool2d(x, self.kernel, self.stride)
+        return pool.avg_pool2d(x, self.kernel, self.stride)
+
+
+@register_layer("kLRN")
+class LRNLayer(Layer):
+    """Cross-channel LRN through K5/K6 (ops/lrn.py).  `fuse_from`: set by
+    NeuralNet when this LRN's source is a plain ReLU of one source —
+    apply() then receives the pre-relu tensor and the ReLU runs inside
+    the kernels (the ReLU layer still produces its output for any other
+    consumer)."""
+
+    fuse_from: str = ""
+
+    def setup(self, src_shapes):
+        p = self.cfg.lrn_param
+        self.local_size = p.local_size if p else 5
+        if self.local_size % 2 != 1:
+            raise LayerError(f"{self.name}: LRN local_size must be odd")
+        self.alpha = p.alpha if p else 1.0
+        self.beta = p.beta if p else 0.75
+        self.knorm = p.knorm if p else 1.0
+        self.out_shape = tuple(src_shapes[0])
+
+    def apply(self, params, srcs, ctx):
+        return lrn.relu_lrn(srcs[0], self.local_size, self.alpha, self.beta,
+                            self.knorm, relu=bool(self.fuse_from))
+
+
+@register_layer("kInnerProduct")
+class InnerProductLayer(Layer):
+    """layer.cc:162-213: flatten to (B, vdim), weight (vdim, hdim).  The
+    reference passes fan_in = vdim·hdim to Param::Setup (layer.cc:174),
+    kept for init parity.  vdim's element order is the NHWC activation's
+    (H, W, C), as in the JAX package, so an fc weight carries across
+    unchanged."""
+
+    def setup(self, src_shapes):
+        p = self.cfg.inner_product_param
+        if p is None or not p.num_output:
+            raise LayerError(f"{self.name}: inner_product_param.num_output "
+                             "required")
+        s = tuple(src_shapes[0])
+        vdim, hdim = int(math.prod(s[1:])), p.num_output
+        self.bias_term = p.bias_term
+        self.out_shape = (s[0], hdim)
+        self.w_key = self._declare(0, "weight", (vdim, hdim),
+                                   fan_in=vdim * hdim)
+        if self.bias_term:
+            self.b_key = self._declare(1, "bias", (hdim,), fan_in=0)
+
+    def apply(self, params, srcs, ctx):
+        bias = params[self.b_key] if self.bias_term else None
+        return linear.linear(srcs[0], params[self.w_key], bias)
+
+
+@register_layer("kReLU")
+class ReLULayer(Layer):
+    def setup(self, src_shapes):
+        self.slope = (self.cfg.relu_param.negative_slope
+                      if self.cfg.relu_param else 0.0)
+        self.out_shape = tuple(src_shapes[0])
+
+    def apply(self, params, srcs, ctx):
+        return activations.relu(srcs[0], self.slope)
+
+
+@register_layer("kTanh")
+class TanhLayer(Layer):
+    """The reference's kTanh is the scaled tanh stanh (layer.cc:688-701);
+    TanhProto outer/inner_scale override its constants."""
+
+    def setup(self, src_shapes):
+        p = self.cfg.tanh_param
+        if p is not None:
+            self.outer, self.inner = p.outer_scale, p.inner_scale
+        else:
+            self.outer = activations.STANH_OUTER
+            self.inner = activations.STANH_INNER
+        self.out_shape = tuple(src_shapes[0])
+
+    def apply(self, params, srcs, ctx):
+        return activations.stanh(srcs[0], self.outer, self.inner)
+
+
+@register_layer("kSigmoid")
+class SigmoidLayer(Layer):
+    def setup(self, src_shapes):
+        self.out_shape = tuple(src_shapes[0])
+
+    def apply(self, params, srcs, ctx):
+        return activations.sigmoid(srcs[0])
+
+
+@register_layer("kDropout")
+class DropoutLayer(Layer):
+    def setup(self, src_shapes):
+        self.rate = (self.cfg.dropout_param.dropout_ratio
+                     if self.cfg.dropout_param else 0.5)
+        self.out_shape = tuple(src_shapes[0])
+
+    def apply(self, params, srcs, ctx):
+        if not ctx.train or self.rate <= 0.0:
+            return srcs[0]
+        return dropout.dropout(srcs[0], self.rate, ctx.layer_rng())
+
+
+# ---------------------------------------------------------------------------
+# loss layers
+
+
+@register_layer("kSoftmaxLoss")
+class SoftmaxLossLayer(Layer):
+    """layer.cc:702-765: softmax + NLL + top-k precision in f32.
+    srcs = [logits, label]."""
+
+    is_loss = True
+
+    def setup(self, src_shapes):
+        p = self.cfg.softmaxloss_param
+        self.topk = p.topk if p else 1
+        self.scale = p.scale if p else 1.0
+        self.out_shape = (2,)   # metric blob layout [loss, precision]
+
+    def apply(self, params, srcs, ctx):
+        logits, labels = srcs
+        if labels.dim() > 1:
+            # sequence labels (B, S): token-level NLL over (B·S, V)
+            logits = logits.reshape(-1, logits.shape[-1])
+            labels = labels.reshape(-1)
+        loss, prec = softmax_loss_metrics(logits.float(), labels, self.topk,
+                                          self.scale)
+        return {"loss": loss, "precision": prec}
+
+
+# ---------------------------------------------------------------------------
+# connector layers (base_layer.h:264-330, base_layer.cc:39-194): on one
+# card these are identities or plain tensor ops
+
+
+@register_layer("kConcate")
+class ConcateLayer(Layer):
+    def setup(self, src_shapes):
+        self.dim = (self.cfg.concate_param.concate_dimension
+                    if self.cfg.concate_param else 0)
+        shape = list(src_shapes[0])
+        shape[self.dim] = sum(s[self.dim] for s in src_shapes)
+        self.out_shape = tuple(shape)
+
+    def apply(self, params, srcs, ctx):
+        return torch.cat(srcs, dim=self.dim)
+
+
+@register_layer("kSlice")
+class SliceLayer(Layer):
+    """Cut along slice_dimension into slice_num views; consumer i reads
+    view i (base_layer.cc:114-173), the last view taking the remainder
+    (neuralnet.cc:160-162).  The output is the tuple of views."""
+
+    def setup(self, src_shapes):
+        p = self.cfg.slice_param
+        self.dim = p.slice_dimension if p else 0
+        self.num = p.slice_num if p else 1
+        s = list(src_shapes[0])
+        base, rem = divmod(s[self.dim], self.num)
+        shapes = []
+        for i in range(self.num):
+            t = list(s)
+            t[self.dim] = base + (rem if i == self.num - 1 else 0)
+            shapes.append(tuple(t))
+        self.out_shape = tuple(shapes)
+
+    def apply(self, params, srcs, ctx):
+        x = srcs[0]
+        base = x.shape[self.dim] // self.num
+        sizes = [base] * (self.num - 1)
+        sizes.append(x.shape[self.dim] - base * (self.num - 1))
+        return tuple(torch.split(x, sizes, dim=self.dim))
+
+
+@register_layer("kSplit")
+class SplitLayer(Layer):
+    """Replicate to several consumers (base_layer.h:316-330): an
+    identity."""
+
+    def setup(self, src_shapes):
+        self.out_shape = tuple(src_shapes[0])
+
+    def apply(self, params, srcs, ctx):
+        return srcs[0]
+
+
+@register_layer("kBridgeSrc")
+class BridgeSrcLayer(Layer):
+    """Cross-location activation sender (base_layer.h:264-312): an
+    identity on one card, kept for config parity."""
+
+    def setup(self, src_shapes):
+        self.out_shape = tuple(src_shapes[0])
+
+    def apply(self, params, srcs, ctx):
+        return srcs[0]
+
+
+@register_layer("kBridgeDst")
+class BridgeDstLayer(BridgeSrcLayer):
+    pass
 
 
 def create_layer(cfg: LayerConfig) -> Layer:

@@ -4,9 +4,11 @@ Port of `singa_tpu/core/net.py:43-163`, `217-240` and `285-354`: the
 graph from `srclayers` edges, the topological sort, per-phase layer
 filtering by `exclude`, shape setup in topo order, the param index with
 `share_param` aliases, `init_params`, `multipliers` (`:165-168`) and
-`apply`.  Mesh constraints,
-partition padding, remat and the relu+LRN fusion wait for the slices
-that need them.
+`apply`, the relu+LRN fusion (`:122-140`) and the Slice-aware source
+lookups (`:112-121`, `:346-351`).  `apply` takes the call's seed and
+step (`rng`, `step`), from which each layer that draws (dropout, the RGB
+crop and mirror) seeds its own generator (`Context.layer_rng`).  Mesh
+constraints, partition padding and remat wait for the parallel slice.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from ..config.schema import ModelConfig, NetConfig
 from ..device import DeviceLike, params_device, resolve_device
 from .graph import Graph
 from .init import init_param
-from .layers import Context, Layer, LayerError, ParamSpec, create_layer
+from .layers import (Context, Layer, LayerError, LRNLayer, ParamSpec,
+                     ReLULayer, SliceLayer, create_layer)
 from .updater import Multipliers
 
 
@@ -64,13 +67,15 @@ class NeuralNet:
             l.name: create_layer(l) for l in self.cfgs}
         self._setup()
         self._build_param_index()
+        self._fuse_relu_lrn()
 
     # -- construction ------------------------------------------------------
     def _setup(self) -> None:
         shapes: Dict[str, Any] = {}
         for name in self.topo:
             layer = self.layers[name]
-            src_shapes = [shapes[src] for src in layer.cfg.srclayers]
+            src_shapes = [self._src_shape(shapes, src, name)
+                          for src in layer.cfg.srclayers]
             if layer.is_data:
                 sample = self.input_shapes.get(name)
                 if sample is None:
@@ -86,6 +91,39 @@ class NeuralNet:
                 layer.setup(src_shapes)
             shapes[name] = layer.out_shape
         self.shapes = shapes
+
+    def _src_shape(self, shapes: Dict[str, Any], src: str, dst: str):
+        out = shapes[src]
+        if isinstance(out, tuple) and out and isinstance(out[0], tuple):
+            # Slice layer: consumer i gets view i (base_layer.cc:114-173)
+            return out[self._consumer_index(src, dst)]
+        return out
+
+    def _consumer_index(self, src: str, dst: str) -> int:
+        return self.graph.dsts_of(src).index(dst)
+
+    def _src_out(self, outputs: Dict[str, Any], src: str, dst: str):
+        out = outputs[src]
+        if isinstance(self.layers[src], SliceLayer):
+            return out[self._consumer_index(src, dst)]
+        return out
+
+    def _fuse_relu_lrn(self) -> None:
+        """Mark conv→relu→lrn chains for the fused relu+LRN kernels: the
+        LRN layer reads the pre-relu tensor and applies the ReLU inside
+        K5/K6 (LRNLayer.fuse_from).  The ReLU layer still produces its
+        output for any other consumer."""
+        for name in self.topo:
+            layer = self.layers[name]
+            if not isinstance(layer, LRNLayer) or \
+                    len(layer.cfg.srclayers) != 1:
+                continue
+            src = self.layers[layer.cfg.srclayers[0]]
+            if (isinstance(src, ReLULayer) and src.slope == 0.0
+                    and len(src.cfg.srclayers) == 1
+                    and not isinstance(self.layers[src.cfg.srclayers[0]],
+                                       SliceLayer)):
+                layer.fuse_from = src.cfg.srclayers[0]
 
     def _build_param_index(self) -> None:
         self.param_specs: Dict[str, ParamSpec] = {}
@@ -132,13 +170,16 @@ class NeuralNet:
     # -- forward -----------------------------------------------------------
     def apply(self, params: Dict[str, torch.Tensor], batch: Dict[str, Any],
               train: Optional[bool] = None,
-              compute_dtype: Optional[torch.dtype] = None
+              compute_dtype: Optional[torch.dtype] = None,
+              rng: Optional[int] = None, step: Optional[int] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                          Dict[str, Any]]:
         """Run the net on the params' device.  Returns (total_loss,
         metrics, outputs): metrics gathers every loss layer's dict,
         outputs maps layer name → activation.  `batch` may hold numpy
-        arrays; they are moved to the params' device."""
+        arrays; they are moved to the params' device.  `rng` (a seed) and
+        `step` seed the generators of layers that draw; such a layer
+        raises in training when `rng` is None."""
         if train is None:
             train = self.phase == "kTrain"
         full = self._resolve_params(params)
@@ -148,10 +189,17 @@ class NeuralNet:
         metrics: Dict[str, torch.Tensor] = {}
         total_loss = torch.zeros((), dtype=torch.float32, device=dev)
         n_loss = len(self._loss_layers())
-        ctx = Context(batch=batch, train=train, compute_dtype=compute_dtype)
-        for name in self.topo:
+        for idx, name in enumerate(self.topo):
             layer = self.layers[name]
-            srcs = [outputs[src] for src in layer.cfg.srclayers]
+            fuse_from = getattr(layer, "fuse_from", "")
+            if fuse_from:
+                srcs = [outputs[fuse_from]]
+            else:
+                srcs = [self._src_out(outputs, src, name)
+                        for src in layer.cfg.srclayers]
+            ctx = Context(batch=batch, train=train,
+                          compute_dtype=compute_dtype, rng=rng,
+                          layer_index=idx, step=step, device=dev)
             out = layer.apply(full, srcs, ctx)
             outputs[name] = out
             if layer.is_loss:

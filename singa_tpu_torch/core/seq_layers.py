@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from ..config.schema import ParamConfig
 from ..ops import attention as attn_ops
 from ..ops import head_loss, loss as loss_ops
-from .layers import Layer, LayerError, ParamSpec, register_layer
+from .layers import Layer, LayerError, ParamSpec, _cast, register_layer
 
 # (layer name, seq_len, head_dim) triples that already warned about the
 # dense route
@@ -45,10 +45,6 @@ def _declare_with_default(layer: Layer, i: int, name: str, shape,
         key, tuple(shape), shape[0],
         ParamConfig(init_method="kGaussain", mean=0.0, std=init_std)))
     return key
-
-
-def _cast(w: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    return w if dtype is None else w.to(dtype)
 
 
 @register_layer("kSequenceData")

@@ -6,8 +6,12 @@ Port of `singa_tpu/core/trainer.py` for one device: `Performance` and
 reference's display / test / validation / checkpoint cadence, and
 `resume`.  The JAX package compiles the whole step into one program; the
 port runs it eagerly: autograd takes the gradients (through the flash
-kernels' and the fused head's `autograd.Function`s) and the updater
-works in place on the f32 master params under `no_grad`.
+kernels', the fused head's and the LRN kernels' `autograd.Function`s)
+and the updater works in place on the f32 master params under
+`no_grad`.  Layers that draw (dropout, the RGB crop and mirror) seed
+their generators from the trainer's `seed`, the step and their place in
+the net, as `train_scan` folds the step and the layer index into its key
+(`:396`), so a resumed run draws what an uninterrupted one draws.
 
 Cadence semantics from ModelProto: train_steps, test_steps,
 test_frequency/test_after_steps, validation_*, display_*,
@@ -109,8 +113,11 @@ class Trainer:
     def __init__(self, model_cfg: ModelConfig,
                  input_shapes: Dict[str, Dict[str, tuple]],
                  log_fn: Optional[Callable[[str], None]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, seed: int = 0):
+        """`seed` seeds the per-step generators of the layers that draw
+        (see `Context.layer_rng`); params come from `init(seed)`."""
         self.cfg = model_cfg
+        self.seed = seed
         self.log = log_fn if log_fn is not None \
             else (lambda msg: print(f"[trainer] {msg}", flush=True))
         self.device = resolve_device(device)
@@ -158,7 +165,8 @@ class Trainer:
         def eval_step(params, batch):
             with torch.no_grad():
                 _, metrics, _ = net.apply(params, batch, train=False,
-                                          compute_dtype=self.compute_dtype)
+                                          compute_dtype=self.compute_dtype,
+                                          rng=self.seed)
             return metrics
         return eval_step
 
@@ -168,17 +176,19 @@ class Trainer:
         return params, self.updater.init(params)
 
     # -- steps -------------------------------------------------------------
-    def gradients(self, params: Dict[str, torch.Tensor], batch
-                  ) -> tuple:
-        """(metrics, grads) of one forward and backward: `grads` maps
-        every param to its gradient, or to None where none reached it."""
+    def gradients(self, params: Dict[str, torch.Tensor], batch,
+                  step: int = 0) -> tuple:
+        """(metrics, grads) of one forward and backward at `step`: `grads`
+        maps every param to its gradient, or to None where none reached
+        it."""
         names = sorted(params)
         leaves = [params[k] for k in names]
         for p in leaves:
             p.requires_grad_(True)
         try:
             loss, metrics, _ = self.train_net.apply(
-                params, batch, train=True, compute_dtype=self.compute_dtype)
+                params, batch, train=True, compute_dtype=self.compute_dtype,
+                rng=self.seed, step=step)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for p in leaves:
@@ -192,7 +202,7 @@ class Trainer:
         tensors).  Gradients come from `torch.autograd.grad`, so no
         `.grad` accumulates between steps; a param no gradient reaches
         gets zeros, as under `jax.value_and_grad`."""
-        metrics, grads = self.gradients(params, batch)
+        metrics, grads = self.gradients(params, batch, step)
         grads = {k: g if g is not None else torch.zeros_like(params[k])
                  for k, g in grads.items()}
         self.updater.update(step, grads, params, opt_state,

@@ -13,10 +13,10 @@ Nothing here runs when the module is imported: the CPU tests import
 every module of the package, and this machine may have no nvcc at all.
 
 Each C entry takes every pointer and the stream as `void*`, its sizes as
-`int`, and returns `cudaGetLastError()` after the launch; `launch`
-raises when that is not 0 and otherwise adds one to the kernel's count
-in `LAUNCHES`, the count a run reads to show that its path went through
-the kernel.
+`int` and its real parameters as `double`, and returns
+`cudaGetLastError()` after the launch; `launch` raises when that is not
+0 and otherwise adds one to the kernel's count in `LAUNCHES`, the count
+a run reads to show that its path went through the kernel.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # kernel name -> argtypes of its C entry (same name), stream last
 SIGNATURES = {
     # q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, dtype, stream
@@ -50,6 +50,10 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal,
     # dtype, stream
     "flash_dkv": [_P] * 8 + [_I] * 8 + [_P],
+    # x, y, P, C, local_size, alpha, beta, knorm, relu, dtype, stream
+    "lrn_fwd": [_P] * 2 + [_I] * 3 + [_D] * 3 + [_I] * 2 + [_P],
+    # x, g, dx, P, C, local_size, alpha, beta, knorm, relu, dtype, stream
+    "lrn_bwd": [_P] * 3 + [_I] * 3 + [_D] * 3 + [_I] * 2 + [_P],
 }
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _entries: Dict[str, tuple] = {}

@@ -1,0 +1,29 @@
+"""Dropout, reference numerics (layer.cc:126-160).
+
+Port of `singa_tpu/ops/dropout.py:22-30`: mask = 1[u < pkeep] / pkeep in
+x's dtype, y = x * mask; autograd through the masked product reuses the
+mask in the backward, as the reference does.  The uniform draws come
+from an explicit `torch.Generator` (the layer's, see
+`core.layers.Context.layer_rng`); its bits are not JAX's threefry bits,
+so the two packages agree in distribution, not mask for mask.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator],
+            train: bool = True) -> torch.Tensor:
+    if not train or rate <= 0.0:
+        return x
+    pkeep = 1.0 - rate
+    # 1 / pkeep as x's dtype computes it (pkeep rounded first), taken on
+    # the host: no copy to the device per call
+    inv = float(torch.tensor(1.0, dtype=x.dtype)
+                / torch.tensor(pkeep, dtype=x.dtype))
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return x * ((u < pkeep).to(x.dtype) * inv)

@@ -1,0 +1,58 @@
+"""Pooling with the reference's caffe ceil-mode geometry, over NHWC.
+
+Port of `singa_tpu/ops/pool.py:29-58` and `:130-138` (SINGA's
+layer.cc:476-540): pooled = ceil((h - k)/s) + 1, the input padded at the
+bottom and right only; AVE divides by k·k whatever the clipping.
+
+The padding is explicit (−inf for MAX, 0 for AVE) and the pool runs with
+no `ceil_mode`: torch's ceil mode drops a last window that starts in the
+padding, which the reference's geometry keeps (for k < s).  AVE sums in
+f32 and casts back, as the JAX code does, through `avg_pool2d` with
+`divisor_override=1` (a window sum; torch's default would divide a
+clipped window by fewer than k·k).  Pools run on the NCHW view of the
+NHWC activation, which is channels_last in memory.
+
+The JAX package's tie-exact `_max_pool_nhwc` vjp (`:60-125`) is a test
+oracle there, not its production path; autograd's max-pool backward here
+is the counterpart of its select-and-scatter.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def pooled_size(size: int, kernel: int, stride: int) -> int:
+    """layer.cc:497-500: ceil((size - kernel)/stride) + 1."""
+    return int(math.ceil((size - kernel) / stride)) + 1
+
+
+def _ceil_pad(size: int, kernel: int, stride: int) -> int:
+    out = pooled_size(size, kernel, stride)
+    return max(0, (out - 1) * stride + kernel - size)
+
+
+def _padded_nchw(x: torch.Tensor, kernel: int, stride: int, value: float):
+    """The NCHW view of NHWC `x`, padded at the bottom and right."""
+    ph = _ceil_pad(x.shape[1], kernel, stride)
+    pw = _ceil_pad(x.shape[2], kernel, stride)
+    xc = x.permute(0, 3, 1, 2)
+    if ph or pw:
+        xc = F.pad(xc, (0, pw, 0, ph), value=value)
+    return xc
+
+
+def max_pool2d(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """Ceil-mode max pool; x (N, H, W, C) → (N, H', W', C)."""
+    xc = _padded_nchw(x, kernel, stride, float("-inf"))
+    return F.max_pool2d(xc, kernel, stride).permute(0, 2, 3, 1)
+
+
+def avg_pool2d(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """Ceil-mode average pool dividing by k·k always (layer.cc:513-515)."""
+    xc = _padded_nchw(x.float(), kernel, stride, 0.0)
+    s = F.avg_pool2d(xc, kernel, stride, divisor_override=1)
+    return (s * (1.0 / (kernel * kernel))).to(x.dtype).permute(0, 2, 3, 1)

@@ -13,6 +13,7 @@ and `state_to_numpy` takes the port's params and state back to numpy.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -73,23 +74,48 @@ def state_to_numpy(params: Mapping[str, torch.Tensor],
 
 def numpy_params(net, seed: int = 0) -> Dict[str, np.ndarray]:
     """Random float32 weights for `net` drawn with numpy from `seed`,
-    from each spec's init distribution (kConstant, kUniform, kGaussain —
-    what the transformer LM declares)."""
+    from each spec's init method with the formulas of `core/init.py`
+    (SINGA's Param::Init, param.cc:61-99); kPretrained raises, since
+    such params are loaded, not drawn."""
     rng = np.random.default_rng(seed)
-    out = {}
-    for name, spec in sorted(net.param_specs.items()):
-        cfg, shape = spec.cfg, spec.shape
-        if cfg.init_method == "kConstant":
-            x = np.full(shape, cfg.value, np.float32)
-        elif cfg.init_method == "kUniform":
-            x = rng.uniform(cfg.low, cfg.high, shape).astype(np.float32)
-            x = x * cfg.value if cfg.value else x
-        elif cfg.init_method == "kGaussain":
-            x = (cfg.mean + cfg.std * rng.standard_normal(
-                shape, dtype=np.float32))
-            x = x * cfg.value if cfg.value else x
-        else:
-            raise ValueError(f"{name}: numpy_params does not draw "
-                             f"{cfg.init_method}")
-        out[name] = x.astype(np.float32)
-    return out
+    return {name: _draw(rng, name, spec.cfg, tuple(spec.shape), spec.fan_in)
+            for name, spec in sorted(net.param_specs.items())}
+
+
+def _draw(rng, name, cfg, shape, fan_in) -> np.ndarray:
+    method, value = cfg.init_method, cfg.value
+
+    def uniform(low, high):
+        return rng.uniform(low, high, shape).astype(np.float32)
+
+    def gaussian():
+        return (cfg.mean + cfg.std * rng.standard_normal(
+            shape, dtype=np.float32)).astype(np.float32)
+
+    # the reference scales by `value` only when it is nonzero
+    if method == "kConstant":
+        x = np.full(shape, value, np.float32)
+    elif method == "kUniform":
+        x = uniform(cfg.low, cfg.high) * (value or 1.0)
+    elif method == "kUniformSqrtFanIn":
+        x = uniform(cfg.low, cfg.high) * (
+            value / math.sqrt(fan_in / 3.0) if value else 1.0)
+    elif method == "kUniformSqrtFanInOut":
+        x = uniform(cfg.low, cfg.high) * (
+            value / math.sqrt(shape[0] + shape[1]) if value else 1.0)
+    elif method == "kGaussain":
+        x = gaussian() * (value or 1.0)
+    elif method == "kGaussainSqrtFanIn":
+        x = gaussian() * (value / math.sqrt(shape[0]) if value else 1.0)
+    elif method == "kXavier":
+        limit = math.sqrt(6.0 / (shape[0] + shape[-1]))
+        x = uniform(-limit, limit)
+    elif method == "kMSRA":
+        x = math.sqrt(2.0 / max(fan_in, 1)) * rng.standard_normal(
+            shape, dtype=np.float32)
+    elif method == "kPretrained":
+        raise ValueError(f"{name}: kPretrained params are loaded, not "
+                         f"drawn (see utils.checkpoint.load_pretrained)")
+    else:
+        raise ValueError(f"{name}: unknown init_method {method!r}")
+    return np.asarray(x, np.float32)
