@@ -9,11 +9,15 @@ non-zero before the last line is printed:
 
 1. Card and build: the card's name and power limit, then nvcc builds
    every kernel from singa_tpu_torch/csrc (one process per source, in
-   parallel); build time and ptxas resource lines are printed.
+   parallel); build time, each kernel's ptxas registers and spills, and
+   the HMMA (tensor-core) instructions of K1 and K4 by `cuobjdump -sass`
+   (their bf16 bodies must have some).
 2. K1 and K2 against their plain PyTorch versions on the card, at the
    bench shapes and a few more (GQA, non-causal, every head dim, both
    dtypes, ragged edges), each with its stated tolerance; kernel, plain
-   and library times by CUDA events.
+   and library times by CUDA events (K1 and SDPA by a CUDA-graph replay
+   of direct launches, with the wrapper's host time, TFLOP/s and share
+   of the bound beside them).
 3. The scoring forward: the repo's bench stack (transformer_lm 12L,
    E=768, 12 heads of 64, V=32768, S=1024, B=8, bf16 compute) with
    random weights from a numpy seed, through
@@ -26,9 +30,9 @@ non-zero before the last line is printed:
    requests and predict requests on the same stack (f32 weights); greedy
    answers must equal `generate` on the unpadded prompts.
 5. K3 and K4 (the flash backward) against their plain versions, at the
-   bench shape (timed, with SDPA's backward as the library yardstick)
-   and at GQA, non-causal, every head dim on ragged S, bf16, and with an
-   lse cotangent.
+   bench shape (timed as K1, with SDPA's backward as the library
+   yardstick) and at GQA, non-causal, every head dim on ragged S in both
+   dtypes, and with an lse cotangent.
 6. Gradients, card against CPU: one `Trainer.gradients` of the 2-layer
    stack at batch 2 on both devices from the same weights; every param
    must get a gradient on both, within a stated share of its largest
@@ -68,6 +72,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -113,6 +118,55 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Mean device time of one `fn` call on the card's own clock: CUDA
+    events around replays of a CUDA graph that holds `n` calls, so no
+    host time between launches is counted.  `fn` launches into
+    preallocated outputs (a direct `_kernels.launch`) or allocates from
+    the graph's own pool."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                        # warm-up, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * reps)
+
+
+def host_ms(fn, n: int = 50) -> float:
+    """Host time of one `fn` call (enqueue only: no synchronise inside
+    the loop), the wrapper's cost on the host's clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / n
+
+
+def rate_line(name: str, res: dict, flops: float) -> str:
+    """Achieved TFLOP/s and the share of the bound, from the graph-timed
+    kernel time."""
+    return (f"[kernels] {name}: {flops / res['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{res['bound_ms'] / res['ms']:.3f} of the bound "
+            f"({res['bound_by']}); wrapper {res['wrapper_ms']:.4f} ms per "
+            f"call on the host")
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -146,6 +200,55 @@ def profile(tag: str, fn, wall_ms: float, top: int = 8) -> None:
             f"{name[:90]}")
 
 
+def _short(symbols) -> dict:
+    """Mangled kernel names -> `name<template args>`, by c++filt (part of
+    the binutils that nvcc builds with)."""
+    symbols = list(symbols)
+    names = subprocess.run(["c++filt"], input="\n".join(symbols),
+                           capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    return {sym: name.replace("(anonymous namespace)::", "")
+            .split("(")[0].replace("void ", "")
+            for sym, name in zip(symbols, names)}
+
+
+def ptxas_usage(text: str) -> list:
+    """(kernel, 'registers; stack and spill bytes') for each entry that
+    `nvcc -Xptxas -v` reports in `text`."""
+    rows, fn, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            used = line.split(":", 1)[-1].strip()
+            rows.append((fn, f"{used}; {spill}"))
+            fn = None
+    names = _short(f for f, _ in rows)
+    return [(names[f], u) for f, u in rows]
+
+
+def sass_hmma(name: str) -> dict:
+    """HMMA (tensor-core) instructions per kernel in the built library of
+    kernel `name`, read by the toolkit's `cuobjdump -sass` (beside the
+    nvcc that built it)."""
+    from singa_tpu_torch.ops import _kernels
+    tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_kernels._target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    names = _short(counts)
+    return {names[f]: n for f, n in counts.items()}
+
+
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -169,8 +272,9 @@ def check_flash(b, s, h, hkv, d, dtype, causal, dev, seed, timed=False):
     ref_out, ref_lse = A.flash_forward_plain(q, k, v, h, causal, hkv)
     err_o = (out.float() - ref_out.float()).abs().max().item()
     err_l = (lse - ref_lse).abs().max().item()
-    # both sides compute in f32 and differ only in summation order; a
-    # bf16 output may then round one ulp apart (|O| < 4: ulp <= 2^-6)
+    # both sides compute in f32 (in bf16 both round P before P.V) and
+    # differ only in summation order; a bf16 output may then round one
+    # ulp apart (|O| < 4: ulp <= 2^-6)
     tol_o = 2e-2 if dtype == torch.bfloat16 else 1e-4
     tol_l = 1e-3
     tag = (f"K1 flash_fwd b={b} s={s} h={h} hkv={hkv} d={d} "
@@ -179,28 +283,40 @@ def check_flash(b, s, h, hkv, d, dtype, causal, dev, seed, timed=False):
     assert err_o <= tol_o and err_l <= tol_l, (tag, err_o, err_l)
     res = {"max_abs_err": err_o}
     if timed:
-        res["ms"] = time_ms(lambda: A.flash_attention_packed_lse(
-            q, k, v, h, causal, hkv), 20)
+        from singa_tpu_torch.ops import _kernels
+        o_buf, l_buf = torch.empty_like(out), torch.empty_like(lse)
+        res["ms"] = graph_ms(lambda: _kernels.launch(
+            "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o_buf.data_ptr(), l_buf.data_ptr(), b, s, s, h, hkv, d,
+            int(causal), A._DTYPE_CODE[dtype]))
+        res["wrapper_ms"] = host_ms(lambda: A.flash_attention_packed_lse(
+            q, k, v, h, causal, hkv))
         res["plain_ms"] = time_ms(lambda: A.flash_forward_plain(
             q, k, v, h, causal, hkv), 5, 1)
         qs = q.view(b, s, h, d).transpose(1, 2)
         ks = k.view(b, s, hkv, d).transpose(1, 2)
         vs = v.view(b, s, hkv, d).transpose(1, 2)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        res["library_ms"] = (time_ms(lambda: sdpa(qs, ks, vs,
-                                                  is_causal=causal), 20)
+        res["library_ms"] = (graph_ms(lambda: sdpa(qs, ks, vs,
+                                                   is_causal=causal))
                              if h == hkv else None)
         pairs = s * (s + 1) // 2 if causal else s * s
         esz = q.element_size()
         nbytes = (2 * b * s * h * d + 2 * b * s * hkv * d) * esz \
             + b * s * h * 4
-        res["bound_ms"], res["bound_by"] = bound(
-            nbytes, 4.0 * d * pairs * b * h, dtype)
+        flops = 4.0 * d * pairs * b * h
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
     log(f"[kernels] {tag}: max|dO| {err_o:.3g} (tol {tol_o}), "
         f"max|dlse| {err_l:.3g} (tol {tol_l})"
-        + (f", kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-           f"sdpa {res['library_ms']} ms, bound {res['bound_ms']:.4f} ms "
-           f"({res['bound_by']})" if timed else ""))
+        + (f", kernel {res['ms']:.4f} ms (graph), plain "
+           f"{res['plain_ms']:.4f} ms, sdpa {res['library_ms']} ms "
+           f"(graph), bound {res['bound_ms']:.4f} ms ({res['bound_by']})"
+           if timed else ""))
+    if timed:
+        log(rate_line("K1 flash_fwd", res, flops))
+        if res["library_ms"]:
+            log(f"[kernels] K1 flash_fwd: {res['ms'] / res['library_ms']:.2f}"
+                f"x SDPA's forward in this run")
     return res
 
 
@@ -253,6 +369,9 @@ def phase_kernels(dev):
     for i, d in enumerate((8, 16, 24, 32, 40, 64, 96, 128, 136, 264)):
         check_flash(2, 200, 4, 2, d, f32, True, dev, 10 + i)  # ragged S
         check_flash(1, 256, 2, 1, d, bf16, False, dev, 30 + i)
+        # the tensor-core body on ragged S, GQA, causal and not
+        check_flash(2, 200, 4, 2, d, bf16, True, dev, 50 + i)
+        check_flash(2, 200, 4, 2, d, bf16, False, dev, 70 + i)
     k2 = check_head(8192, 768, 32768, bf16, dev, 5, timed=True)
     check_head(2048, 768, 32768, f32, dev, 6)
     check_head(100, 96, 1000, f32, dev, 7)                    # ragged
@@ -284,7 +403,8 @@ def check_flash_bwd(b, s, h, hkv, d, dtype, causal, dev, seed,
     dk, dv = A.flash_dkv(*args)
     torch.cuda.synchronize()
     ref = (A.flash_dq_plain(*args), *A.flash_dkv_plain(*args))
-    # both sides sum f32 products in another order: f32 outputs agree to
+    # both sides sum f32 products in another order (in bf16 both round P
+    # and dS at the same places before K4's products): f32 outputs agree to
     # ~1e-6 of their magnitude (tolerance 1e-4); a bf16 output may round
     # one ulp (2^-8 relative) apart at its largest magnitude (tol 2^-7)
     rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
@@ -301,8 +421,17 @@ def check_flash_bwd(b, s, h, hkv, d, dtype, causal, dev, seed,
     res = {"dq": {"max_abs_err": errs[0][1]},
            "dkv": {"max_abs_err": max(errs[1][1], errs[2][1])}}
     if timed:
-        res["dq"]["ms"] = time_ms(lambda: A.flash_dq(*args), 10)
-        res["dkv"]["ms"] = time_ms(lambda: A.flash_dkv(*args), 10)
+        from singa_tpu_torch.ops import _kernels
+        ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, delta)]
+        sizes = (b, s, s, h, hkv, d, int(causal), A._DTYPE_CODE[dtype])
+        dq_buf, dk_buf, dv_buf = (torch.empty_like(t) for t in (dq, dk, dv))
+        res["dq"]["ms"] = graph_ms(lambda: _kernels.launch(
+            "flash_dq", *ptrs, dq_buf.data_ptr(), *sizes))
+        res["dkv"]["ms"] = graph_ms(lambda: _kernels.launch(
+            "flash_dkv", *ptrs, dk_buf.data_ptr(), dv_buf.data_ptr(),
+            *sizes))
+        res["dq"]["wrapper_ms"] = host_ms(lambda: A.flash_dq(*args))
+        res["dkv"]["wrapper_ms"] = host_ms(lambda: A.flash_dkv(*args))
         res["dq"]["plain_ms"] = time_ms(lambda: A.flash_dq_plain(*args), 3, 1)
         res["dkv"]["plain_ms"] = time_ms(lambda: A.flash_dkv_plain(*args),
                                          3, 1)
@@ -321,18 +450,26 @@ def check_flash_bwd(b, s, h, hkv, d, dtype, causal, dev, seed,
     log(f"[kernels] K3/K4 {tag}: "
         + ", ".join(f"max|d{n[1:]}| {e:.3g} (tol {rtol * t:.3g})"
                     for n, e, t in errs)
-        + ("".join(f"; {n} kernel {r['ms']:.4f} ms, plain "
+        + ("".join(f"; {n} kernel {r['ms']:.4f} ms (graph), plain "
                    f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                    f"({r['bound_by']})" for n, r in res.items())
            + f"; SDPA backward {res['dq']['library_ms']} ms"
            if timed else ""))
+    if timed:
+        log(rate_line("K3 flash_dq", res["dq"], 6.0 * d * pairs * b * h))
+        log(rate_line("K4 flash_dkv", res["dkv"], 8.0 * d * pairs * b * h))
+        if lib:
+            log(f"[kernels] K4 flash_dkv: {res['dkv']['ms'] / lib:.2f}x "
+                f"SDPA's whole backward in this run; K3 + K4 "
+                f"{(res['dq']['ms'] + res['dkv']['ms']) / lib:.2f}x")
     return res
 
 
 def sdpa_backward_ms(q, k, v, dout, num_heads, causal):
     """PyTorch's SDPA backward at the same shape: its forward-and-backward
-    less its forward (both with autograd recording), by CUDA events —
-    the yardstick for K3 and K4 as a pair."""
+    less its forward (both with autograd recording), each on the card's
+    clock by a CUDA-graph replay — the yardstick for K3 and K4 as a
+    pair."""
     b, s, hd = q.shape
     d = hd // num_heads
 
@@ -347,7 +484,7 @@ def sdpa_backward_ms(q, k, v, dout, num_heads, causal):
 
     def fwd_bwd():
         torch.autograd.grad(fwd(), (qs, ks, vs), dos)
-    return time_ms(fwd_bwd, 10) - time_ms(fwd, 10)
+    return graph_ms(fwd_bwd, 10) - graph_ms(fwd, 10)
 
 
 def phase_flash_bwd(dev):
@@ -364,6 +501,10 @@ def phase_flash_bwd(dev):
         check_flash_bwd(2, 200, 4, 2, d, f32, False, dev, 60 + i,
                         with_dlse=True)
         check_flash_bwd(1, 256, 2, 1, d, bf16, True, dev, 70 + i)
+        # the tensor-core body of K4 on ragged S, GQA, causal and not
+        check_flash_bwd(2, 200, 4, 2, d, bf16, True, dev, 80 + i)
+        check_flash_bwd(2, 200, 4, 2, d, bf16, False, dev, 90 + i,
+                        with_dlse=True)
     return bench
 
 
@@ -403,7 +544,7 @@ def phase_forward(dev, arrays):
     ms = time_ms(forward, 5, 1)
     log(f"[forward] {ms:.3f} ms per forward, {b * s / ms * 1e3:.1f} "
         f"tokens/s")
-    profile("forward", forward, ms)
+    profile("forward", forward, ms, top=10)
 
     # the same weights at 2 layers, batch 2 (N = 2048, still K2-legal):
     # card (kernels) against CPU (plain versions), both bf16 compute, on
@@ -682,7 +823,7 @@ def phase_train(dev, arrays):
         f"{bwd_ms:.3f} ms, update {upd_ms:.3f} ms; the head's backward "
         f"alone {head_ms:.3f} ms")
     profile("train_step", lambda: tr.train_step(params, opt, batch,
-                                                TRAIN_STEPS + 1), ms)
+                                                TRAIN_STEPS + 1), ms, top=16)
     return launches
 
 
@@ -1015,9 +1156,16 @@ def main() -> int:
     logs = _kernels.build()
     log(f"[build] {sorted(logs)} built in {time.perf_counter() - t0:.1f} s")
     for name, text in sorted(logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for fn, usage in ptxas_usage(text):
+            log(f"[build] {name}: {fn}: {usage}")
+    for name in ("flash_fwd", "flash_dkv"):
+        counts = sass_hmma(name)
+        for fn, n in sorted(counts.items()):
+            log(f"[build] {name}: {fn}: {n} HMMA instructions")
+        mma = sum(n for fn, n in counts.items() if "_mma_kernel" in fn)
+        log(f"[build] {name}: {mma} HMMA instructions in its bf16 "
+            f"(tensor-core) body")
+        assert mma > 0, (name, counts)
 
     k1, k2 = phase_kernels(dev)
 

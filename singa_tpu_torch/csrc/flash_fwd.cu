@@ -4,38 +4,58 @@
 // launched by `_packed_forward`, :548-584).  Same contract:
 //   q (B, Sq, H*D), k/v (B, Sk, Hkv*D) in f32 or bf16, packed rows read with
 //   strides H*D and Hkv*D (no transposes); q head h reads kv head h / (H/Hkv)
-//   (native GQA); online softmax in base 2 with scale*log2(e) folded into q;
-//   causal blocks past the diagonal are never visited;
+//   (native GQA); online softmax in base 2; causal tiles past the diagonal
+//   are never visited;
 //   out: O (B, Sq, H*D) in the input dtype, lse (B, Sq, H) natural log, f32.
 //
 // What bounds it on this card: at the bench shape (B=8, S=1024, H=12, D=64,
 // bf16, causal) the work is ~12.9 GFLOP of products against ~50.7 MB of
-// traffic, so with tensor cores the kernel would be memory bound (~15 us at
-// 3.35 TB/s).  This first version is simple and right instead: every product
-// is a scalar f32 FMA (no tensor cores), so it is bound by the FMA and
-// shared-memory instruction throughput, two orders of magnitude above that
-// floor.
+// traffic: 13 us by operations at 989 TFLOP/s, 15 us by bytes at 3.35 TB/s,
+// so the kernel is bound by bytes (0.0151 ms).
 //
-// Design against that bound: one block per (batch*q-head, 64-row q tile,
-// slice of DC output columns); the sequential kv grid axis of the TPU kernel
-// becomes a loop inside the block that stops at the diagonal when causal.
-// Q, K and V tiles sit in shared memory as f32 (rows padded by 4 floats so
-// float4 reads stay aligned and the two key streams of a warp fall in
-// different banks); two threads share a query row, each scoring every other
-// key of the tile, so each float4 read of K feeds four FMAs and the row
-// max/sum need one shuffle.  m, l and the output accumulator (half a slice
-// row per thread) stay in f32 registers; P goes through shared memory once
-// per tile for the PV product.
+// Two bodies, chosen by dtype in the C entry (a route by type, not a
+// fallback):
 //
-// Head dims: any D.  The tile width DC is the power of two from 8 to 128 at
-// or above D, and columns past D are loaded as zeros (they add nothing to a
-// score and are never written).  Past 128, D is covered in DC = 128 chunks:
-// every kv tile scores q.k chunk by chunk (Q then streams through shared
-// memory with K) and grid.z splits the output columns into 128-wide slices,
-// each block recomputing the scores for its slice.  wgmma/TMA are later work.
+// bf16, the main path (flash_fwd_mma_kernel): FlashAttention-2's design on
+// the tensor cores, from the tile code in mma_bf16.cuh.  One block of 4
+// warps per (batch*q-head, 64-row q tile, output slice); each warp owns 16
+// query rows.  The grid runs the q tiles with the most kv tiles first
+// (causal load balance; 8 warps with 128-row q tiles measured slower at
+// the bench shape).  Q goes to shared memory once by cp.async and
+// into registers by ldmatrix, where it stays for the whole kv loop.  K and
+// V tiles of 64 keys are double-buffered by cp.async: the next tile's copy
+// is in flight while the current one is multiplied.  S = Q.K^T runs on
+// `mma.sync` m16n8k16 with the raw bf16 q and k (exact products, f32 sums)
+// and is then multiplied by scale*log2(e) in f32, as the scalar body and
+// the plain version do; the TPU kernel folds the scale into q in bf16
+// (:370), the one place where the port's bf16 arithmetic differs from it.
+// The online softmax runs in f32 registers in base 2 (2^x on the SFU's
+// ex2.approx), row max and row sum across the quad of threads that share
+// an accumulator row; the mask is applied only on tiles that cross the
+// diagonal or the ragged Sk edge (the TPU kernel's MASK_SPLIT, :389-403).  P is rounded to bf16 and reused from
+// the accumulator registers as the A operand of P.V (V read by
+// ldmatrix.trans), as the TPU kernel's `p.astype(v_ref.dtype)` (:384); the
+// row sum l takes the unrounded f32 P.  O stays in f32 registers; the
+// epilogue divides by l and writes O with 16-byte stores staged through
+// shared memory, and lse.  Head dims: any multiple of 8, padded to a tile
+// width of 16, 32, 64 or 128 with zero columns; past 128 the scores are
+// summed over 128-wide chunks of Q and K (both through shared memory, no
+// double buffering) and grid.z splits the output columns into 128-wide
+// slices.  Left for later: `wgmma` from shared memory, TMA loads with
+// mbarriers and warp specialisation (FlashAttention-3's design).
+//
+// f32 (flash_fwd_kernel): the first design, scalar f32 FMAs, two orders of
+// magnitude above the bound.  One block per (batch*q-head, 64-row q tile,
+// slice of DC output columns); Q, K and V tiles sit in shared memory as f32
+// (rows padded by 4 floats); two threads share a query row, each scoring
+// every other key; P goes through shared memory once per tile for the PV
+// product.  Any D: the tile width DC is the power of two from 8 to 128 at
+// or above D; past 128, D is covered in 128-wide chunks as above.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -46,16 +66,9 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 template <int DC>
@@ -221,22 +234,241 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     void* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
-                     int causal, cudaStream_t stream) {
-  if (D <= 8) return launch<T, 8>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
-  if (D <= 16) return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
-  if (D <= 32) return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
-  if (D <= 64) return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
-  return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
+                         void* o, void* lse, int B, int Sq, int Sk, int H,
+                         int Hkv, int D, int causal, cudaStream_t stream) {
+  if (D <= 8) return launch<float, 8>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
+  if (D <= 16) return launch<float, 16>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
+  if (D <= 32) return launch<float, 32>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
+  if (D <= 64) return launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
+  return launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 body on the tensor cores
+
+using mma_bf16::bf16;
+constexpr int MMA_WARPS = 4;               // warps of 16 query rows
+constexpr int MBQ = 16 * MMA_WARPS;        // query rows per block
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+
+template <int DC>
+constexpr int mma_smem_bytes() {
+  // qs (MBQ rows), ks and vs (two buffers of BK rows each), pitch DC + 8
+  return (MBQ + 4 * BK) * mma_bf16::pitch<DC>() * (int)sizeof(bf16);
+}
+
+// CHUNKED (D > 128): the scores sum over DC-wide chunks of Q and K, loaded
+// one after the other; grid.z picks the DC output columns of this block.
+template <int DC, bool CHUNKED>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
+                     int D, int causal, float sscale) {
+  namespace mb = mma_bf16;
+  constexpr int P = mb::pitch<DC>();
+  constexpr int NT = BK / 8;       // n-tiles of the 16 x BK score strip
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);
+  bf16* ks = qs + MBQ * P;          // two buffers of BK rows
+  bf16* vs = ks + 2 * BK * P;      // two buffers of BK rows
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * MBQ;  // most kv tiles first
+  const int c0 = blockIdx.z * DC;  // this block's output columns
+  const int row0 = warp * 16;      // this warp's rows of the q tile
+  const int qrow = q0 + row0 + (lane >> 2);  // query of accumulator row 0
+  const long qstride = (long)H * D;
+  const long kvstride = (long)Hkv * D;
+  const bf16* qb = q + (long)b * Sq * qstride + (long)h * D;
+  const bf16* kb = k + (long)b * Sk * kvstride + (long)hk * D;
+  const bf16* vb = v + (long)b * Sk * kvstride + (long)hk * D;
+
+  // causal: no row of this tile sees a key at or past q0 + MBQ
+  const int kv_end = causal ? min(Sk, q0 + MBQ) : Sk;
+  const int ntiles = (kv_end + BK - 1) / BK;
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[DC / 8][4];
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  uint32_t qf[DC / 16][4];
+
+  if constexpr (!CHUNKED) {
+    mb::load_tile<MBQ, DC, MMA_THREADS>(qs, qb, qstride, q0, Sq, 0, D);
+    mb::load_tile<BK, DC, MMA_THREADS>(ks, kb, kvstride, 0, Sk, 0, D);
+    mb::load_tile<BK, DC, MMA_THREADS>(vs, vb, kvstride, 0, Sk, 0, D);
+    mb::cp_commit();
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BK;
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    const bf16* vt;
+    if constexpr (!CHUNKED) {
+      const int buf = it & 1;
+      if (it + 1 < ntiles) {       // the next tile's copy, in flight
+        mb::load_tile<BK, DC, MMA_THREADS>(ks + (buf ^ 1) * BK * P, kb,
+                                           kvstride, k0 + BK, Sk, 0, D);
+        mb::load_tile<BK, DC, MMA_THREADS>(vs + (buf ^ 1) * BK * P, vb,
+                                           kvstride, k0 + BK, Sk, 0, D);
+      }
+      mb::cp_commit();
+      mb::cp_wait<1>();            // this tile (and Q) has landed
+      __syncthreads();
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < DC / 16; ++kk)
+          mb::load_a<DC>(qf[kk], qs, row0, kk * 16);
+      }
+      mb::gemm_nt<DC, NT>(s, qf, ks + buf * BK * P);
+      vt = vs + buf * BK * P;
+    } else {
+      const int nchunks = (D + DC - 1) / DC;
+      for (int ci = 0; ci < nchunks; ++ci) {
+        __syncthreads();           // the previous readers of qs, ks, vs
+        mb::load_tile<MBQ, DC, MMA_THREADS>(qs, qb, qstride, q0, Sq, ci * DC,
+                                           D);
+        mb::load_tile<BK, DC, MMA_THREADS>(ks, kb, kvstride, k0, Sk,
+                                           ci * DC, D);
+        if (ci == nchunks - 1)
+          mb::load_tile<BK, DC, MMA_THREADS>(vs, vb, kvstride, k0, Sk, c0,
+                                             D);
+        mb::cp_commit();
+        mb::cp_wait<0>();
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < DC / 16; ++kk)
+          mb::load_a<DC>(qf[kk], qs, row0, kk * 16);
+        mb::gemm_nt<DC, NT>(s, qf, ks);
+      }
+      vt = vs;
+    }
+
+    // online softmax in base 2; row r of this thread is query qrow + 8r,
+    // its keys k0 + 8j + 2t + (e & 1) for accumulator s[j][e]
+    const bool masked = (causal && k0 + BK - 1 > q0) || k0 + BK > Sk;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] *= sscale;
+        if (masked) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          if (key >= Sk || (causal && key > qrow + 8 * (e >> 1)))
+            s[j][e] = NEG_INF;
+        }
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = mb::exp2_approx(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];  // the quad's partial sums, reduced at the end
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float p = !masked || x > 0.5f * NEG_INF
+                            ? mb::exp2_approx(x - mx[e >> 1]) : 0.f;
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < DC / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+    mb::gemm_pn<DC, BK / 16>(acc, s, vt);
+    if constexpr (!CHUNKED)
+      __syncthreads();             // done with this buffer before its refill
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / l[r];
+  }
+  // this warp's rows of qs are read by this warp alone: stage O there
+  mb::store_rows<DC>(acc, inv[0], inv[1], qs, row0,
+                     o + (long)b * Sq * qstride + (long)h * D, qstride,
+                     q0 + row0, Sq, c0, D);
+  if (t == 0 && blockIdx.z == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (qrow + 8 * r < Sq)
+        lse[((long)b * Sq + qrow + 8 * r) * H + h] =
+            m[r] * (1.f / LOG2E) + logf(l[r]);
+  }
+}
+
+template <int DC, bool CHUNKED>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int B, int Sq, int Sk, int H, int Hkv,
+                       int D, int causal, cudaStream_t stream) {
+  const int bytes = mma_smem_bytes<DC>();
+  auto kern = flash_fwd_mma_kernel<DC, CHUNKED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + MBQ - 1) / MBQ, CHUNKED ? (D + DC - 1) / DC : 1);
+  kern<<<grid, MMA_THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), Sq, Sk, H, Hkv, D, causal,
+      LOG2E / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
+                          void* o, void* lse, int B, int Sq, int Sk, int H,
+                          int Hkv, int D, int causal, cudaStream_t stream) {
+  // 16-byte copies: D a multiple of 8, every operand on 16 bytes
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) |
+                         reinterpret_cast<uintptr_t>(o)) & 15) == 0;
+  if (D % 8 != 0 || !aligned || (Sq + MBQ - 1) / MBQ > 65535)
+    return cudaErrorInvalidValue;
+  if (D <= 16) return launch_mma<16, false>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
+  if (D <= 32) return launch_mma<32, false>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
+  if (D <= 64) return launch_mma<64, false>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
+  if (D <= 128) return launch_mma<128, false>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
+  return launch_mma<128, true>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
+// dtype: 0 = float32 (scalar body), 1 = bfloat16 (tensor-core body).
+// Returns a cudaError_t.
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
               int causal, int dtype, void* stream) {
@@ -245,10 +477,9 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, st);
+    return (int)dispatch_f32(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D,
-                                        causal, st);
+    return (int)dispatch_bf16(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

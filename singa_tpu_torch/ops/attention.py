@@ -9,7 +9,11 @@ hand-written CUDA kernels:
 Each has a plain PyTorch version here (`flash_forward_plain`,
 `flash_dq_plain`, `flash_dkv_plain`) that steps over the kernel's 64-row
 tiles in f32.  A CUDA tensor launches the kernel; a CPU tensor runs the
-plain version; there is no other path between the two.
+plain version; there is no other path between the two.  In bf16, K1 and
+K4 run on the tensor cores (`mma.sync`) and round P, and K4 also dS, to
+bf16 before their second products, as the TPU kernels do; their plain
+versions round at the same places.  f32 takes the kernels' scalar
+bodies.
 
 `_FlashPacked`, a `torch.autograd.Function`, carries K1 forward and K3
 plus K4 backward, as the JAX package's `custom_vjp`s do (`:644-722`):
@@ -21,7 +25,7 @@ through it.
 
 The TPU block geometry (`flash_blocks`, `_fit_block`) is not carried
 over: the CUDA kernels tile on their own terms and take any S and any
-head_dim.  What stays is the shape rule that decides the route in
+head_dim (in bf16 a multiple of 8, as the route rule asks).  What stays is the shape rule that decides the route in
 kAttention (`flash_legal`), so one configuration takes the same path on
 both.
 """
@@ -142,8 +146,10 @@ def flash_forward_plain(q, k, v, num_heads: int, causal: bool = True,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1's plain PyTorch version: the kernel's online softmax over kv
     tiles of `FLASH_BLOCK_K` keys, in f32, base 2 with scale·log2e
-    folded into q.  Same inputs and outputs as
-    `flash_attention_packed_lse`."""
+    applied to the scores in f32.  P is rounded to v's dtype before its
+    P·V product while l sums the unrounded P, as the kernel (and the TPU
+    kernel's `p.astype(v_ref.dtype)`) does; in f32 that rounding is the
+    identity.  Same inputs and outputs as `flash_attention_packed_lse`."""
     b, sq, sk, d, hkv, g = _packed_dims(q, k, num_heads, num_kv_heads)
     hd = q.shape[2]
     qh = q.float().reshape(b, sq, hkv, g, d) * (LOG2E / math.sqrt(d))
@@ -167,8 +173,8 @@ def flash_forward_plain(q, k, v, num_heads: int, causal: bool = True,
                         torch.zeros((), device=q.device))
         alpha = torch.exp2(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
-                                                    p, vb)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), vb)
         m = m_new
     l_safe = torch.clamp_min(l, 1e-30)
     out = (acc / l_safe[..., None]).permute(0, 3, 1, 2, 4)
@@ -213,7 +219,10 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, num_heads: int,
     """K4's plain PyTorch version: dV = Σ Pᵀ·dO and dK = scale·Σ dSᵀ·Q
     over q tiles of `FLASH_BLOCK_Q` queries in f32, summed over each kv
     head's group of q heads, with P and dS recomputed as in
-    `flash_dq_plain`.  (dK, dV) in k's and v's dtypes."""
+    `flash_dq_plain`.  P is rounded to dout's dtype before Pᵀ·dO and dS
+    to q's before dSᵀ·Q, as the kernel (and the TPU kernel, `:512`,
+    `:521`) does; in f32 both roundings are the identity.  (dK, dV) in
+    k's and v's dtypes."""
     b, sq, sk, d, hkv, g = _packed_dims(q, k, num_heads, num_kv_heads)
     scale = 1.0 / math.sqrt(d)
     qf = q.float().reshape(b, sq, hkv, g, d)
@@ -231,10 +240,12 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, num_heads: int,
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, sl] * (scale * LOG2E),
                          kh)
         p = _tile_probs(s, lse2[..., sl, :], qpos[sl], kpos, causal)
-        dv = dv + torch.einsum("bhgqk,bqhgd->bkhd", p, doh[:, sl])
+        dv = dv + torch.einsum("bhgqk,bqhgd->bkhd",
+                               p.to(dout.dtype).float(), doh[:, sl])
         dp = torch.einsum("bqhgd,bkhd->bhgqk", doh[:, sl], vh)
         ds = p * (dp - dl[..., sl, :])
-        dk = dk + torch.einsum("bhgqk,bqhgd->bkhd", ds, qf[:, sl])
+        dk = dk + torch.einsum("bhgqk,bqhgd->bkhd",
+                               ds.to(q.dtype).float(), qf[:, sl])
     return ((dk * scale).reshape(k.shape).to(k.dtype),
             dv.reshape(v.shape).to(v.dtype))
 
@@ -277,10 +288,26 @@ def _check_cuda(name: str, q, operands, stats=()):
         raise ValueError(f"{name} needs contiguous operands")
 
 
+def _check_mma(name: str, d: int, tensors) -> None:
+    """The bf16 tensor-core bodies of K1 and K4 copy rows in 16-byte
+    pieces: the head dim must be a multiple of 8 (as `flash_legal` asks)
+    and every operand must start on 16 bytes.  f32 takes the scalar
+    bodies, which read element by element."""
+    if tensors[0].dtype != torch.bfloat16:
+        return
+    if d % 8:
+        raise ValueError(f"{name} in bf16 needs a head dim that is a "
+                         f"multiple of 8, not {d}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} in bf16 needs operands that start on "
+                         f"16 bytes")
+
+
 def _flash_forward_cuda(q, k, v, num_heads: int, causal: bool,
                         kv_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
     b, sq, sk, d, _, _ = _packed_dims(q, k, num_heads, kv_heads)
     _check_cuda("flash_fwd", q, (k, v))
+    _check_mma("flash_fwd", d, (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, sq, num_heads), dtype=torch.float32,
                       device=q.device)
@@ -311,6 +338,7 @@ def _flash_dkv_cuda(q, k, v, dout, lse, delta, num_heads: int,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, sq, sk, d, _, _ = _packed_dims(q, k, num_heads, kv_heads)
     _check_cuda("flash_dkv", q, (k, v, dout), (lse, delta))
+    _check_mma("flash_dkv", d, (q, k, v, dout))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         _kernels.launch("flash_dkv", q.data_ptr(), k.data_ptr(),
