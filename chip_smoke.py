@@ -10,14 +10,16 @@ non-zero before the last line is printed:
 1. Card and build: the card's name and power limit, then nvcc builds
    every kernel from singa_tpu_torch/csrc (one process per source, in
    parallel); build time, each kernel's ptxas registers and spills, and
-   the HMMA (tensor-core) instructions of K1 and K4 by `cuobjdump -sass`
+   the HMMA (tensor-core) instructions of K1-K4 by `cuobjdump -sass`
    (their bf16 bodies must have some).
 2. K1 and K2 against their plain PyTorch versions on the card, at the
    bench shapes and a few more (GQA, non-causal, every head dim, both
-   dtypes, ragged edges), each with its stated tolerance; kernel, plain
-   and library times by CUDA events (K1 and SDPA by a CUDA-graph replay
-   of direct launches, with the wrapper's host time, TFLOP/s and share
-   of the bound beside them).
+   dtypes, ragged edges; for K2 vocabs that are not a multiple of its
+   split and an exact tie across a split boundary), each with its
+   stated tolerance; kernel times on the card's clock by a CUDA-graph
+   replay of direct launches (SDPA's forward and, for K2, the bare
+   h.W^T product likewise), with the wrapper's host time, TFLOP/s and
+   share of the bound beside them; plain times by CUDA events.
 3. The scoring forward: the repo's bench stack (transformer_lm 12L,
    E=768, 12 heads of 64, V=32768, S=1024, B=8, bf16 compute) with
    random weights from a numpy seed, through
@@ -320,29 +322,44 @@ def check_flash(b, s, h, hkv, d, dtype, causal, dev, seed, timed=False):
     return res
 
 
-def check_head(n, e, v, dtype, dev, seed, timed=False):
-    from singa_tpu_torch.ops import head_loss as H
+def head_inputs(n, e, v, dtype, dev, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     h = torch.randn((n, e), generator=g, device=dev).to(dtype)
     w = (torch.randn((v, e), generator=g, device=dev)
          / math.sqrt(e)).to(dtype)
     labels = torch.randint(0, v, (n,), generator=g, device=dev)
+    return h, w, labels
+
+
+def check_head(n, e, v, dtype, dev, seed, timed=False, inputs=None):
+    from singa_tpu_torch.ops import head_loss as H
+    h, w, labels = inputs or head_inputs(n, e, v, dtype, dev, seed)
     lse, ll, hit = H.head_stats(h, w, labels)
     torch.cuda.synchronize()
     r_lse, r_ll, r_hit = H.head_stats_plain(h, w, labels)
     err = max((lse - r_lse).abs().max().item(),
               (ll - r_ll).abs().max().item())
     agree = (hit == r_hit).float().mean().item()
-    # f32 sums of E products in another order: ~1e-6 relative; a hit
-    # may flip only where the two best logits tie that closely
+    # f32 sums of E exact products (both dtypes) in another order: ~1e-6
+    # relative; a hit may flip only where the two best logits tie that
+    # closely
     tag = f"K2 head_fwd n={n} e={e} v={v} {str(dtype).split('.')[-1]}"
     assert torch.isfinite(lse).all() and torch.isfinite(ll).all()
     assert torch.allclose(lse, r_lse, rtol=1e-4, atol=1e-4), tag
     assert torch.allclose(ll, r_ll, rtol=1e-4, atol=1e-4), tag
     assert agree >= 0.999, (tag, agree)
-    res = {"max_abs_err": err}
+    res = {"max_abs_err": err, "hit": hit}
     if timed:
-        res["ms"] = time_ms(lambda: H.head_stats(h, w, labels), 5, 1)
+        from singa_tpu_torch.ops import _kernels
+        lbl = labels.to(torch.int32)
+        outs = torch.empty((3, n), dtype=torch.float32, device=dev)
+        ranges, per = H.v_splits(v)
+        ws = torch.empty((ranges, n, 4), dtype=torch.float32, device=dev)
+        res["ms"] = graph_ms(lambda: _kernels.launch(
+            "head_fwd", h.data_ptr(), w.data_ptr(), lbl.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+            ws.data_ptr(), n, e, v, per, H._DTYPE_CODE[dtype]))
+        res["wrapper_ms"] = host_ms(lambda: H.head_stats(h, w, labels))
         res["plain_ms"] = time_ms(lambda: H.head_stats_plain(h, w, labels),
                                   3, 1)
         res["library_ms"] = None
@@ -350,12 +367,47 @@ def check_head(n, e, v, dtype, dev, seed, timed=False):
         res["bound_ms"], res["bound_by"] = bound(
             (n * e + v * e) * esz + n * 8 + 3 * n * 4, 2.0 * n * v * e,
             dtype)
+        # a reference, not K2's library column: the bare product with an
+        # f32 output (cuBLAS), without the statistics, writing n*v logits
+        res["mm_ms"] = graph_ms(lambda: torch.mm(
+            h, w.T, out_dtype=torch.float32), n=5)
     log(f"[kernels] {tag}: max err {err:.3g} (rtol/atol 1e-4), hit "
         f"agreement {agree:.5f} (>= 0.999)"
-        + (f", kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-           f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})"
-           if timed else ""))
+        + (f", kernel {res['ms']:.4f} ms (graph), plain "
+           f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+           f"({res['bound_by']})" if timed else ""))
+    if timed:
+        log(rate_line("K2 head_fwd", res, 2.0 * n * v * e))
+        log(f"[kernels] K2 head_fwd: reference, the bare product torch.mm("
+            f"h, w.T, out_dtype=float32) at the same shape "
+            f"{res['mm_ms']:.4f} ms (graph; {n * v * 4 / 2 ** 30:.2f} GiB "
+            f"of logits, no statistics): K2 is "
+            f"{res['ms'] / res['mm_ms']:.2f}x it")
     return res
+
+
+def check_head_tie(n, e, v, dtype, dev, seed):
+    """Columns b - 1 and b, the last of K2's first vocab range and the
+    first of its second, hold equal rows of W whose logit (exactly 8)
+    beats every other: the hit must name the lower column, exactly."""
+    from singa_tpu_torch.ops import head_loss as H
+    h, w, labels = head_inputs(n, e, v, dtype, dev, seed)
+    _, per = H.v_splits(v)
+    b = per * H.MMA_BV
+    h[:, 0] = 8.0
+    w[:, 0] = 0.0
+    w[b - 1] = w[b] = 0.0
+    w[b - 1, 0] = w[b, 0] = 1.0
+    labels[labels == b - 1] = 0
+    labels[: n // 2] = b - 1
+    labels[n // 2: 3 * n // 4] = b
+    hit = check_head(n, e, v, dtype, dev, seed,
+                     inputs=(h, w, labels))["hit"]
+    want = (torch.arange(n, device=dev) < n // 2).float()
+    assert torch.equal(hit, want), ("tie across a split", dtype)
+    log(f"[kernels] K2 head_fwd n={n} e={e} v={v} "
+        f"{str(dtype).split('.')[-1]}: exact tie across the split at "
+        f"column {b}: every hit names column {b - 1}")
 
 
 def phase_kernels(dev):
@@ -375,6 +427,13 @@ def phase_kernels(dev):
     k2 = check_head(8192, 768, 32768, bf16, dev, 5, timed=True)
     check_head(2048, 768, 32768, f32, dev, 6)
     check_head(100, 96, 1000, f32, dev, 7)                    # ragged
+    # the tensor-core body: ragged N and V; vocabs that are not a
+    # multiple of the split (40 and 250 tiles of 128 in 8 ranges)
+    check_head(100, 96, 1000, bf16, dev, 8)
+    check_head(1000, 256, 5000, bf16, dev, 9)
+    check_head(1024, 768, 32000, bf16, dev, 10)
+    for dtype in (bf16, f32):
+        check_head_tie(256, 768, 32768, dtype, dev, 11)
     return k1, k2
 
 
@@ -404,7 +463,8 @@ def check_flash_bwd(b, s, h, hkv, d, dtype, causal, dev, seed,
     torch.cuda.synchronize()
     ref = (A.flash_dq_plain(*args), *A.flash_dkv_plain(*args))
     # both sides sum f32 products in another order (in bf16 both round P
-    # and dS at the same places before K4's products): f32 outputs agree to
+    # and dS at the same places before K3's and K4's products): f32
+    # outputs agree to
     # ~1e-6 of their magnitude (tolerance 1e-4); a bf16 output may round
     # one ulp (2^-8 relative) apart at its largest magnitude (tol 2^-7)
     rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
@@ -1152,13 +1212,20 @@ def main() -> int:
     log(f"[card] {smi}; torch {torch.__version__}, cuda "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
+    clock = [time.perf_counter()]
+
+    def took(what):
+        now = time.perf_counter()
+        log(f"[time] {what}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     t0 = time.perf_counter()
     logs = _kernels.build()
     log(f"[build] {sorted(logs)} built in {time.perf_counter() - t0:.1f} s")
     for name, text in sorted(logs.items()):
         for fn, usage in ptxas_usage(text):
             log(f"[build] {name}: {fn}: {usage}")
-    for name in ("flash_fwd", "flash_dkv"):
+    for name in ("flash_fwd", "head_fwd", "flash_dq", "flash_dkv"):
         counts = sass_hmma(name)
         for fn, n in sorted(counts.items()):
             log(f"[build] {name}: {fn}: {n} HMMA instructions")
@@ -1166,25 +1233,31 @@ def main() -> int:
         log(f"[build] {name}: {mma} HMMA instructions in its bf16 "
             f"(tensor-core) body")
         assert mma > 0, (name, counts)
+    took("phase 1")
 
     k1, k2 = phase_kernels(dev)
-
+    took("phase 2")
     net = build(BENCH, BENCH["seq_len"])
     arrays = numpy_params(net, seed=0)
     launches = phase_forward(dev, arrays)
     # the forward went through the kernels: 12 attention layers, 1 head
     assert launches == {"flash_fwd": 12, "head_fwd": 1, "flash_dq": 0,
                         "flash_dkv": 0, "lrn_fwd": 0, "lrn_bwd": 0}, launches
+    took("phase 3")
     phase_serve(dev, arrays)
-
+    took("phase 4")
     k34 = phase_flash_bwd(dev)
+    took("phase 5")
     phase_grads(dev, arrays)
+    took("phase 6")
     launches = phase_train(dev, arrays)
     phase_resume(dev, arrays)
-
+    took("phase 7")
     k56 = phase_lrn(dev)
+    took("phase 8")
     launches.update({k: v for k, v in phase_alexnet(dev).items()
                      if k in ("lrn_fwd", "lrn_bwd")})
+    took("phase 9")
 
     kernels = []
     for name, res, replaces in (

@@ -5,7 +5,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 
 namespace flash_bwd {
 
@@ -15,17 +14,11 @@ constexpr int THREADS = 128;    // two threads per row of the block's tile
 constexpr int DCMAX = 64;       // widest column chunk; D > 64 in 64-wide chunks
 constexpr float LOG2E = 1.4426950408889634f;
 
+// the scalar bodies take f32 alone (bf16 goes to the tensor-core bodies)
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // rows [row0, row0 + ROWS) x columns [col0, col0 + DC) of a packed operand

@@ -42,8 +42,8 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 SIGNATURES = {
     # q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, dtype, stream
     "flash_fwd": [_P] * 5 + [_I] * 8 + [_P],
-    # h, w, labels, lse, ll, hit, N, E, V, dtype, stream
-    "head_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    # h, w, labels, lse, ll, hit, ws, N, E, V, split_tiles, dtype, stream
+    "head_fwd": [_P] * 7 + [_I] * 5 + [_P],
     # q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, dtype,
     # stream
     "flash_dq": [_P] * 7 + [_I] * 8 + [_P],

@@ -9,11 +9,11 @@ hand-written CUDA kernels:
 Each has a plain PyTorch version here (`flash_forward_plain`,
 `flash_dq_plain`, `flash_dkv_plain`) that steps over the kernel's 64-row
 tiles in f32.  A CUDA tensor launches the kernel; a CPU tensor runs the
-plain version; there is no other path between the two.  In bf16, K1 and
-K4 run on the tensor cores (`mma.sync`) and round P, and K4 also dS, to
-bf16 before their second products, as the TPU kernels do; their plain
-versions round at the same places.  f32 takes the kernels' scalar
-bodies.
+plain version; there is no other path between the two.  In bf16, K1, K3
+and K4 run on the tensor cores (`mma.sync`) and round P (K1, K4) and dS
+(K3, K4) to bf16 before the products that take them, as the TPU kernels
+do; their plain versions round at the same places.  f32 takes the
+kernels' scalar bodies.
 
 `_FlashPacked`, a `torch.autograd.Function`, carries K1 forward and K3
 plus K4 backward, as the JAX package's `custom_vjp`s do (`:644-722`):
@@ -188,8 +188,11 @@ def flash_dq_plain(q, k, v, dout, lse, delta, num_heads: int,
                    num_kv_heads: Optional[int] = None) -> torch.Tensor:
     """K3's plain PyTorch version: dQ = scale·Σ dS·K over kv tiles of
     `FLASH_BLOCK_K` keys in f32, with P recomputed from (q, k, lse) in
-    base 2 and dS = P∘(dO·Vᵀ − delta), as the kernel does.  dout, lse and
-    delta as `flash_dq` takes them; dQ in q's dtype."""
+    base 2 and dS = P∘(dO·Vᵀ − delta), as the kernel does.  dS is rounded
+    to q's dtype before dS·K, as the kernel (and the TPU kernel's
+    `ds.astype(k_ref.dtype)`, `:453`) does; in f32 that rounding is the
+    identity.  dout, lse and delta as `flash_dq` takes them; dQ in q's
+    dtype."""
     b, sq, sk, d, hkv, g = _packed_dims(q, k, num_heads, num_kv_heads)
     scale = 1.0 / math.sqrt(d)
     qh = q.float().reshape(b, sq, hkv, g, d) * (scale * LOG2E)
@@ -208,7 +211,8 @@ def flash_dq_plain(q, k, v, dout, lse, delta, num_heads: int,
         p = _tile_probs(torch.einsum("bqhgd,bkhd->bhgqk", qh, kb), lse2,
                         qpos, kpos, causal)
         dp = torch.einsum("bqhgd,bkhd->bhgqk", doh, vb)
-        acc = acc + torch.einsum("bhgqk,bkhd->bhgqd", p * (dp - dl), kb)
+        ds = (p * (dp - dl)).to(q.dtype).float()
+        acc = acc + torch.einsum("bhgqk,bkhd->bhgqd", ds, kb)
     dq = (acc * scale).permute(0, 3, 1, 2, 4)
     return dq.reshape(q.shape).to(q.dtype)
 
@@ -289,7 +293,7 @@ def _check_cuda(name: str, q, operands, stats=()):
 
 
 def _check_mma(name: str, d: int, tensors) -> None:
-    """The bf16 tensor-core bodies of K1 and K4 copy rows in 16-byte
+    """The bf16 tensor-core bodies of K1, K3 and K4 copy rows in 16-byte
     pieces: the head dim must be a multiple of 8 (as `flash_legal` asks)
     and every operand must start on 16 bytes.  f32 takes the scalar
     bodies, which read element by element."""
@@ -323,6 +327,7 @@ def _flash_dq_cuda(q, k, v, dout, lse, delta, num_heads: int, causal: bool,
                    kv_heads: int) -> torch.Tensor:
     b, sq, sk, d, _, _ = _packed_dims(q, k, num_heads, kv_heads)
     _check_cuda("flash_dq", q, (k, v, dout), (lse, delta))
+    _check_mma("flash_dq", d, (q, k, v, dout))
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _kernels.launch("flash_dq", q.data_ptr(), k.data_ptr(),

@@ -8,9 +8,17 @@ only three per-token statistics — the online log-sum-exp, the exact
 label logit, and the argmax hit (lowest index wins ties).  The logits
 never reach device memory.
 
+In bf16, the main path, the kernel runs on the tensor cores
+(`mma.sync`) with V split into at most `MAX_SPLITS` ranges of whole
+128-column tiles; each block writes per-row partial statistics of its
+range to a workspace that `_head_stats_cuda` allocates, and a second
+kernel in the same C entry merges them in V order (one counted launch).
+f32 takes the kernel's scalar body.
+
 `head_stats` launches the kernel for a CUDA tensor and runs
 `head_stats_plain`, the same online pass step by step in PyTorch, for a
-CPU tensor.  `fused_lm_xent` is a `torch.autograd.Function` whose
+CPU tensor.  `head_stats_split_plain` repeats the kernel's split of V
+and its merge, for the tests; nothing on the card's path calls it.  `fused_lm_xent` is a `torch.autograd.Function` whose
 forward is that call and whose backward is the JAX package's chunked
 `_fused_bwd` (`:136-164`) in PyTorch: the JAX backward ran in XLA
 outside any Pallas kernel, so its products are `torch.matmul`.
@@ -26,6 +34,8 @@ from . import _kernels
 from .loss import _largest_divisor_leq
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MMA_BV = 128      # vocab columns per tile of the bf16 body (csrc MBV)
+MAX_SPLITS = 8    # vocab ranges of the bf16 body, at most
 
 
 def eligible(h, w_vE, bn: int = 512, bv: int = 2048) -> bool:
@@ -38,12 +48,12 @@ def eligible(h, w_vE, bn: int = 512, bv: int = 2048) -> bool:
             and h.dtype in (torch.bfloat16, torch.float32))
 
 
-def head_stats_plain(h, w_vE, labels, bv: int = 2048
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2's plain PyTorch version: the kernel's online pass over vocab
-    blocks of `bv` columns, in f32.  Returns (lse, label logit, hit)."""
+def _online_stats(h, w_vE, labels, v0: int, v1: int, bv: int):
+    """The online pass over columns [v0, v1) in blocks of `bv`, in f32:
+    per row the max logit m, the sum d of exp(logit − m), the lowest
+    column holding m (a later block takes it only when strictly greater)
+    and the label's logit (0 when the label lies outside)."""
     n = h.shape[0]
-    v = w_vE.shape[0]
     dev = h.device
     hf = h.float()
     lbl = labels.long()
@@ -51,21 +61,77 @@ def head_stats_plain(h, w_vE, labels, bv: int = 2048
     d = torch.zeros((n,), device=dev)
     amax = torch.zeros((n,), dtype=torch.long, device=dev)
     ll = torch.zeros((n,), device=dev)
-    for v0 in range(0, v, bv):
-        logits = hf @ w_vE[v0:v0 + bv].float().T
+    for b0 in range(v0, v1, bv):
+        logits = hf @ w_vE[b0:min(b0 + bv, v1)].float().T
         # argmax returns the first maximal column: lowest index wins
         bidx = torch.argmax(logits, dim=1)
         bmax = torch.gather(logits, 1, bidx[:, None])[:, 0]
         m_new = torch.maximum(m, bmax)
         d = d * torch.exp(m - m_new) + torch.sum(
             torch.exp(logits - m_new[:, None]), dim=1)
-        amax = torch.where(bmax > m, bidx + v0, amax)
+        amax = torch.where(bmax > m, bidx + b0, amax)
         m = m_new
-        col = v0 + torch.arange(logits.shape[1], device=dev)
+        col = b0 + torch.arange(logits.shape[1], device=dev)
         ll = ll + torch.sum(torch.where(col[None, :] == lbl[:, None],
                                         logits, torch.zeros((), device=dev)),
                             dim=1)
-    return m + torch.log(d), ll, (amax == lbl).float()
+    return m, d, amax, ll
+
+
+def head_stats_plain(h, w_vE, labels, bv: int = 2048
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's plain PyTorch version: the kernel's online pass over vocab
+    blocks of `bv` columns, in f32.  Returns (lse, label logit, hit)."""
+    m, d, amax, ll = _online_stats(h, w_vE, labels, 0, w_vE.shape[0], bv)
+    return m + torch.log(d), ll, (amax == labels.long()).float()
+
+
+def v_splits(v: int) -> Tuple[int, int]:
+    """(ranges, tiles per range) of the bf16 kernel's split of V: at most
+    `MAX_SPLITS` ranges of whole `MMA_BV`-column tiles, none empty."""
+    tiles = -(-v // MMA_BV)
+    per = -(-tiles // min(MAX_SPLITS, tiles))
+    return -(-tiles // per), per
+
+
+def head_stats_split_plain(h, w_vE, labels
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The bf16 kernel's split and merge in PyTorch, for the tests: the
+    online pass over each range of `v_splits`, tile by tile of
+    `MMA_BV` columns, then the ranges' partials
+    merged in V order, a later range taking the argmax only when
+    strictly greater.  Equals `head_stats_plain` up to f32 summation
+    order."""
+    v = w_vE.shape[0]
+    ranges, per = v_splits(v)
+    cols = per * MMA_BV
+    m = d = amax = ll = None
+    for r in range(ranges):
+        pm, pd, pa, pl = _online_stats(h, w_vE, labels, r * cols,
+                                       min(v, (r + 1) * cols), MMA_BV)
+        if m is None:
+            m, d, amax, ll = pm, pd, pa, pl
+            continue
+        m_new = torch.maximum(m, pm)
+        d = d * torch.exp(m - m_new) + pd * torch.exp(pm - m_new)
+        amax = torch.where(pm > m, pa, amax)
+        m, ll = m_new, ll + pl
+    return m + torch.log(d), ll, (amax == labels.long()).float()
+
+
+def _check_mma(h, w_vE) -> None:
+    """K2's bf16 tensor-core body copies rows of h and W in 16-byte
+    pieces: E must be a multiple of 8 and both must start on 16 bytes.
+    f32 takes the scalar body, which reads element by element."""
+    if h.dtype != torch.bfloat16:
+        return
+    if h.shape[1] % 8:
+        raise ValueError(f"head_fwd in bf16 needs E a multiple of 8, not "
+                         f"{h.shape[1]}")
+    if h.data_ptr() % 16 or w_vE.data_ptr() % 16:
+        raise ValueError("head_fwd in bf16 needs h and w that start on 16 "
+                         "bytes")
 
 
 def _head_stats_cuda(h, w_vE, labels):
@@ -80,12 +146,20 @@ def _head_stats_cuda(h, w_vE, labels):
         raise ValueError("head_fwd needs contiguous h and w")
     if labels.dtype.is_floating_point:
         raise ValueError("head_fwd needs integer labels")
+    _check_mma(h, w_vE)
     lbl = labels.to(torch.int32).contiguous()
     lse, ll, hit = torch.empty((3, n), dtype=torch.float32, device=h.device)
+    ws, per = None, 0
+    if h.dtype == torch.bfloat16:
+        # one 16-byte partial (m, d, argmax, label logit) per range and row
+        ranges, per = v_splits(v)
+        ws = torch.empty((ranges, n, 4), dtype=torch.float32,
+                         device=h.device)
     with torch.cuda.device(h.device):
         _kernels.launch("head_fwd", h.data_ptr(), w_vE.data_ptr(),
                         lbl.data_ptr(), lse.data_ptr(), ll.data_ptr(),
-                        hit.data_ptr(), n, e, v, _DTYPE_CODE[h.dtype])
+                        hit.data_ptr(), None if ws is None else ws.data_ptr(),
+                        n, e, v, per, _DTYPE_CODE[h.dtype])
     return lse, ll, hit
 
 

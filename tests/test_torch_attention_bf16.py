@@ -1,17 +1,18 @@
-"""K1's and K4's plain versions in bf16 against the JAX package: the
-roundings that the tensor-core kernels make, pinned on the CPU.
+"""K1's, K3's and K4's plain versions in bf16 against the JAX package:
+the roundings that the tensor-core kernels make, pinned on the CPU.
 
-In bf16 the kernels round P to the input dtype before P·V (K1) and P
-and dS before Pᵀ·dO and dSᵀ·Q (K4), as the interpret-mode Pallas kernels
-do (`p.astype(v_ref.dtype)`, `p.astype(do_ref.dtype)`,
+In bf16 the kernels round P to the input dtype before P·V (K1), dS
+before dS·K (K3), and P and dS before Pᵀ·dO and dSᵀ·Q (K4), as the
+interpret-mode Pallas kernels do (`p.astype(v_ref.dtype)`,
+`ds.astype(k_ref.dtype)`, `p.astype(do_ref.dtype)`,
 `ds.astype(q_ref.dtype)`); the plain versions follow them.  The one
 arithmetic difference left is the TPU kernels' fold of scale·log2e into
 q in bf16 (a relative rounding of up to 2^-9 per q element, so up to
 that much of each score), where the port scales the f32 scores.  That
-moved O by 2 bf16 ulps of its largest magnitude at most, lse by 0.014
-and dK/dV by 2.0% of their largest magnitude at these sizes; the
-tolerances are twice that: O 4 ulps of max|O|, lse 0.03, dK/dV 2^-5 of
-their largest magnitude.
+moved O by 2 bf16 ulps of its largest magnitude at most, lse by 0.014,
+dK/dV by 2.0% and dQ by 1.8% of their largest magnitude at these sizes;
+the tolerances are about twice that: O 4 ulps of max|O|, lse 0.03,
+dQ/dK/dV 2^-5 of their largest magnitude.
 
 Inputs are made with numpy from a seed, rounded to bf16 once and handed
 to both sides."""
@@ -31,6 +32,7 @@ B, S, D = 2, 256, 32
 BLOCK = 128
 LSE_ATOL = 0.03
 DKV_RTOL = 2 ** -5
+DQ_RTOL = 2 ** -5
 
 
 def _bf16(seed, *shapes):
@@ -146,6 +148,74 @@ def test_plain_k4_bf16_equals_dense_formula(causal, heads, kv_heads):
         assert gap <= 2 ** -8 * top, (gap, top)
 
 
+@pytest.mark.parametrize("causal,heads,kv_heads", CASES)
+def test_plain_k3_bf16_matches_interpret_kernel(causal, heads, kv_heads):
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _bf16(
+        400 + 10 * causal + kv_heads, (B, S, heads * D),
+        (B, S, kv_heads * D), (B, S, kv_heads * D), (B, S, heads * D))
+    out, lse = jattn._packed_forward(jq, jk, jv, heads, causal, BLOCK,
+                                     BLOCK, True, kv_heads)
+    dq_j, _, _ = jattn._packed_backward(jq, jk, jv, out, lse, jdo, heads,
+                                        causal, BLOCK, BLOCK, True,
+                                        kv_heads)
+    tout = torch.from_numpy(_f32(out))
+    delta = (tdo.float() * tout).reshape(B, S, heads, D).sum(-1)
+    dq_t = tattn.flash_dq_plain(
+        tq, tk, tv, tdo, torch.from_numpy(np.asarray(lse)), delta, heads,
+        causal, kv_heads)
+    assert dq_t.dtype == torch.bfloat16
+    want = _f32(dq_j)
+    np.testing.assert_allclose(dq_t.float().numpy(), want, rtol=0,
+                               atol=DQ_RTOL * np.abs(want).max())
+
+
+def _dense_dq(q, k, v, dout, lse, delta, heads, causal, kv_heads):
+    """dQ in one shot over every key, in f32, with dS rounded to bf16
+    where the kernel rounds it; GQA by expanding k and v."""
+    b, sq, _ = q.shape
+    sk, g = k.shape[1], heads // kv_heads
+    scale = 1.0 / math.sqrt(D)
+
+    def heads_of(x, n):
+        return x.float().reshape(b, -1, n, D).transpose(1, 2)
+    qh, doh = heads_of(q, heads), heads_of(dout, heads)
+    kh = heads_of(k, kv_heads).repeat_interleave(g, dim=1)
+    vh = heads_of(v, kv_heads).repeat_interleave(g, dim=1)
+    s = (qh * (scale * tattn.LOG2E)) @ kh.transpose(-1, -2)
+    if causal:
+        mask = torch.arange(sq)[:, None] < torch.arange(sk)[None, :]
+        s = s.masked_fill(mask, tattn.NEG_INF)
+    p = torch.exp2(s - lse.transpose(1, 2)[..., None] * tattn.LOG2E)
+    ds = p * (doh @ vh.transpose(-1, -2) - delta.transpose(1, 2)[..., None])
+    dq = ds.to(torch.bfloat16).float() @ kh * scale
+    return dq.transpose(1, 2).reshape(q.shape)
+
+
+@pytest.mark.parametrize("causal,heads,kv_heads", CASES)
+def test_plain_k3_bf16_equals_dense_formula(causal, heads, kv_heads):
+    """The tiled plain K3 in bf16 is the dense formula with dS rounded to
+    bf16, up to f32 summation order: where the two f32 dS differ in
+    their last bit, one element may round to the neighbouring bf16
+    value, an error of one bf16 ulp of one term (2^-8 of it); the
+    tolerance is 2^-8 of the largest dQ.  Leaving the rounding out moves
+    dQ by 0.34-0.64% of its largest magnitude at these sizes, and fails
+    the two non-causal cases here."""
+    _, (tq, tk, tv, tdo, tdl) = _bf16(
+        500 + 10 * causal + kv_heads, (B, S, heads * D),
+        (B, S, kv_heads * D), (B, S, kv_heads * D), (B, S, heads * D),
+        (B, S, heads))
+    out, lse = tattn.flash_forward_plain(tq, tk, tv, heads, causal,
+                                         kv_heads)
+    delta = (tdo.float() * out.float()).reshape(B, S, heads, D).sum(-1)
+    delta = delta - tdl.float()
+    args = (tq, tk, tv, tdo, lse, delta, heads, causal, kv_heads)
+    got = tattn.flash_dq_plain(*args)
+    want = _dense_dq(*args)
+    top = want.abs().max().item()
+    gap = (got.float() - want.to(torch.bfloat16).float()).abs().max().item()
+    assert gap <= 2 ** -8 * top, (gap, top)
+
+
 def test_mma_operands_need_16_byte_rows():
     """The tensor-core bodies read bf16 rows in 16-byte pieces: a head dim
     that is not a multiple of 8, or an operand that does not start on 16
@@ -156,7 +226,8 @@ def test_mma_operands_need_16_byte_rows():
     with pytest.raises(ValueError):
         tattn._check_mma("flash_fwd", 20, (q, k, k))
     shifted = torch.zeros(1 + 128 * 64, dtype=torch.bfloat16)[1:]
-    with pytest.raises(ValueError):
-        tattn._check_mma("flash_dkv", 32, (q, shifted.view(1, 128, 64), k))
+    for name in ("flash_dq", "flash_dkv"):
+        with pytest.raises(ValueError):
+            tattn._check_mma(name, 32, (q, shifted.view(1, 128, 64), k))
     # f32 stays on the scalar bodies, which take any head dim
     tattn._check_mma("flash_fwd", 20, (q.float(),))

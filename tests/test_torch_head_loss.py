@@ -4,8 +4,12 @@ chunked head, the dense metrics, the tie rule and the exact label logit
 (the cases of tests/test_head_loss.py).
 
 N=64, E=128, V=512 with the JAX kernel tiled BN=16, BV=128, inputs from
-numpy in f32.  Tolerance rtol 1e-5 on lse, label logit and the loss (the
-same f32 sums in another order); hits are compared exactly."""
+numpy in f32, and in bf16 (rounded once and handed to both sides).
+Tolerance rtol 1e-5 on lse, label logit and the loss: in both dtypes the
+two sides sum the same exact products in f32, in another order; hits are
+compared exactly.  Then the bf16 kernel's legality rule and its split of
+V with the merge of the ranges (`head_stats_split_plain`), ties across a
+range boundary included."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +53,82 @@ def test_plain_k2_matches_interpret_kernel(seed):
     np.testing.assert_allclose(lse_t, lse_j, rtol=1e-5)
     np.testing.assert_allclose(ll_t, ll_j, rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(hit_t, hit_j)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_k2_bf16_matches_interpret_kernel(seed):
+    """K2 in bf16, the dtype the LM trains and scores in: the plain
+    version on bf16 h and W against the interpret-mode Pallas kernel on
+    the same bf16 arrays."""
+    h, w, labels = _data(10 + seed)
+    jh, jw = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (h, w))
+    th, tw = (torch.from_numpy(a).to(torch.bfloat16) for a in (h, w))
+    want = [np.asarray(a) for a in jhead._head_stats_pallas(
+        jh, jw, jnp.asarray(labels), BN, BV, True)]
+    got = [a.numpy() for a in thead.head_stats_plain(
+        th, tw, torch.from_numpy(labels), bv=BV)]
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got[2], want[2])
+
+
+def test_k2_bf16_operands_need_16_byte_rows():
+    """The bf16 tensor-core body copies rows of h and W in 16-byte
+    pieces: E not a multiple of 8, or an operand that does not start on
+    16 bytes, is refused before any launch; f32 takes any E."""
+    h = torch.zeros(N, 96, dtype=torch.bfloat16)
+    w = torch.zeros(V, 96, dtype=torch.bfloat16)
+    thead._check_mma(h, w)
+    with pytest.raises(ValueError):
+        thead._check_mma(h[:, :92].contiguous(), w[:, :92].contiguous())
+    shifted = torch.zeros(1 + V * 96, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError):
+        thead._check_mma(h, shifted.view(V, 96))
+    with pytest.raises(ValueError):
+        thead._check_mma(shifted[:N * 96].view(N, 96), w)
+    thead._check_mma(h[:, :92].float(), w[:, :92].float())
+
+
+@pytest.mark.parametrize("v", [512, 1000, 4200])
+def test_v_splits_cover_the_vocab(v):
+    """At most MAX_SPLITS ranges of whole 128-column tiles, none empty,
+    covering every column."""
+    ranges, per = thead.v_splits(v)
+    tiles = -(-v // thead.MMA_BV)
+    assert 1 <= ranges <= thead.MAX_SPLITS
+    assert (ranges - 1) * per < tiles <= ranges * per
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [V, 1000])
+def test_split_merge_matches_plain(dtype, v):
+    """Merging the bf16 kernel's V ranges in V order gives
+    `head_stats_plain`'s statistics, and the lowest column wins a tie
+    across a range boundary: columns b - 1 and b (the first of the
+    second range) hold equal rows of W whose logit beats every other."""
+    rng = np.random.default_rng(20 + v)
+    h = rng.standard_normal((N, E)).astype(np.float32)
+    w = (rng.standard_normal((v, E)) * 0.05).astype(np.float32)
+    _, per = thead.v_splits(v)
+    b = per * thead.MMA_BV
+    h[:, 0] = 8.0
+    w[:, 0] = 0.0
+    w[b - 1] = w[b] = 0.0
+    w[b - 1, 0] = w[b, 0] = 1.0       # logit exactly 8 at both columns
+    labels = rng.integers(0, v, (N,)).astype(np.int32)
+    labels[labels == b - 1] = 0
+    labels[: N // 2] = b - 1
+    labels[N // 2: 3 * N // 4] = b
+    th, tw = (torch.from_numpy(a).to(dtype) for a in (h, w))
+    tl = torch.from_numpy(labels)
+    got = thead.head_stats_split_plain(th, tw, tl)
+    want = thead.head_stats_plain(th, tw, tl)
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=1e-6)
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
+    hit = got[2].numpy()
+    assert (hit[: N // 2] == 1).all() and (hit[N // 2:] == 0).all()
+    np.testing.assert_array_equal(got[1].numpy()[: 3 * N // 4], 8.0)
 
 
 def test_fused_xent_matches_jax():
