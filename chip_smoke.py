@@ -50,9 +50,14 @@ non-zero before the last line is printed:
    an uninterrupted run's bit for bit.
 8. K5 and K6 (the LRN forward and backward) against their plain
    versions at AlexNet-CIFAR10's norm1 and norm2 shapes (B=1024, relu
-   fused, bf16 and f32; timed in bf16 with `F.local_response_norm` on
-   relu(x) as the library yardstick), at a ragged shape (N=3, C=13,
-   L=3, beta=0.5, relu off) and at C=3000 (one pixel per block).
+   fused, bf16 and f32; timed in bf16 by a CUDA-graph replay of direct
+   launches, with the wrapper's host time, the share of the bound and
+   `F.local_response_norm` on relu(x) as the library yardstick), at a
+   ragged shape (N=3, C=13, L=3, beta=0.5, relu off), at C=3000 (one
+   pixel per block), and at the vector route's edges in both dtypes:
+   C=8, C=16 with L=9, C=2056, a runtime window and beta, pixel counts
+   that are not a multiple of the tile, and a view one element into its
+   storage (the general route at C=64).
 9. AlexNet-CIFAR10, this slice's main path: `examples/cifar10/
    alexnet.conf` through the port's config parser at full width, its own
    batch 1024, bf16 compute, numpy-seeded weights, synthetic CIFAR-shaped
@@ -290,7 +295,7 @@ def check_flash(b, s, h, hkv, d, dtype, causal, dev, seed, timed=False):
         res["ms"] = graph_ms(lambda: _kernels.launch(
             "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o_buf.data_ptr(), l_buf.data_ptr(), b, s, s, h, hkv, d,
-            int(causal), A._DTYPE_CODE[dtype]))
+            int(causal), A.fold_constant(d, dtype), A._DTYPE_CODE[dtype]))
         res["wrapper_ms"] = host_ms(lambda: A.flash_attention_packed_lse(
             q, k, v, h, causal, hkv))
         res["plain_ms"] = time_ms(lambda: A.flash_forward_plain(
@@ -483,7 +488,8 @@ def check_flash_bwd(b, s, h, hkv, d, dtype, causal, dev, seed,
     if timed:
         from singa_tpu_torch.ops import _kernels
         ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, delta)]
-        sizes = (b, s, s, h, hkv, d, int(causal), A._DTYPE_CODE[dtype])
+        sizes = (b, s, s, h, hkv, d, int(causal), A.fold_constant(d, dtype),
+                 A._DTYPE_CODE[dtype])
         dq_buf, dk_buf, dv_buf = (torch.empty_like(t) for t in (dq, dk, dv))
         res["dq"]["ms"] = graph_ms(lambda: _kernels.launch(
             "flash_dq", *ptrs, dq_buf.data_ptr(), *sizes))
@@ -960,18 +966,30 @@ def lrn_library_ms(a, g, local_size, alpha, beta, knorm):
     return f, time_ms(fwd_bwd, 10) - f
 
 
+def lrn_route(x, c: int) -> str:
+    """The route the LRN kernels' C entries take (csrc/lrn_common.cuh):
+    8-channel groups on 16 bytes go the vector route."""
+    return ("vector" if c % 8 == 0 and x.data_ptr() % 16 == 0
+            else "general")
+
+
 def check_lrn(shape, dtype, local_size, alpha, beta, relu, dev, seed,
-              scale=1.0, timed=False):
+              scale=1.0, timed=False, offset=0):
+    """K5 and K6 against their plain versions on x of `shape`; `offset`
+    elements before x in its storage move its start off 16 bytes."""
     from singa_tpu_torch.ops import lrn as L
     gen = torch.Generator(device=dev).manual_seed(seed)
-    x = (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    n = math.prod(shape)
+    x = (scale * torch.randn(n + offset, generator=gen, device=dev)
+         ).to(dtype)[offset:].view(shape)
     g = torch.randn(shape, generator=gen, device=dev).to(dtype)
     args = (local_size, alpha, beta, 1.0, relu)
     y, dx = L.lrn_fwd(x, *args), L.lrn_bwd(x, g, *args)
     torch.cuda.synchronize()
     ref_y, ref_dx = L.lrn_fwd_plain(x, *args), L.lrn_bwd_plain(x, g, *args)
+    route = lrn_route(x, shape[-1])
     tag = (f"{tuple(shape)} {str(dtype).split('.')[-1]} L={local_size} "
-           f"alpha={alpha} beta={beta} relu={relu}")
+           f"alpha={alpha} beta={beta} relu={relu} {route} route")
     errs = {}
     for name, got, want in (("lrn_fwd", y, ref_y), ("lrn_bwd", dx, ref_dx)):
         top = want.float().abs().max().item()
@@ -985,26 +1003,45 @@ def check_lrn(shape, dtype, local_size, alpha, beta, relu, dev, seed,
         log(f"[lrn] {name} {tag}: max err {err:.3g} (tol {tol:.3g}, "
             f"max|value| {top:.3g})")
     if timed:
-        esz, n = x.element_size(), x.numel()
+        from singa_tpu_torch.ops import _kernels
+        esz, c = x.element_size(), shape[-1]
+        npix = n // c
         a = torch.relu(x) if relu else x
         lib_f, lib_b = lrn_library_ms(a, g, local_size, alpha, beta, 1.0)
-        for name, fn, plain, nbytes, ops, lib in (
-                ("lrn_fwd", lambda: L.lrn_fwd(x, *args),
+        y_buf, dx_buf = torch.empty_like(x), torch.empty_like(x)
+        code = L._DTYPE_CODE[dtype]
+        for name, launch, fn, plain, nbytes, ops, lib in (
+                ("lrn_fwd", lambda: _kernels.launch(
+                    "lrn_fwd", x.data_ptr(), y_buf.data_ptr(), npix, c,
+                    *args[:4], int(relu), code),
+                 lambda: L.lrn_fwd(x, *args),
                  lambda: L.lrn_fwd_plain(x, *args), 2 * n * esz,
                  (local_size + 7) * n, lib_f),
-                ("lrn_bwd", lambda: L.lrn_bwd(x, g, *args),
+                ("lrn_bwd", lambda: _kernels.launch(
+                    "lrn_bwd", x.data_ptr(), g.data_ptr(), dx_buf.data_ptr(),
+                    npix, c, *args[:4], int(relu), code),
+                 lambda: L.lrn_bwd(x, g, *args),
                  lambda: L.lrn_bwd_plain(x, g, *args), 3 * n * esz,
                  (2 * local_size + 13) * n, lib_b)):
             r = errs[name]
-            r["ms"] = time_ms(fn, 20)
+            r["ms"] = graph_ms(launch)
+            r["events_ms"] = time_ms(fn, 20)
+            r["wrapper_ms"] = host_ms(fn)
             r["plain_ms"] = time_ms(plain, 5, 1)
             r["library_ms"] = lib
             # f32 arithmetic outside the tensor cores
             r["bound_ms"], r["bound_by"] = bound(nbytes, ops, torch.float32)
-            log(f"[lrn] {name} {tag}: kernel {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, F.local_response_norm"
+            log(f"[lrn] {name} {tag}: kernel {r['ms']:.4f} ms (graph), "
+                f"{r['events_ms']:.4f} ms (CUDA events around the wrapper), "
+                f"plain {r['plain_ms']:.4f} ms, F.local_response_norm"
                 f"{' on relu(x)' if relu else ''} {lib:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            log(f"[kernels] {'K5' if name == 'lrn_fwd' else 'K6'} {name} "
+                f"{tuple(shape)}: {nbytes / r['ms'] / 1e9:.3f} TB/s, "
+                f"{r['bound_ms'] / r['ms']:.3f} of the bound "
+                f"({r['bound_by']}); wrapper {r['wrapper_ms']:.4f} ms per "
+                f"call on the host; F.local_response_norm is "
+                f"{lib / r['ms']:.2f}x the kernel in this run")
     return errs
 
 
@@ -1019,8 +1056,24 @@ def phase_lrn(dev):
         check_lrn(shape, f32, 5, 1e-4, 0.75, True, dev, 81, scale=30.0)
     for dtype in (f32, bf16):
         check_lrn((3, 7, 5, 13), dtype, 3, 1.0, 0.5, False, dev, 82)
-        # C > 2048: one pixel per block, the kernels' wide-row geometry
+        # C > 2048: one pixel per block on both routes
         check_lrn((2, 3, 3, 3000), dtype, 5, 1.0, 0.75, True, dev, 83)
+        # the vector route's edges: one thread per pixel (C=8); the
+        # widest unrolled window (L=9) on two threads a pixel; past 2048
+        # channels (C=2056, runtime loops); a runtime beta and window
+        check_lrn((4, 5, 5, 8), dtype, 5, 1.0, 0.75, True, dev, 84)
+        check_lrn((4, 5, 5, 16), dtype, 9, 1.0, 0.75, False, dev, 85)
+        check_lrn((2, 3, 3, 2056), dtype, 7, 1.0, 0.75, True, dev, 86)
+        check_lrn((5, 4, 4, 24), dtype, 11, 1.0, 0.5, True, dev, 87)
+        # pixel counts that are not a multiple of the tile (32 pixels at
+        # C=64, 10 at C=192), over more tiles than the grid has blocks
+        check_lrn((1000, 7, 7, 64), dtype, 5, 1e-4, 0.75, True, dev, 88,
+                  scale=30.0)
+        check_lrn((999, 5, 5, 192), dtype, 7, 1.0, 0.75, False, dev, 89)
+        # a view one element into its storage: off 16 bytes, so the
+        # general route runs at a vector route's C
+        check_lrn((8, 6, 6, 64), dtype, 5, 1.0, 0.75, True, dev, 90,
+                  offset=1)
     return timed["norm1"]
 
 

@@ -6,7 +6,7 @@
 //   q, dO (B, Sq, H*D) and k, v (B, Sk, Hkv*D) in f32 or bf16 (one dtype),
 //   lse and delta (B, Sq, H) f32, where delta = rowsum(dO*O) - dlse per head.
 //   P is recomputed tile by tile from (q, k, lse) in base 2, never stored:
-//     P = exp2(s - lse*log2e),  dS = P * (dO.V^T - delta),
+//     P = exp2((q*c).k - lse*log2e),  dS = P * (dO.V^T - delta),
 //     dV = sum over q tiles of P^T.dO,  dK = scale * sum of dS^T.Q,
 //   summed over the H/Hkv q heads that share each kv head (GQA, :497-499),
 //   accumulated in f32 and cast once at the end.  No atomics: every dK and
@@ -32,15 +32,17 @@
 // A fragments.  The Q and dO tiles of 64 queries, with their lse and delta,
 // are double-buffered in shared memory by cp.async: the next (head, q tile)
 // step's copy is in flight while the current one is multiplied.  Per step:
-// S^T = K.Q^T and dP^T = V.dO^T by `mma.sync` m16n8k16 (bf16 products, f32
-// sums); P^T = exp2(S^T*scale*log2e - lse*log2e), masked only on the
+// S^T = K.(Q*c)^T and dP^T = V.dO^T by `mma.sync` m16n8k16 (bf16 products,
+// f32 sums), where each Q fragment is multiplied by c = bf16(scale*log2(e))
+// with `__hmul2` as it is loaded, each q*c rounded to bf16: the TPU
+// kernel's fold into q in q's dtype (:503), c from the host
+// (attention.fold_constant); P^T = exp2(S^T - lse*log2e), masked only on the
 // diagonal tile and the ragged Sq edge; dS^T = P^T * (dP^T - delta); then
 // dV += P^T.dO and dK += dS^T.Q, with P^T and dS^T rounded to bf16 and
 // reused from the accumulator registers as A operands and dO and Q read by
 // ldmatrix.trans.  The roundings are the TPU kernel's `p.astype(do_ref.dtype)`
 // (:512) and `ds.astype(q_ref.dtype)` (:521); the dK product takes the
-// unscaled q, as :521 does.  The scores take the raw q and are scaled in
-// f32, where the TPU kernel folds the scale into q in bf16 (:503).  dK and
+// raw q from shared memory, as :521 does.  dK and
 // dV stay in f32 registers; the epilogue scales dK once and writes both
 // with 16-byte stores staged through shared memory.  Head dims: any
 // multiple of 8, padded to 16, 32 or 64 columns; past 64, every block sums
@@ -205,7 +207,8 @@ template <typename T, int DC>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, int B, int Sq, int Sk, int H, int Hkv,
-                   int D, int causal, cudaStream_t stream) {
+                   int D, int causal, float qscale,
+                   cudaStream_t stream) {
   const int bytes = smem_floats<DC>() * (int)sizeof(float);
   auto kern = flash_dkv_kernel<T, DC>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -218,22 +221,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, Hkv, D, causal,
-      scale * LOG2E, scale);
+      qscale, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse,
                          const void* delta, void* dk, void* dv, int B,
-                         int Sq, int Sk, int H, int Hkv, int D, int causal,
+                         int Sq, int Sk, int H, int Hkv, int D, int causal, float qs,
                          cudaStream_t st) {
   if (D <= 8)
-    return launch<float, 8>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, st);
+    return launch<float, 8>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, qs, st);
   if (D <= 16)
-    return launch<float, 16>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, st);
+    return launch<float, 16>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, qs, st);
   if (D <= 32)
-    return launch<float, 32>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, st);
-  return launch<float, DCMAX>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, st);
+    return launch<float, 32>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, qs, st);
+  return launch<float, DCMAX>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, qs, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -259,7 +262,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
-                     int D, int causal, float sscale, float scale) {
+                     int D, int causal, float qscale, float scale) {
   namespace mb = mma_bf16;
   constexpr int P = mb::pitch<DC>();
   constexpr int NT = BQ / 8;       // n-tiles of the 16 x BQ strip of S^T
@@ -284,6 +287,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long kvstride = (long)Hkv * D;
   const bf16* kb = k + (long)b * Sk * kvstride + (long)hk * D;
   const bf16* vb = v + (long)b * Sk * kvstride + (long)hk * D;
+  const __nv_bfloat162 c2 = __float2bfloat162_rn(qscale);  // exact
 
   // causal: q tiles before the one holding query k0 see none of these keys
   const int nq = (Sq + BQ - 1) / BQ;
@@ -350,7 +354,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           mb::load_a<DC>(vf[kk], vs, row0, kk * 16);
         }
       }
-      mb::gemm_nt<DC, NT>(s, kf, qs + buf * BQ * P);
+      // S^T = K.(Q*c)^T, each Q fragment times c in bf16 on its way in
+      mb::gemm_nt<DC, NT, true>(s, kf, qs + buf * BQ * P, c2);
       mb::gemm_nt<DC, NT>(dp, vf, dos + buf * BQ * P);
     } else {
       const long off = (long)b * Sq * qstride + (long)hh * D;
@@ -372,7 +377,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           mb::load_a<DC>(kf[kk], ks, row0, kk * 16);
           mb::load_a<DC>(vf[kk], vs, row0, kk * 16);
         }
-        mb::gemm_nt<DC, NT>(s, kf, qs);
+        mb::gemm_nt<DC, NT, true>(s, kf, qs, c2);
         mb::gemm_nt<DC, NT>(dp, vf, dos);
       }
       // Q's and dO's columns of this block's output slice
@@ -395,7 +400,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * t + (e & 1);
-        float p = exp2f(s[j][e] * sscale - ls[col] * LOG2E);
+        float p = exp2f(s[j][e] - ls[col] * LOG2E);
         if (masked) {
           const int qq = q0 + col;
           if (qq >= Sq || (causal && qq < krow + 8 * (e >> 1))) p = 0.f;
@@ -421,7 +426,8 @@ template <int DC, bool CHUNKED>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int Sq, int Sk, int H,
-                       int Hkv, int D, int causal, cudaStream_t stream) {
+                       int Hkv, int D, int causal, float qscale,
+                   cudaStream_t stream) {
   const int bytes = mma_smem_bytes<DC>();
   auto kern = flash_dkv_mma_kernel<DC, CHUNKED>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -435,14 +441,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, H, Hkv, D,
-      causal, scale * LOG2E, scale);
+      causal, qscale, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dk, void* dv, int B,
-                          int Sq, int Sk, int H, int Hkv, int D, int causal,
+                          int Sq, int Sk, int H, int Hkv, int D, int causal, float qs,
                           cudaStream_t st) {
   // 16-byte copies: D a multiple of 8, every bf16 operand on 16 bytes
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
@@ -454,34 +460,35 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
   if (D % 8 != 0 || !aligned || (Sk + BK - 1) / BK > 65535)
     return cudaErrorInvalidValue;
   if (D <= 16)
-    return launch_mma<16, false>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, st);
+    return launch_mma<16, false>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, qs, st);
   if (D <= 32)
-    return launch_mma<32, false>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, st);
+    return launch_mma<32, false>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, qs, st);
   if (D <= 64)
-    return launch_mma<64, false>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, st);
-  return launch_mma<64, true>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, st);
+    return launch_mma<64, false>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, qs, st);
+  return launch_mma<64, true>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, qs, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (scalar body), 1 = bfloat16 (tensor-core body).
-// Returns a cudaError_t.
+// qscale: scale*log2(e) in q's dtype, rounded on the host
+// (attention.fold_constant); dtype: 0 = float32 (scalar body),
+// 1 = bfloat16 (tensor-core body).  Returns a cudaError_t.
 int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dk, void* dv, int B,
-              int Sq, int Sk, int H, int Hkv, int D, int causal, int dtype,
-              void* stream) {
+              int Sq, int Sk, int H, int Hkv, int D, int causal, double qscale,
+              int dtype, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || D < 1 || H % Hkv != 0 ||
       B * Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)dispatch_f32(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk,
-                             H, Hkv, D, causal, st);
+                             H, Hkv, D, causal, (float)qscale, st);
   if (dtype == 1)
     return (int)dispatch_bf16(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk,
-                              H, Hkv, D, causal, st);
+                              H, Hkv, D, causal, (float)qscale, st);
   return (int)cudaErrorInvalidValue;
 }
 

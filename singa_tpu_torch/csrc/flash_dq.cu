@@ -6,9 +6,11 @@
 //   lse and delta (B, Sq, H) f32, where delta = rowsum(dO*O) - dlse per head;
 //   q head h reads kv head h / (H/Hkv).  P is recomputed tile by tile from
 //   (q, k, lse) in base 2, never stored:
-//     P = exp2(s*scale*log2e - lse*log2e),  dS = P * (dO.V^T - delta),
+//     P = exp2((q*c).k - lse*log2e),  dS = P * (dO.V^T - delta),
 //     dQ = scale * sum over kv tiles of dS.K,
-//   accumulated in f32 and scaled and cast once at the end (:474-476).
+//   accumulated in f32 and scaled and cast once at the end (:474-476);
+//   c = scale*log2e is folded into q in q's dtype, as the TPU kernel
+//   does (:439).
 //
 // What bounds it on this card: 3 products per (query, key) pair, 6*D flops,
 // against reading q, k, v, dO once and writing dQ.  At the bench shape (B=8,
@@ -26,17 +28,19 @@
 // stopping at the diagonal when causal; the grid starts the q tiles with
 // the most kv tiles first.  Each warp owns 16 query rows.  Q and dO go to
 // shared memory once by cp.async and into registers as ldmatrix A
-// fragments, where they stay; so do the rows' lse*log2e and delta.  K and
+// fragments, where they stay, Q multiplied by c = bf16(scale*log2(e))
+// with `__hmul2` as it enters them (each q*c rounded to bf16, the TPU
+// kernel's fold into q in q's dtype, :439; c from the host,
+// attention.fold_constant); so do the rows' lse*log2e and delta.  K and
 // V tiles of 64 keys are double-buffered by cp.async: the next tile's copy
-// is in flight while the current one is multiplied.  Per kv tile: S = Q.K^T
-// and dP = dO.V^T by `mma.sync` m16n8k16 (bf16 products, f32 sums);
-// P = exp2(S*scale*log2e - lse*log2e) on the SFU, masked only on the
+// is in flight while the current one is multiplied.  Per kv tile:
+// S = (Q*c).K^T and dP = dO.V^T by `mma.sync` m16n8k16 (bf16 products,
+// f32 sums); P = exp2(S - lse*log2e) on the SFU, masked only on the
 // diagonal tile and the ragged Sk edge; dS = P * (dP - delta); then
 // dQ += dS.K with dS rounded to bf16 and reused from the accumulator
 // registers as the A operand and K read by ldmatrix.trans.  That rounding
-// is the TPU kernel's `ds.astype(k_ref.dtype)` (:453).  The scores take
-// the raw q and are scaled in f32, as K1 and K4 do, so P agrees with K1's
-// lse; the TPU kernel folds the scale into q in bf16 (:439).  dQ stays in
+// is the TPU kernel's `ds.astype(k_ref.dtype)` (:453).  K1 and K4 fold q
+// in the same way, so P agrees with K1's lse.  dQ stays in
 // f32 registers; the epilogue scales it once and writes it with 16-byte
 // stores staged through shared memory.  No atomics: every dQ element has
 // one writer, so the result is deterministic.  Head dims: any multiple of
@@ -187,7 +191,8 @@ template <typename T, int DC>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int B, int Sq, int Sk, int H, int Hkv, int D,
-                   int causal, cudaStream_t stream) {
+                   int causal, float qscale,
+                   cudaStream_t stream) {
   const int bytes = smem_floats<DC>() * (int)sizeof(float);
   auto kern = flash_dq_kernel<T, DC>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -199,21 +204,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), Sq, Sk, H, Hkv, D, causal, scale * LOG2E, scale);
+      static_cast<T*>(dq), Sq, Sk, H, Hkv, D, causal, qscale, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dq, int B, int Sq, int Sk, int H, int Hkv,
-                         int D, int causal, cudaStream_t st) {
+                         int D, int causal, float qs, cudaStream_t st) {
   if (D <= 8)
-    return launch<float, 8>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, st);
+    return launch<float, 8>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, qs, st);
   if (D <= 16)
-    return launch<float, 16>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, st);
+    return launch<float, 16>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, qs, st);
   if (D <= 32)
-    return launch<float, 32>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, st);
-  return launch<float, DCMAX>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, st);
+    return launch<float, 32>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, qs, st);
+  return launch<float, DCMAX>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, qs, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -240,7 +245,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
                     int Sq, int Sk, int H, int Hkv, int D, int causal,
-                    float sscale, float scale) {
+                    float qscale, float scale) {
   namespace mb = mma_bf16;
   constexpr int P = mb::pitch<DC>();
   constexpr int NT = BK / 8;       // n-tiles of the 16 x BK strip of S
@@ -266,6 +271,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* dob = dout + (long)b * Sq * qstride + (long)h * D;
   const bf16* kb = k + (long)b * Sk * kvstride + (long)hk * D;
   const bf16* vb = v + (long)b * Sk * kvstride + (long)hk * D;
+  const __nv_bfloat162 c2 = __float2bfloat162_rn(qscale);  // exact
 
   // causal: no row of this tile sees a key at or past q0 + MBQ
   const int kv_end = causal ? min(Sk, q0 + MBQ) : Sk;
@@ -319,6 +325,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int kk = 0; kk < DC / 16; ++kk) {
           mb::load_a<DC>(qf[kk], qs, row0, kk * 16);
+          mb::mul_bf16x2(qf[kk], c2);  // q*c in bf16, once
           mb::load_a<DC>(df[kk], dos, row0, kk * 16);
         }
       }
@@ -340,6 +347,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int kk = 0; kk < DC / 16; ++kk) {
           mb::load_a<DC>(qf[kk], qs, row0, kk * 16);
+          mb::mul_bf16x2(qf[kk], c2);
           mb::load_a<DC>(df[kk], dos, row0, kk * 16);
         }
         mb::gemm_nt<DC, NT>(s, qf, ks);
@@ -362,7 +370,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        float p = mb::exp2_approx(s[j][e] * sscale - lse2[r]);
+        float p = mb::exp2_approx(s[j][e] - lse2[r]);
         if (masked) {
           const int key = k0 + 8 * j + 2 * t + (e & 1);
           if (key >= Sk || (causal && key > qrow + 8 * r)) p = 0.f;
@@ -384,7 +392,8 @@ template <int DC, bool CHUNKED>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dq, int B, int Sq, int Sk, int H, int Hkv,
-                       int D, int causal, cudaStream_t stream) {
+                       int D, int causal, float qscale,
+                   cudaStream_t stream) {
   const int bytes = mma_smem_bytes<DC>();
   auto kern = flash_dq_mma_kernel<DC, CHUNKED>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -397,15 +406,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), Sq, Sk, H, Hkv, D, causal, scale * LOG2E,
-      scale);
+      static_cast<bf16*>(dq), Sq, Sk, H, Hkv, D, causal, qscale, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dq, int B, int Sq, int Sk,
-                          int H, int Hkv, int D, int causal,
+                          int H, int Hkv, int D, int causal, float qs,
                           cudaStream_t st) {
   // 16-byte copies: D a multiple of 8, every bf16 operand on 16 bytes
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
@@ -416,34 +424,35 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
   if (D % 8 != 0 || !aligned || (Sq + MBQ - 1) / MBQ > 65535)
     return cudaErrorInvalidValue;
   if (D <= 16)
-    return launch_mma<16, false>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, st);
+    return launch_mma<16, false>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, qs, st);
   if (D <= 32)
-    return launch_mma<32, false>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, st);
+    return launch_mma<32, false>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, qs, st);
   if (D <= 64)
-    return launch_mma<64, false>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, st);
-  return launch_mma<64, true>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, st);
+    return launch_mma<64, false>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, qs, st);
+  return launch_mma<64, true>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, qs, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (scalar body), 1 = bfloat16 (tensor-core body).
-// Returns a cudaError_t.
+// qscale: scale*log2(e) in q's dtype, rounded on the host
+// (attention.fold_constant); dtype: 0 = float32 (scalar body),
+// 1 = bfloat16 (tensor-core body).  Returns a cudaError_t.
 int flash_dq(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dq, int B, int Sq,
-             int Sk, int H, int Hkv, int D, int causal, int dtype,
-             void* stream) {
+             int Sk, int H, int Hkv, int D, int causal, double qscale,
+             int dtype, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || D < 1 || H % Hkv != 0 ||
       B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)dispatch_f32(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H,
-                             Hkv, D, causal, st);
+                             Hkv, D, causal, (float)qscale, st);
   if (dtype == 1)
     return (int)dispatch_bf16(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H,
-                              Hkv, D, causal, st);
+                              Hkv, D, causal, (float)qscale, st);
   return (int)cudaErrorInvalidValue;
 }
 

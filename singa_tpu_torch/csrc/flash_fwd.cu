@@ -24,12 +24,13 @@
 // the bench shape).  Q goes to shared memory once by cp.async and
 // into registers by ldmatrix, where it stays for the whole kv loop.  K and
 // V tiles of 64 keys are double-buffered by cp.async: the next tile's copy
-// is in flight while the current one is multiplied.  S = Q.K^T runs on
-// `mma.sync` m16n8k16 with the raw bf16 q and k (exact products, f32 sums)
-// and is then multiplied by scale*log2(e) in f32, as the scalar body and
-// the plain version do; the TPU kernel folds the scale into q in bf16
-// (:370), the one place where the port's bf16 arithmetic differs from it.
-// The online softmax runs in f32 registers in base 2 (2^x on the SFU's
+// is in flight while the current one is multiplied.  As its fragments
+// enter registers, Q is multiplied by c = bf16(scale*log2(e)) with
+// `__hmul2`, each q*c rounded to bf16: the TPU kernel's fold of the scale
+// into q in q's dtype (:370).  c comes from the host (fold_constant in
+// singa_tpu_torch/ops/attention.py), already rounded.  S = (Q*c).K^T then
+// runs on `mma.sync` m16n8k16 (exact products, f32 sums) and is already
+// in the base-2 domain.  The online softmax runs in f32 registers in base 2 (2^x on the SFU's
 // ex2.approx), row max and row sum across the quad of threads that share
 // an accumulator row; the mask is applied only on tiles that cross the
 // diagonal or the ragged Sk edge (the TPU kernel's MASK_SPLIT, :389-403).  P is rounded to bf16 and reused from
@@ -219,14 +220,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
-                   int causal, cudaStream_t stream) {
+                   int causal, float qscale, cudaStream_t stream) {
   const int bytes = smem_floats<DC>() * (int)sizeof(float);
   auto kern = flash_fwd_kernel<T, DC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, B * H, (D + DC - 1) / DC);
-  const float qscale = LOG2E / sqrtf((float)D);
   kern<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
@@ -236,12 +236,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
                          void* o, void* lse, int B, int Sq, int Sk, int H,
-                         int Hkv, int D, int causal, cudaStream_t stream) {
-  if (D <= 8) return launch<float, 8>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
-  if (D <= 16) return launch<float, 16>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
-  if (D <= 32) return launch<float, 32>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
-  if (D <= 64) return launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
-  return launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
+                         int Hkv, int D, int causal, float qs,
+                         cudaStream_t stream) {
+  if (D <= 8) return launch<float, 8>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, qs, stream);
+  if (D <= 16) return launch<float, 16>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, qs, stream);
+  if (D <= 32) return launch<float, 32>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, qs, stream);
+  if (D <= 64) return launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, qs, stream);
+  return launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, qs, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -265,7 +266,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
-                     int D, int causal, float sscale) {
+                     int D, int causal, float qscale) {
   namespace mb = mma_bf16;
   constexpr int P = mb::pitch<DC>();
   constexpr int NT = BK / 8;       // n-tiles of the 16 x BK score strip
@@ -289,6 +290,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + (long)b * Sq * qstride + (long)h * D;
   const bf16* kb = k + (long)b * Sk * kvstride + (long)hk * D;
   const bf16* vb = v + (long)b * Sk * kvstride + (long)hk * D;
+  const __nv_bfloat162 c2 = __float2bfloat162_rn(qscale);  // exact
 
   // causal: no row of this tile sees a key at or past q0 + MBQ
   const int kv_end = causal ? min(Sk, q0 + MBQ) : Sk;
@@ -327,8 +329,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       __syncthreads();
       if (it == 0) {
 #pragma unroll
-        for (int kk = 0; kk < DC / 16; ++kk)
+        for (int kk = 0; kk < DC / 16; ++kk) {
           mb::load_a<DC>(qf[kk], qs, row0, kk * 16);
+          mb::mul_bf16x2(qf[kk], c2);  // q*c in bf16, once
+        }
       }
       mb::gemm_nt<DC, NT>(s, qf, ks + buf * BK * P);
       vt = vs + buf * BK * P;
@@ -347,8 +351,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mb::cp_wait<0>();
         __syncthreads();
 #pragma unroll
-        for (int kk = 0; kk < DC / 16; ++kk)
+        for (int kk = 0; kk < DC / 16; ++kk) {
           mb::load_a<DC>(qf[kk], qs, row0, kk * 16);
+          mb::mul_bf16x2(qf[kk], c2);
+        }
         mb::gemm_nt<DC, NT>(s, qf, ks);
       }
       vt = vs;
@@ -361,7 +367,6 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] *= sscale;
         if (masked) {
           const int key = k0 + 8 * j + 2 * t + (e & 1);
           if (key >= Sk || (causal && key > qrow + 8 * (e >> 1)))
@@ -431,7 +436,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DC, bool CHUNKED>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int Sq, int Sk, int H, int Hkv,
-                       int D, int causal, cudaStream_t stream) {
+                       int D, int causal, float qscale, cudaStream_t stream) {
   const int bytes = mma_smem_bytes<DC>();
   auto kern = flash_fwd_mma_kernel<DC, CHUNKED>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -441,14 +446,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, MMA_THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), Sq, Sk, H, Hkv, D, causal,
-      LOG2E / sqrtf((float)D));
+      static_cast<float*>(lse), Sq, Sk, H, Hkv, D, causal, qscale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
                           void* o, void* lse, int B, int Sq, int Sk, int H,
-                          int Hkv, int D, int causal, cudaStream_t stream) {
+                          int Hkv, int D, int causal, float qs,
+                          cudaStream_t stream) {
   // 16-byte copies: D a multiple of 8, every operand on 16 bytes
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(k) |
@@ -456,30 +461,33 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
                          reinterpret_cast<uintptr_t>(o)) & 15) == 0;
   if (D % 8 != 0 || !aligned || (Sq + MBQ - 1) / MBQ > 65535)
     return cudaErrorInvalidValue;
-  if (D <= 16) return launch_mma<16, false>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
-  if (D <= 32) return launch_mma<32, false>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
-  if (D <= 64) return launch_mma<64, false>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
-  if (D <= 128) return launch_mma<128, false>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
-  return launch_mma<128, true>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, stream);
+  if (D <= 16) return launch_mma<16, false>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, qs, stream);
+  if (D <= 32) return launch_mma<32, false>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, qs, stream);
+  if (D <= 64) return launch_mma<64, false>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, qs, stream);
+  if (D <= 128) return launch_mma<128, false>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, qs, stream);
+  return launch_mma<128, true>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, qs, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (scalar body), 1 = bfloat16 (tensor-core body).
-// Returns a cudaError_t.
+// qscale: scale*log2(e) in q's dtype, rounded on the host
+// (attention.fold_constant); dtype: 0 = float32 (scalar body),
+// 1 = bfloat16 (tensor-core body).  Returns a cudaError_t.
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
-              int causal, int dtype, void* stream) {
+              int causal, double qscale, int dtype, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || D < 1 || H % Hkv != 0 ||
       B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_f32(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, st);
+    return (int)dispatch_f32(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal,
+                             (float)qscale, st);
   if (dtype == 1)
-    return (int)dispatch_bf16(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, st);
+    return (int)dispatch_bf16(q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal,
+                              (float)qscale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,6 @@
 // Tensor-core tile code for the bf16 bodies of the flash kernels
-// (flash_fwd.cu, K1; flash_dkv.cu, K4), for Hopper (sm_90a).
+// (flash_fwd.cu, K1; flash_dq.cu, K3; flash_dkv.cu, K4; head_fwd.cu, K2),
+// for Hopper (sm_90a).
 //
 // The pieces FlashAttention-2 is built from, as inline PTX:
 //   - `cp.async.cg` 16-byte copies from device memory into shared memory,
@@ -104,6 +105,20 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// r[i] * c for each bf16 pair of a fragment, rounded to bf16 (`__hmul2`:
+// the exact product, rounded once): the TPU kernels' fold of scale*log2(e)
+// into q in q's dtype, `q * jnp.asarray(scale * LOG2E, q.dtype)`
+template <int N>
+__device__ __forceinline__ void mul_bf16x2(uint32_t (&r)[N],
+                                           __nv_bfloat162 c) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&r[i]);
+    x = __hmul2(x, c);
+    r[i] = *reinterpret_cast<const uint32_t*>(&x);
+  }
+}
+
 // The A fragment of keys (or queries) 16*kk .. 16*kk + 15 from the f32
 // accumulators c[n] of n-tiles 2*kk and 2*kk + 1 (columns 8n .. 8n + 7),
 // each value rounded to bf16: P or dS reused as the next product's A.
@@ -175,17 +190,21 @@ __device__ __forceinline__ void load_b_trans(uint32_t (&b)[4],
 }
 
 // acc[n] (NT n-tiles of 8 columns) += A rows . tile^T, where the A
-// fragments a[kk] cover DC columns and `tile` holds NT*8 rows of B^T
-template <int DC, int NT>
+// fragments a[kk] cover DC columns and `tile` holds NT*8 rows of B^T;
+// with SCALE_B each B fragment is first multiplied by `bmul` in bf16
+// (mul_bf16x2), in registers, leaving the tile as it is
+template <int DC, int NT, bool SCALE_B = false>
 __device__ __forceinline__ void gemm_nt(float (&acc)[NT][4],
                                         const uint32_t (&a)[DC / 16][4],
-                                        const bf16* tile) {
+                                        const bf16* tile,
+                                        __nv_bfloat162 bmul = {}) {
 #pragma unroll
   for (int kk = 0; kk < DC / 16; ++kk) {
 #pragma unroll
     for (int j = 0; j < NT / 2; ++j) {
       uint32_t b[4];
       load_b<DC>(b, tile, j * 16, kk * 16);
+      if constexpr (SCALE_B) mul_bf16x2(b, bmul);
       mma(acc[2 * j], a[kk], b[0], b[1]);
       mma(acc[2 * j + 1], a[kk], b[2], b[3]);
     }

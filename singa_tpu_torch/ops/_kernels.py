@@ -40,16 +40,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # kernel name -> argtypes of its C entry (same name), stream last
 SIGNATURES = {
-    # q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, dtype, stream
-    "flash_fwd": [_P] * 5 + [_I] * 8 + [_P],
+    # q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, qscale, dtype, stream
+    # (qscale: attention.fold_constant, the scale*log2e that q is
+    # multiplied by in q's dtype)
+    "flash_fwd": [_P] * 5 + [_I] * 7 + [_D, _I, _P],
     # h, w, labels, lse, ll, hit, ws, N, E, V, split_tiles, dtype, stream
     "head_fwd": [_P] * 7 + [_I] * 5 + [_P],
-    # q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, dtype,
-    # stream
-    "flash_dq": [_P] * 7 + [_I] * 8 + [_P],
+    # q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal,
+    # qscale, dtype, stream
+    "flash_dq": [_P] * 7 + [_I] * 7 + [_D, _I, _P],
     # q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal,
-    # dtype, stream
-    "flash_dkv": [_P] * 8 + [_I] * 8 + [_P],
+    # qscale, dtype, stream
+    "flash_dkv": [_P] * 8 + [_I] * 7 + [_D, _I, _P],
     # x, y, P, C, local_size, alpha, beta, knorm, relu, dtype, stream
     "lrn_fwd": [_P] * 2 + [_I] * 3 + [_D] * 3 + [_I] * 2 + [_P],
     # x, g, dx, P, C, local_size, alpha, beta, knorm, relu, dtype, stream

@@ -12,8 +12,12 @@ tiles in f32.  A CUDA tensor launches the kernel; a CPU tensor runs the
 plain version; there is no other path between the two.  In bf16, K1, K3
 and K4 run on the tensor cores (`mma.sync`) and round P (K1, K4) and dS
 (K3, K4) to bf16 before the products that take them, as the TPU kernels
-do; their plain versions round at the same places.  f32 takes the
-kernels' scalar bodies.
+do; their plain versions round at the same places.  All three fold
+scale·log2e into q in q's dtype before the score product, as the TPU
+kernels do (`q_ref[...] * jnp.asarray(scale * LOG2E, q_ref.dtype)`,
+`:370`, `:439`, `:503`): the constant comes from `fold_constant`, once,
+on the host, and in bf16 both the constant and every q·c are rounded.
+f32 takes the kernels' scalar bodies.
 
 `_FlashPacked`, a `torch.autograd.Function`, carries K1 forward and K3
 plus K4 backward, as the JAX package's `custom_vjp`s do (`:644-722`):
@@ -32,6 +36,7 @@ both.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -43,6 +48,23 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 FLASH_BLOCK_K = 64    # keys per kv tile, as BK in csrc/flash_fwd.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def fold_constant(head_dim: int, dtype: torch.dtype) -> float:
+    """scale·log2e with scale = 1/sqrt(head_dim), rounded to `dtype` as
+    the TPU kernels' `jnp.asarray(scale * LOG2E, q_ref.dtype)` rounds it
+    (from the double, once), returned as a Python float that holds that
+    value exactly.  K1, K3 and K4 multiply q by it in q's dtype before
+    Q·Kᵀ; their plain versions do the same."""
+    c = (1.0 / math.sqrt(head_dim)) * LOG2E
+    return torch.tensor(c, dtype=torch.float64).to(dtype).item()
+
+
+def _fold_q(q, d: int):
+    """q·c in q's dtype (rounded there, as the TPU kernels round it),
+    then f32: the scores' left operand."""
+    return (q * fold_constant(d, q.dtype)).float()
 
 
 def flash_legal(seq_len: int, head_dim: int) -> bool:
@@ -146,13 +168,13 @@ def flash_forward_plain(q, k, v, num_heads: int, causal: bool = True,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1's plain PyTorch version: the kernel's online softmax over kv
     tiles of `FLASH_BLOCK_K` keys, in f32, base 2 with scale·log2e
-    applied to the scores in f32.  P is rounded to v's dtype before its
+    folded into q in q's dtype (`_fold_q`).  P is rounded to v's dtype before its
     P·V product while l sums the unrounded P, as the kernel (and the TPU
     kernel's `p.astype(v_ref.dtype)`) does; in f32 that rounding is the
     identity.  Same inputs and outputs as `flash_attention_packed_lse`."""
     b, sq, sk, d, hkv, g = _packed_dims(q, k, num_heads, num_kv_heads)
     hd = q.shape[2]
-    qh = q.float().reshape(b, sq, hkv, g, d) * (LOG2E / math.sqrt(d))
+    qh = _fold_q(q, d).reshape(b, sq, hkv, g, d)
     kh = k.float().reshape(b, sk, hkv, d)
     vh = v.float().reshape(b, sk, hkv, d)
     m = torch.full((b, hkv, g, sq), NEG_INF, device=q.device)
@@ -195,7 +217,7 @@ def flash_dq_plain(q, k, v, dout, lse, delta, num_heads: int,
     dtype."""
     b, sq, sk, d, hkv, g = _packed_dims(q, k, num_heads, num_kv_heads)
     scale = 1.0 / math.sqrt(d)
-    qh = q.float().reshape(b, sq, hkv, g, d) * (scale * LOG2E)
+    qh = _fold_q(q, d).reshape(b, sq, hkv, g, d)
     doh = dout.float().reshape(b, sq, hkv, g, d)
     kh = k.float().reshape(b, sk, hkv, d)
     vh = v.float().reshape(b, sk, hkv, d)
@@ -223,13 +245,15 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, num_heads: int,
     """K4's plain PyTorch version: dV = Σ Pᵀ·dO and dK = scale·Σ dSᵀ·Q
     over q tiles of `FLASH_BLOCK_Q` queries in f32, summed over each kv
     head's group of q heads, with P and dS recomputed as in
-    `flash_dq_plain`.  P is rounded to dout's dtype before Pᵀ·dO and dS
+    `flash_dq_plain` from the folded q; dSᵀ·Q takes the raw q, as the
+    TPU kernel does (`:521`).  P is rounded to dout's dtype before Pᵀ·dO and dS
     to q's before dSᵀ·Q, as the kernel (and the TPU kernel, `:512`,
     `:521`) does; in f32 both roundings are the identity.  (dK, dV) in
     k's and v's dtypes."""
     b, sq, sk, d, hkv, g = _packed_dims(q, k, num_heads, num_kv_heads)
     scale = 1.0 / math.sqrt(d)
     qf = q.float().reshape(b, sq, hkv, g, d)
+    qc = _fold_q(q, d).reshape(b, sq, hkv, g, d)
     doh = dout.float().reshape(b, sq, hkv, g, d)
     kh = k.float().reshape(b, sk, hkv, d)
     vh = v.float().reshape(b, sk, hkv, d)
@@ -241,8 +265,7 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, num_heads: int,
     kpos = torch.arange(sk, device=q.device)[None, :]
     for q0 in range(0, sq, FLASH_BLOCK_Q):
         sl = slice(q0, q0 + FLASH_BLOCK_Q)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, sl] * (scale * LOG2E),
-                         kh)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qc[:, sl], kh)
         p = _tile_probs(s, lse2[..., sl, :], qpos[sl], kpos, causal)
         dv = dv + torch.einsum("bhgqk,bqhgd->bkhd",
                                p.to(dout.dtype).float(), doh[:, sl])
@@ -319,7 +342,7 @@ def _flash_forward_cuda(q, k, v, num_heads: int, causal: bool,
         _kernels.launch("flash_fwd", q.data_ptr(), k.data_ptr(),
                         v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                         b, sq, sk, num_heads, kv_heads, d, int(causal),
-                        _DTYPE_CODE[q.dtype])
+                        fold_constant(d, q.dtype), _DTYPE_CODE[q.dtype])
     return out, lse
 
 
@@ -334,7 +357,7 @@ def _flash_dq_cuda(q, k, v, dout, lse, delta, num_heads: int, causal: bool,
                         v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                         delta.data_ptr(), dq.data_ptr(), b, sq, sk,
                         num_heads, kv_heads, d, int(causal),
-                        _DTYPE_CODE[q.dtype])
+                        fold_constant(d, q.dtype), _DTYPE_CODE[q.dtype])
     return dq
 
 
@@ -350,7 +373,7 @@ def _flash_dkv_cuda(q, k, v, dout, lse, delta, num_heads: int,
                         v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
                         sq, sk, num_heads, kv_heads, d, int(causal),
-                        _DTYPE_CODE[q.dtype])
+                        fold_constant(d, q.dtype), _DTYPE_CODE[q.dtype])
     return dk, dv
 
 

@@ -30,6 +30,10 @@ CUDA tensor and run the plain versions for a CPU tensor.  There is no
 fallback between the two: a CUDA tensor whose kernel fails raises.
 The kernels take any N and any C up to `MAX_CHANNELS` (the TPU kernels
 need N % 128 == 0 and C % 8 == 0), any odd local_size, f32 and bf16.
+Their C entries pick one of two routes by shape and alignment: the
+vector route (8 channels a thread, 16-byte accesses, persistent blocks)
+when C % 8 == 0 and every operand starts on 16 bytes, as AlexNet's 64
+and 192 channels do; the general route otherwise (csrc/lrn_common.cuh).
 """
 
 from __future__ import annotations

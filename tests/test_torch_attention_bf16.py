@@ -1,18 +1,19 @@
 """K1's, K3's and K4's plain versions in bf16 against the JAX package:
 the roundings that the tensor-core kernels make, pinned on the CPU.
 
-In bf16 the kernels round P to the input dtype before P·V (K1), dS
+In bf16 the kernels fold scale·log2e into q in q's dtype before Q·Kᵀ
+(the constant rounded to bf16, then every q·c), as the interpret-mode
+Pallas kernels do (`q_ref[...] * jnp.asarray(scale * LOG2E,
+q_ref.dtype)`); they round P to the input dtype before P·V (K1), dS
 before dS·K (K3), and P and dS before Pᵀ·dO and dSᵀ·Q (K4), as the
-interpret-mode Pallas kernels do (`p.astype(v_ref.dtype)`,
-`ds.astype(k_ref.dtype)`, `p.astype(do_ref.dtype)`,
-`ds.astype(q_ref.dtype)`); the plain versions follow them.  The one
-arithmetic difference left is the TPU kernels' fold of scale·log2e into
-q in bf16 (a relative rounding of up to 2^-9 per q element, so up to
-that much of each score), where the port scales the f32 scores.  That
-moved O by 2 bf16 ulps of its largest magnitude at most, lse by 0.014,
-dK/dV by 2.0% and dQ by 1.8% of their largest magnitude at these sizes;
-the tolerances are about twice that: O 4 ulps of max|O|, lse 0.03,
-dQ/dK/dV 2^-5 of their largest magnitude.
+Pallas kernels do (`p.astype(v_ref.dtype)`, `ds.astype(k_ref.dtype)`,
+`p.astype(do_ref.dtype)`, `ds.astype(q_ref.dtype)`); the plain versions
+follow them.  What is left is f32 summation order, where a P or dS
+element may round to the neighbouring bf16 value: at these sizes O sat
+within half a bf16 ulp of max|O|, lse within 9.6e-7, dK/dV within
+0.0018 and dQ within 0.00057 of their largest magnitude.  The
+tolerances are about twice that: O one ulp of max|O|, lse 2e-6, dK/dV
+2^-8 and dQ 2^-10 of their largest magnitude.
 
 Inputs are made with numpy from a seed, rounded to bf16 once and handed
 to both sides."""
@@ -30,9 +31,10 @@ from singa_tpu_torch.ops import attention as tattn
 pytestmark = pytest.mark.port
 B, S, D = 2, 256, 32
 BLOCK = 128
-LSE_ATOL = 0.03
-DKV_RTOL = 2 ** -5
-DQ_RTOL = 2 ** -5
+LSE_ATOL = 2e-6
+DKV_RTOL = 2 ** -8
+DQ_RTOL = 2 ** -10
+O_ULPS = 1
 
 
 def _bf16(seed, *shapes):
@@ -53,6 +55,22 @@ def _ulp(top):
     return 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
+def _jax_fold(d):
+    """The TPU kernels' constant: jnp.asarray(scale * LOG2E, bf16)."""
+    return float(jnp.asarray((1.0 / math.sqrt(d)) * jattn.LOG2E,
+                             jnp.bfloat16))
+
+
+def test_fold_constant_matches_jax():
+    """The port's bf16 fold constant is the TPU kernels' bit for bit at
+    every head dim that the card's phase 2 takes (8 to 264), and in f32
+    it is the f32 rounding of the same double."""
+    for d in range(8, 265):
+        assert tattn.fold_constant(d, torch.bfloat16) == _jax_fold(d), d
+        assert tattn.fold_constant(d, torch.float32) == float(
+            np.float32((1.0 / math.sqrt(d)) * jattn.LOG2E)), d
+
+
 CASES = [(causal, heads, kv_heads) for causal in (False, True)
          for heads, kv_heads in ((4, 4), (4, 2))]
 
@@ -70,7 +88,7 @@ def test_plain_k1_bf16_matches_interpret_kernel(causal, heads, kv_heads):
     want = _f32(out_j)
     top = np.abs(want).max()
     np.testing.assert_allclose(out_t.float().numpy(), want, rtol=0,
-                               atol=4 * _ulp(top))
+                               atol=O_ULPS * _ulp(top))
     np.testing.assert_allclose(lse_t.numpy(), _f32(lse_j), rtol=0,
                                atol=LSE_ATOL)
 
@@ -98,8 +116,9 @@ def test_plain_k4_bf16_matches_interpret_kernel(causal, heads, kv_heads):
 
 
 def _dense_dkv(q, k, v, dout, lse, delta, heads, causal, kv_heads):
-    """dK, dV in one shot over every query, in f32, with P and dS rounded
-    to bf16 where the kernel rounds them; GQA by expanding k and v."""
+    """dK, dV in one shot over every query, in f32, with q·c, P and dS
+    rounded to bf16 where the kernel rounds them (c the TPU kernels'
+    bf16 constant, dSᵀ·Q on the raw q); GQA by expanding k and v."""
     b, sq, _ = q.shape
     sk, g = k.shape[1], heads // kv_heads
     scale = 1.0 / math.sqrt(D)
@@ -109,7 +128,8 @@ def _dense_dkv(q, k, v, dout, lse, delta, heads, causal, kv_heads):
     qh, doh = heads_of(q, heads), heads_of(dout, heads)
     kh = heads_of(k, kv_heads).repeat_interleave(g, dim=1)
     vh = heads_of(v, kv_heads).repeat_interleave(g, dim=1)
-    s = (qh * (scale * tattn.LOG2E)) @ kh.transpose(-1, -2)
+    qc = heads_of(q * _jax_fold(D), heads)     # q·c rounded to bf16
+    s = qc @ kh.transpose(-1, -2)
     if causal:
         mask = torch.arange(sq)[:, None] < torch.arange(sk)[None, :]
         s = s.masked_fill(mask, tattn.NEG_INF)
@@ -126,8 +146,8 @@ def _dense_dkv(q, k, v, dout, lse, delta, heads, causal, kv_heads):
 
 @pytest.mark.parametrize("causal,heads,kv_heads", CASES)
 def test_plain_k4_bf16_equals_dense_formula(causal, heads, kv_heads):
-    """The tiled plain K4 in bf16 is the dense formula with the same two
-    roundings, up to f32 summation order: where the two f32 P (or dS)
+    """The tiled plain K4 in bf16 is the dense formula with the same
+    fold of the scale into q and the same two roundings, up to f32 summation order: where the two f32 P (or dS)
     differ in their last bit, one element may round to the neighbouring
     bf16 value, an error of one bf16 ulp of one term (2^-8 of it); the
     tolerance is 2^-8 of the largest dK and dV."""
@@ -170,18 +190,20 @@ def test_plain_k3_bf16_matches_interpret_kernel(causal, heads, kv_heads):
 
 
 def _dense_dq(q, k, v, dout, lse, delta, heads, causal, kv_heads):
-    """dQ in one shot over every key, in f32, with dS rounded to bf16
-    where the kernel rounds it; GQA by expanding k and v."""
+    """dQ in one shot over every key, in f32, with q·c and dS rounded to
+    bf16 where the kernel rounds them (c the TPU kernels' bf16
+    constant); GQA by expanding k and v."""
     b, sq, _ = q.shape
     sk, g = k.shape[1], heads // kv_heads
     scale = 1.0 / math.sqrt(D)
 
     def heads_of(x, n):
         return x.float().reshape(b, -1, n, D).transpose(1, 2)
-    qh, doh = heads_of(q, heads), heads_of(dout, heads)
+    doh = heads_of(dout, heads)
     kh = heads_of(k, kv_heads).repeat_interleave(g, dim=1)
     vh = heads_of(v, kv_heads).repeat_interleave(g, dim=1)
-    s = (qh * (scale * tattn.LOG2E)) @ kh.transpose(-1, -2)
+    qc = heads_of(q * _jax_fold(D), heads)     # q·c rounded to bf16
+    s = qc @ kh.transpose(-1, -2)
     if causal:
         mask = torch.arange(sq)[:, None] < torch.arange(sk)[None, :]
         s = s.masked_fill(mask, tattn.NEG_INF)
@@ -193,8 +215,8 @@ def _dense_dq(q, k, v, dout, lse, delta, heads, causal, kv_heads):
 
 @pytest.mark.parametrize("causal,heads,kv_heads", CASES)
 def test_plain_k3_bf16_equals_dense_formula(causal, heads, kv_heads):
-    """The tiled plain K3 in bf16 is the dense formula with dS rounded to
-    bf16, up to f32 summation order: where the two f32 dS differ in
+    """The tiled plain K3 in bf16 is the dense formula with the same fold
+    of the scale into q and dS rounded to bf16, up to f32 summation order: where the two f32 dS differ in
     their last bit, one element may round to the neighbouring bf16
     value, an error of one bf16 ulp of one term (2^-8 of it); the
     tolerance is 2^-8 of the largest dQ.  Leaving the rounding out moves

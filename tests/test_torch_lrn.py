@@ -27,8 +27,10 @@ from singa_tpu_torch.ops import lrn as tlrn
 pytestmark = pytest.mark.port
 ALPHA, KNORM = 0.5, 1.0     # a normalisation far from the identity
 # (local_size, beta) pairs per relu setting: all four combinations of
-# L in {3, 5} and beta in {0.75, 0.5} over the two settings
-WINDOWS = {False: ((3, 0.75), (5, 0.5)), True: ((3, 0.5), (5, 0.75))}
+# L in {3, 5} and beta in {0.75, 0.5} over the two settings, and the
+# wider windows L = 7 and 9, whose half-window passes 2 channels
+WINDOWS = {False: ((3, 0.75), (5, 0.5), (7, 0.75)),
+           True: ((3, 0.5), (5, 0.75), (9, 0.75))}
 
 
 def _bf16_ulp(top: float) -> float:
@@ -58,8 +60,11 @@ def _inputs(shape, dtype, seed):
 
 @pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(128, 4, 4, 8), (128, 3, 3, 16)])
+@pytest.mark.parametrize("shape", [(128, 4, 4, 8), (128, 3, 3, 16),
+                                   (128, 2, 2, 64), (128, 1, 2, 192)])
 def test_plain_k5_k6_match_the_pallas_kernels(shape, dtype, relu):
+    """C = 64 and 192 are AlexNet's channel counts, the ones the CUDA
+    kernels' vector route meets on the main path."""
     jx, jg, tx, tg = _inputs(shape, dtype, seed=sum(shape) + relu)
     for local_size, beta in WINDOWS[relu]:
         args = (local_size, ALPHA, beta, KNORM, relu)
