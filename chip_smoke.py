@@ -27,7 +27,10 @@ non-zero before the last line is printed:
    before and read just after: K1 must run 12 times and K2 once.  Then
    the same weights at 2 layers and batch 2 on the card and on the CPU:
    each attention layer's output, K2's per-token lse, label logit and
-   hit, and the loss must agree.
+   hit, and the loss must agree.  Then the eval step:
+   `Trainer.evaluate` over 10 bench batches, as CUDA-graph replays and
+   eagerly, in turns: tokens/s, a profiled step's idle share, K1 12 and
+   K2 once per batch, and averages equal to the bit.
 4. Serving: the bucketed engine answers greedy and sampled generate
    requests and predict requests on the same stack (f32 weights); greedy
    answers must equal `generate` on the unpadded prompts.
@@ -40,14 +43,23 @@ non-zero before the last line is printed:
    must get a gradient on both, within a stated share of its largest
    magnitude, and the card's run must launch K1, K3 and K4 twice each
    and K2 once.
-7. Training, slice 2's main path: `Trainer.train_step` takes Adam
-   steps of the full 12-layer bench stack at B=8 on synthetic token
-   batches; each step must launch K1, K3, K4 12 times and K2 once, and
-   the loss must fall.  Step time, tokens/s, the forward / backward /
-   update split and one profiled step are printed.  Then checkpoints:
-   at 2 layers, `Trainer.run` saves after k steps, a fresh `Trainer`
-   resumes from the snapshot and continues, and its params must equal
-   an uninterrupted run's bit for bit.
+7. Training, the LM main path: `Trainer.train_step` takes Adam steps
+   of the full 12-layer bench stack at B=8 on synthetic token batches,
+   as CUDA-graph replays (`graphs=None` must capture on the card); each
+   replay must add K1, K3, K4 12 and K2 one launch to the counts (the
+   capture's recorded launches), a profiled replay must hold those
+   kernels by name, and the loss must fall.  Step time, tokens/s, an
+   eager step's forward / backward / update split and the profile are
+   printed.  Then eager steps (`graphs=False`) against replays from one
+   copied start: after 10 steps, and again after 51, params and Adam
+   state must be equal under `torch.equal`; between them 3 rounds of 10
+   steps each in turns (tokens/s), `train_steps(10)` with one sync, a
+   profiled step each (idle share) and the peak memory of each.  Then
+   checkpoints: at 2 layers, every trainer captured, `Trainer.run`
+   saves after k steps, a captured `Trainer` (its graph taken over other
+   params first) resumes from the snapshot and continues, and its params
+   must equal an uninterrupted chunked (`scan_chunk=4`) run's bit for
+   bit.
 8. K5 and K6 (the LRN forward and backward) against their plain
    versions at AlexNet-CIFAR10's norm1 and norm2 shapes (B=1024, relu
    fused, bf16 and f32; timed in bf16 by a CUDA-graph replay of direct
@@ -58,10 +70,12 @@ non-zero before the last line is printed:
    C=8, C=16 with L=9, C=2056, a runtime window and beta, pixel counts
    that are not a multiple of the tile, and a view one element into its
    storage (the general route at C=64).
-9. AlexNet-CIFAR10, this slice's main path: `examples/cifar10/
+9. AlexNet-CIFAR10, slice 3's main path: `examples/cifar10/
    alexnet.conf` through the port's config parser at full width, its own
    batch 1024, bf16 compute, numpy-seeded weights, synthetic CIFAR-shaped
-   batches: 20 kSGD steps through `Trainer.train_step` and two more
+   batches: the Trainer must pick eager steps (`graphs=None`; dropout
+   and the mirror draw per step), then 20 kSGD steps through
+   `Trainer.train_step` and two more
    through `Trainer.train_steps`, each step launching K5 and K6 twice and
    K1-K4 never; images/s, the step's split, a profile and peak memory;
    the eval step through `Trainer.evaluate` (K5 twice per step); then
@@ -103,6 +117,7 @@ LOSS_RTOL = 1e-4
 
 BENCH = dict(vocab_size=32768, num_layers=12, embed_dim=768, num_heads=12,
              head_dim=64, seq_len=1024, batchsize=8)
+EVAL_BATCHES = 10       # phase 3's Trainer.evaluate, captured and eager
 
 
 def log(msg: str) -> None:
@@ -180,9 +195,10 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile(tag: str, fn, wall_ms: float, top: int = 8) -> None:
-    """One traced call of `fn`: device time by kernel name, and the
-    device's busy and idle share of `wall_ms`, an untraced call's time."""
+def profile(tag: str, fn, wall_ms: float, top: int = 8) -> dict:
+    """One traced call of `fn`: device time and events by kernel name,
+    and the device's busy and idle share of `wall_ms`, an untraced call's
+    time.  Returns the busy ms, the idle share and the events by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
@@ -190,21 +206,32 @@ def profile(tag: str, fn, wall_ms: float, top: int = 8) -> None:
         fn()
         torch.cuda.synchronize()
     by_name: dict = {}
+    counts: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
+            counts[e.name] = counts.get(e.name, 0) + 1
     busy = sum(by_name.values())
     if not by_name:
         log(f"[profile] {tag}: the profiler recorded no device time "
             f"(busy share not measured)")
-        return
+        return {"busy_ms": None, "idle": None, "counts": {}}
+    idle = max(0.0, 1 - busy / wall_ms)
     log(f"[profile] {tag}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
-        f"untraced wall, idle share {max(0.0, 1 - busy / wall_ms):.3f}, "
-        f"{len(by_name)} kernel names")
+        f"untraced wall, idle share {idle:.3f}, {len(by_name)} kernel "
+        f"names, {sum(counts.values())} device events")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[profile] {tag}:   {t:9.3f} ms  {100 * t / busy:5.1f}%  "
-            f"{name[:90]}")
+            f"{counts[name]:4d}x  {name[:90]}")
+    return {"busy_ms": busy, "idle": idle, "counts": counts}
+
+
+def count_named(counts: dict, names) -> dict:
+    """Device events of a profile whose kernel name holds each of
+    `names` as a whole word."""
+    return {n: sum(c for k, c in counts.items()
+                   if re.search(rf"\b{n}\b", k)) for n in names}
 
 
 def _short(symbols) -> dict:
@@ -617,7 +644,73 @@ def phase_forward(dev, arrays):
     # what the kernels decide: each attention layer's output and K2's
     # per-token lse, label logit and hit on the final hidden state.
     compare_small(dev, arrays)
+    phase_eval(dev, arrays)
     return launches
+
+
+def bench_trainer(dev, graphs, test_steps=0):
+    """A Trainer of the bench stack in bf16 (Adam), its steps captured
+    (graphs=True, or None: the default, which must capture on the card)
+    or eager (False)."""
+    from singa_tpu_torch import Trainer, transformer_lm
+    cfg = transformer_lm(**BENCH, precision="bfloat16")
+    cfg.test_steps = test_steps
+    tr = Trainer(cfg, SHAPES, device=dev, graphs=graphs)
+    assert tr.graphs is (graphs is not False), (tr.graphs, graphs)
+    return tr
+
+
+def phase_eval(dev, arrays):
+    """The eval step, `Trainer.evaluate` over EVAL_BATCHES bench batches:
+    CUDA-graph replays against eager steps, in turns; the averages must
+    be equal to the bit, each step must launch K1 12 times and K2 once."""
+    from singa_tpu_torch import params_from_numpy, synthetic_token_batches
+    from singa_tpu_torch.ops import _kernels
+    b, s, vocab = BENCH["batchsize"], BENCH["seq_len"], BENCH["vocab_size"]
+    data = synthetic_token_batches(b, s, vocab, seed=5)
+    batches = [next(data) for _ in range(EVAL_BATCHES)]
+    runs = {}
+    for mode, graphs in (("eager", False), ("graph", True)):
+        tr = bench_trainer(dev, graphs, test_steps=EVAL_BATCHES)
+        params = params_from_numpy(tr.train_net, arrays, device=dev)
+
+        def evaluate(tr=tr, params=params):
+            return tr.evaluate(params, iter(batches), EVAL_BATCHES,
+                               tr.test_step)
+        _kernels.reset_launches()
+        avg = evaluate()        # the graph's warm-up and capture, then replays
+        torch.cuda.synchronize()
+        assert dict(_kernels.LAUNCHES) == {
+            **{k: 0 for k in PER_STEP}, "flash_fwd": 12 * EVAL_BATCHES,
+            "head_fwd": EVAL_BATCHES}, (mode, _kernels.LAUNCHES)
+        runs[mode] = dict(tr=tr, params=params, evaluate=evaluate, avg=avg,
+                          ms=[])
+    for r in range(3):
+        for mode in (("eager", "graph") if r % 2 == 0 else ("graph", "eager")):
+            run = runs[mode]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = run["evaluate"]()
+            run["ms"].append((time.perf_counter() - t0) * 1e3 / EVAL_BATCHES)
+            assert again == run["avg"], (mode, again, run["avg"])
+    for mode, run in runs.items():
+        ms = min(run["ms"])
+        log(f"[eval] {mode}: Trainer.evaluate over {EVAL_BATCHES} batches "
+            f"(b={b}, s={s}; one fetch at the end), per batch "
+            + ", ".join(f"{t:.3f}" for t in run["ms"])
+            + f" ms in rounds 1-3 (turns), "
+            + ", ".join(f"{b * s / t * 1e3:.1f}" for t in run["ms"])
+            + " tokens/s; loss {loss:.7f}, precision {precision:.7f}"
+            .format(**run["avg"]))
+        tr, params = run["tr"], run["params"]
+        prof = profile(f"eval_step ({mode})",
+                       lambda: tr.test_step(params, batches[0]), ms)
+        run["idle"] = prof["idle"]
+    same = runs["eager"]["avg"] == runs["graph"]["avg"]
+    log(f"[eval] captured and eager averages equal to the bit: {same}; "
+        f"idle share eager {runs['eager']['idle']}, graph "
+        f"{runs['graph']['idle']}")
+    assert same, (runs["eager"]["avg"], runs["graph"]["avg"])
 
 
 def compare_small(dev, arrays):
@@ -802,20 +895,23 @@ def phase_grads(dev, arrays):
 # phase 7: training the bench stack, then checkpoints
 
 TRAIN_STEPS = 20
+EXACT_STEPS = 10        # eager against replay, from one copied start
+ROUNDS, ROUND_STEPS = 3, 10
+# what a profiled replay of the train step must hold, by kernel name
+PROFILED_PER_STEP = {"flash_fwd_mma_kernel": 12, "flash_dq_mma_kernel": 12,
+                     "flash_dkv_mma_kernel": 12, "head_fwd_mma_kernel": 1}
 # the mean loss of the last 5 steps must sit this far (nats) below the
 # first step's
 LOSS_MARGIN = 0.1
 
 
 def phase_train(dev, arrays):
-    from singa_tpu_torch import Trainer, synthetic_token_batches
+    from singa_tpu_torch import synthetic_token_batches
     from singa_tpu_torch.ops import _kernels
     from singa_tpu_torch.ops.head_loss import (head_stats, logits_f32,
                                                xent_backward)
-    from singa_tpu_torch import transformer_lm
     b, s, vocab = BENCH["batchsize"], BENCH["seq_len"], BENCH["vocab_size"]
-    tr = Trainer(transformer_lm(**BENCH, precision="bfloat16"), SHAPES,
-                 device=dev)
+    tr = bench_trainer(dev, None)
     params, opt = start(tr, arrays, dev)
     data = synthetic_token_batches(b, s, vocab, seed=0)
     batches = [next(data) for _ in range(TRAIN_STEPS)]
@@ -833,39 +929,46 @@ def phase_train(dev, arrays):
         assert per == PER_STEP, (step, per)
         assert math.isfinite(losses[-1]), losses
     launches = dict(_kernels.LAUNCHES)
+    graphs = tr._train_graph._graphs
+    captured = [g.launches for g in graphs.values()]
+    assert captured == [{k: v for k, v in PER_STEP.items() if v}], captured
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     tail = sum(losses[-5:]) / 5
     ms = sum(step_ms[2:]) / len(step_ms[2:])
-    log(f"[train] {BENCH['num_layers']}L b={b} s={s} Adam: {TRAIN_STEPS} "
-        f"steps, launches {launches}; loss first {losses[0]:.5f}, mean of "
-        f"last 5 {tail:.5f} (must be < first - {LOSS_MARGIN}); losses "
-        + " ".join(f"{x:.4f}" for x in losses))
+    log(f"[train] {BENCH['num_layers']}L b={b} s={s} Adam, CUDA-graph "
+        f"replays: {TRAIN_STEPS} steps, launches {launches} (the capture "
+        f"recorded {captured[0]} per replay); loss first {losses[0]:.5f}, "
+        f"mean of last 5 {tail:.5f} (must be < first - {LOSS_MARGIN}); "
+        f"losses " + " ".join(f"{x:.4f}" for x in losses))
     assert tail < losses[0] - LOSS_MARGIN, losses
     log(f"[train] step {ms:.3f} ms (mean of steps 2..{TRAIN_STEPS - 1}, "
-        f"host clock, synchronised; steps 0-1 {step_ms[0]:.1f}, "
-        f"{step_ms[1]:.1f} ms), {b * s / ms * 1e3:.1f} tokens/s; peak "
-        f"device memory {peak_gib:.2f} GiB")
+        f"host clock, synchronised; step 0 with warm-up and capture "
+        f"{step_ms[0]:.1f}, step 1 {step_ms[1]:.1f} ms), "
+        f"{b * s / ms * 1e3:.1f} tokens/s; peak device memory "
+        f"{peak_gib:.2f} GiB")
 
     # the step's split on the card's clock (CUDA events between the
-    # phases of one step): forward with autograd recording, backward,
-    # update; then the head's backward alone
+    # phases of an eager step, the second of two: the first on this
+    # stream pays its first-call setup): forward with autograd
+    # recording, backward, update; then the head's backward alone
     batch = batches[-1]
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     names = sorted(params)
-    for p in params.values():
-        p.requires_grad_(True)
-    ev[0].record()
-    loss, _, _ = tr.train_net.apply(params, batch, train=True,
-                                    compute_dtype=torch.bfloat16)
-    ev[1].record()
-    grads = torch.autograd.grad(loss, [params[n] for n in names])
-    ev[2].record()
-    for p in params.values():
-        p.requires_grad_(False)
-    tr.updater.update(TRAIN_STEPS, dict(zip(names, grads)), params, opt,
-                      tr.multipliers)
-    ev[3].record()
-    torch.cuda.synchronize()
+    for step in (TRAIN_STEPS, TRAIN_STEPS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for p in params.values():
+            p.requires_grad_(True)
+        ev[0].record()
+        loss, _, _ = tr.train_net.apply(params, batch, train=True,
+                                        compute_dtype=torch.bfloat16)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        ev[2].record()
+        for p in params.values():
+            p.requires_grad_(False)
+        tr.updater.update(step, dict(zip(names, grads)), params, opt,
+                          tr.multipliers)
+        ev[3].record()
+        torch.cuda.synchronize()
     fwd_ms, bwd_ms, upd_ms = (ev[i].elapsed_time(ev[i + 1])
                               for i in range(3))
     g = torch.Generator(device=dev).manual_seed(9)
@@ -885,19 +988,144 @@ def phase_train(dev, arrays):
     log(f"[train] head backward logits per 4096-token chunk: bf16 product "
         f"with f32 output {out_ms:.3f} ms, f32 upcast product {up_ms:.3f} "
         f"ms")
-    log(f"[train] split (CUDA events): forward {fwd_ms:.3f} ms, backward "
-        f"{bwd_ms:.3f} ms, update {upd_ms:.3f} ms; the head's backward "
-        f"alone {head_ms:.3f} ms")
-    profile("train_step", lambda: tr.train_step(params, opt, batch,
-                                                TRAIN_STEPS + 1), ms, top=16)
+    log(f"[train] split of an eager step (CUDA events): forward "
+        f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, update (foreach) "
+        f"{upd_ms:.3f} ms; the head's backward alone {head_ms:.3f} ms")
+    # the kernels inside one replay, by name
+    prof = profile("train_step (replay)", lambda: tr.train_step(
+        params, opt, batch, TRAIN_STEPS + 2), ms, top=16)
+    check_replay_profile(prof, PROFILED_PER_STEP)
     return launches
 
 
+def check_replay_profile(prof, want) -> None:
+    """The kernels that the profiler saw inside one replay, counted by
+    name, must be the launches the capture recorded; where it saw no
+    device time, the Python count against the capture's delta (checked
+    by the caller) stands alone."""
+    if not prof["counts"]:
+        log("[train] the profiler saw no kernels inside the replay: the "
+            "launch counts rest on the capture's recorded delta")
+        return
+    got = count_named(prof["counts"], want)
+    log(f"[train] kernels in one profiled replay, by name: {got}")
+    assert got == want, (got, want)
+
+
+def lm_state_gaps(a, b) -> dict:
+    """Tensor name -> max |a - b| for every param and optimizer slot of
+    two (params, opt_state) pairs that differ."""
+    (pa, oa), (pb, ob) = a, b
+    pairs = [(f"params/{n}", pa[n], pb[n]) for n in pa]
+    pairs += [(f"{sl}/{n}", oa[sl][n], ob[sl][n]) for sl in oa
+              for n in oa[sl]]
+    return {n: (x.float() - y.float()).abs().max().item()
+            for n, x, y in pairs if not torch.equal(x, y)}
+
+
+def phase_graphs(dev, arrays):
+    """Eager steps against CUDA-graph replays of the bench stack: from one
+    copied start, EXACT_STEPS steps each must leave params and Adam state
+    equal under torch.equal; then ROUNDS rounds of ROUND_STEPS steps in
+    turns (tokens/s, per-step sync as run(scan_chunk=0)); train_steps
+    with one sync at the end; a profiled step of each; peak memory; and
+    the two must still be equal."""
+    from singa_tpu_torch import synthetic_token_batches
+    from singa_tpu_torch.ops import _kernels
+    b, s, vocab = BENCH["batchsize"], BENCH["seq_len"], BENCH["vocab_size"]
+    data = synthetic_token_batches(b, s, vocab, seed=3)
+    batches = [next(data) for _ in range(EXACT_STEPS
+                                         + ROUNDS * ROUND_STEPS)]
+    runs = {}
+    for mode, graphs in (("eager", False), ("graph", True)):
+        tr = bench_trainer(dev, graphs)
+        params, opt = start(tr, arrays, dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        for i in range(EXACT_STEPS):
+            before = dict(_kernels.LAUNCHES)
+            params, opt, _ = tr.train_step(params, opt, batches[i], i)
+            per = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
+            assert per == PER_STEP, (mode, i, per)
+        torch.cuda.synchronize()
+        runs[mode] = dict(
+            tr=tr, state=(params, opt), ms=[], step=EXACT_STEPS,
+            peak=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+            held=(torch.cuda.memory_allocated() - base) / 2 ** 30)
+    gaps = lm_state_gaps(runs["eager"]["state"], runs["graph"]["state"])
+    log(f"[graphs] {EXACT_STEPS} eager steps and {EXACT_STEPS} replays "
+        f"from one copied start: params and Adam state equal under "
+        f"torch.equal: {not gaps}")
+    for name, gap in sorted(gaps.items(), key=lambda kv: -kv[1]):
+        log(f"[graphs]   {name}: max|graph - eager| {gap:.3g}")
+    assert not gaps, f"{len(gaps)} tensors differ"
+
+    def steps(mode, n):
+        run = runs[mode]
+        params, opt = run["state"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            k = run["step"]
+            params, opt, m = run["tr"].train_step(
+                params, opt, batches[k % len(batches)], k)
+            float(m["loss"])        # one fetch a step, as run() drains
+            run["step"] += 1
+        run["state"] = (params, opt)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    for r in range(ROUNDS):
+        for mode in (("eager", "graph") if r % 2 == 0 else ("graph", "eager")):
+            runs[mode]["ms"].append(steps(mode, ROUND_STEPS))
+    for mode, run in runs.items():
+        params, opt = run["state"]
+        stacked = {"data": {f: torch.from_numpy(np.stack(
+            [bt["data"][f] for bt in batches[:ROUND_STEPS]])).to(dev)
+            for f in ("input", "target")}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, ms = run["tr"].train_steps(params, opt, stacked,
+                                                run["step"], ROUND_STEPS,
+                                                stacked=True)
+        ms["loss"].cpu()            # the one sync
+        run["scan_ms"] = (time.perf_counter() - t0) * 1e3 / ROUND_STEPS
+        run["step"] += ROUND_STEPS
+        run["state"] = (params, opt)
+        wall = min(run["ms"])
+        prof = profile(f"train_step ({mode})", lambda: steps(mode, 1), wall,
+                       top=6)
+        run["busy"], run["idle"] = prof["busy_ms"], prof["idle"]
+        if mode == "graph":
+            check_replay_profile(prof, PROFILED_PER_STEP)
+    for mode, run in runs.items():
+        log(f"[graphs] {mode}: step "
+            + ", ".join(f"{t:.3f}" for t in run["ms"])
+            + f" ms in rounds 1-{ROUNDS} of {ROUND_STEPS} (turns, host "
+            f"clock, one fetch a step), "
+            + ", ".join(f"{b * s / t * 1e3:.1f}" for t in run["ms"])
+            + f" tokens/s; train_steps({ROUND_STEPS}) with one sync "
+            f"{run['scan_ms']:.3f} ms a step, "
+            f"{b * s / run['scan_ms'] * 1e3:.1f} tokens/s; profiled step "
+            f"busy {run['busy']} ms, idle share {run['idle']}; peak "
+            f"{run['peak']:.2f} GiB above the {EXACT_STEPS} steps' start, "
+            f"{run['held']:.2f} GiB still allocated after them")
+    gaps = lm_state_gaps(runs["eager"]["state"], runs["graph"]["state"])
+    log(f"[graphs] after {runs['graph']['step']} steps each: equal under "
+        f"torch.equal: {not gaps}")
+    assert runs["eager"]["step"] == runs["graph"]["step"]
+    assert not gaps, sorted(gaps.items(), key=lambda kv: -kv[1])[:8]
+
+
 def phase_resume(dev, arrays):
-    """k steps with checkpoint_frequency k, resume into a fresh Trainer
-    and continue: bit-for-bit the params and state of an uninterrupted
-    run (the kernels use no atomics; cuBLAS is deterministic on one
-    stream)."""
+    """k steps with checkpoint_frequency k, resume into a fresh, captured
+    Trainer and continue: bit-for-bit the params and state of an
+    uninterrupted run (the kernels use no atomics; cuBLAS is
+    deterministic on one stream).  Every trainer replays CUDA graphs; the
+    uninterrupted one runs in chunks (scan_chunk), and the resumed one
+    was captured over other params first, which resume's are copied
+    into."""
     import shutil
     import tempfile
     from singa_tpu_torch import Trainer, synthetic_token_batches
@@ -906,7 +1134,9 @@ def phase_resume(dev, arrays):
     def trainer(steps):
         cfg = small_cfg(batchsize=bsz)
         cfg.train_steps, cfg.checkpoint_frequency = steps, k
-        return Trainer(cfg, SHAPES, device=dev)
+        tr = Trainer(cfg, SHAPES, device=dev)
+        assert tr.graphs
+        return tr
 
     def data(skip=0):
         it = synthetic_token_batches(bsz, BENCH["seq_len"],
@@ -920,21 +1150,26 @@ def phase_resume(dev, arrays):
                           dir=os.path.join(REPO, "build"))
     try:
         whole = trainer(total)
-        pa, oa, _ = whole.run(*start(whole, arrays, dev), data())
+        pa, oa, _ = whole.run(*start(whole, arrays, dev), data(),
+                              scan_chunk=4)
         first = trainer(k)
         first.run(*start(first, arrays, dev), data(), workspace=ws)
         again = trainer(total)
-        pc, oc, at = again.resume(*start(again, arrays, dev), ws)
+        p0, o0 = start(again, arrays, dev)
+        again.train_step(p0, o0, next(data(total)), 0)     # captures
+        pc, oc, at = again.resume(p0, o0, ws)
         assert at == k, at
         pc, oc, _ = again.run(pc, oc, data(k), start_step=k)
+        assert pc is p0 and oc is o0, "resumed tensors were not copied in"
     finally:
         shutil.rmtree(ws)
     same_p = all(torch.equal(pa[n], pc[n]) for n in pa)
     same_o = all(torch.equal(oa[sl][n], oc[sl][n]) for sl in oa
                  for n in oa[sl])
-    log(f"[resume] 2L b={bsz}: {k} steps, snapshot, fresh Trainer resumes "
-        f"at step {at} and runs to {total}: params equal an uninterrupted "
-        f"run bit for bit: {same_p}; optimizer state: {same_o}")
+    log(f"[resume] 2L b={bsz}, CUDA-graph replays: {k} steps, snapshot, a "
+        f"captured Trainer resumes at step {at} (copied into its graph's "
+        f"params) and runs to {total}: params equal an uninterrupted "
+        f"chunked run bit for bit: {same_p}; optimizer state: {same_o}")
     assert same_p and same_o
 
 
@@ -1097,19 +1332,26 @@ ALEX_LOSS_RTOL = 1e-5
 ALEX_MARGIN = 0.1
 
 
-def alexnet_trainer(dev, precision, test_steps=0):
+def alexnet_trainer(dev, precision, test_steps=0, logs=None):
     from singa_tpu_torch import Trainer, load_model_config
     cfg = load_model_config(ALEX_CONF)
     cfg.precision = precision
     cfg.test_steps = test_steps
-    return Trainer(cfg, RGB_SHAPES, device=dev, log_fn=lambda msg: None)
+    return Trainer(cfg, RGB_SHAPES, device=dev,
+                   log_fn=(logs if logs is not None else []).append)
 
 
 def phase_alexnet(dev):
     from singa_tpu_torch import (numpy_params, params_from_numpy,
                                  synthetic_image_batches)
     from singa_tpu_torch.ops import _kernels
-    tr = alexnet_trainer(dev, "bfloat16", test_steps=1)
+    logs = []
+    tr = alexnet_trainer(dev, "bfloat16", test_steps=1, logs=logs)
+    # dropout and the RGB mirror draw per step from host-seeded
+    # generators: graphs=None must pick eager steps, and say why
+    why = [m for m in logs if "eagerly" in m]
+    log(f"[alexnet] graphs=None: graphs {tr.graphs}; {why}")
+    assert tr.graphs is False and len(why) == 1, (tr.graphs, logs)
     b = tr.train_net.layers["data"].batchsize
     assert b == ALEX_BATCH, b
     arrays = numpy_params(tr.train_net, seed=0)
@@ -1304,6 +1546,7 @@ def main() -> int:
     phase_grads(dev, arrays)
     took("phase 6")
     launches = phase_train(dev, arrays)
+    phase_graphs(dev, arrays)
     phase_resume(dev, arrays)
     took("phase 7")
     k56 = phase_lrn(dev)

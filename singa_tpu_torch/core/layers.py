@@ -110,6 +110,7 @@ class Layer:
 
     is_data = False     # True → reads from ctx.batch, has no srcs
     is_loss = False     # True → apply returns a metrics dict incl. "loss"
+    draws = False       # True → training draws from `Context.layer_rng`
 
     def __init__(self, cfg: LayerConfig):
         self.cfg = cfg
@@ -239,6 +240,8 @@ class RGBImageLayer(Layer):
                 f"the port does not have yet; supply the mean with the "
                 f"batch as its 'mean' field")
         b, c, h, w = src_shapes[0]["pixel"]   # (B, C, H, W) host layout
+        cs = self.cropsize
+        self.draws = self.mirror or bool(cs and (h > cs or w > cs))
         if self.cropsize:
             h = w = self.cropsize
         self.out_shape = (b, h, w, c)
@@ -444,6 +447,7 @@ class DropoutLayer(Layer):
     def setup(self, src_shapes):
         self.rate = (self.cfg.dropout_param.dropout_ratio
                      if self.cfg.dropout_param else 0.5)
+        self.draws = self.rate > 0.0
         self.out_shape = tuple(src_shapes[0])
 
     def apply(self, params, srcs, ctx):

@@ -1,0 +1,173 @@
+"""Captured steps: the port's counterpart of `jax.jit` with donated buffers.
+
+The JAX package compiles each trainer step into one XLA program that
+updates its donated params and optimizer state (`singa_tpu/core/
+trainer.py:338-472`) and caches one program per batch geometry
+(`compiled_scan`, `:488-520`).  On the card the counterpart is a CUDA
+graph: `StepGraph` warms a step function up on a side stream, captures
+one call of it into a `torch.cuda.CUDAGraph` over static batch buffers
+and the caller's params and state, and replays it.  It keeps one graph
+per batch geometry (the path, shape and dtype of every batch leaf).
+
+- The step function `fn(state, batch)` works on `state`, a (nested) dict
+  of tensors that every replay reads and writes in place, and returns
+  its outputs; they are the graph's static outputs, which the next
+  replay overwrites.
+- Warm-up runs `WARMUP` calls on clones of `state` when `fn` writes it,
+  so the caller's step counter and optimizer state do not move; it also
+  builds and loads the kernels and makes cuBLAS's first-call setup, none
+  of which may happen inside a capture.
+- A capture that fails raises `CaptureError`, naming the op that broke
+  it.  Nothing falls back to running eagerly.
+- `_kernels.LAUNCHES` counts Python calls of the kernel wrappers, and a
+  replay makes none: the launches made while capturing are recorded and
+  added to the counts at every replay.  Warm-up and capture add nothing
+  themselves.
+"""
+
+from __future__ import annotations
+
+import traceback
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import _kernels
+
+WARMUP = 3
+
+
+class CaptureError(RuntimeError):
+    pass
+
+
+def _dtype(x) -> torch.dtype:
+    """The torch dtype of a tensor or numpy array."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.empty(0, x.dtype)).dtype
+    return x.dtype
+
+
+def geometry(batch, path: str = "") -> Tuple:
+    """(path, shape, dtype) of every leaf of a (nested) batch dict."""
+    if isinstance(batch, dict):
+        return tuple(g for k in sorted(batch)
+                     for g in geometry(batch[k], f"{path}/{k}"))
+    return ((path, tuple(batch.shape), _dtype(batch)),)
+
+
+def leaves(tree):
+    """The leaves of a (nested) dict, in sorted key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k])
+    else:
+        yield tree
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def copy_batch(dst, src) -> None:
+    """Copy a (nested) batch of numpy arrays or tensors into the static
+    device buffers `dst`, on the current stream, without a host sync."""
+    if isinstance(dst, dict):
+        for k in dst:
+            copy_batch(dst[k], src[k])
+        return
+    if isinstance(src, np.ndarray):
+        src = torch.from_numpy(src)
+    dst.copy_(src, non_blocking=True)
+
+
+def _culprit(exc: BaseException) -> str:
+    """Where in the port the capture broke: the innermost traceback frame
+    in singa_tpu_torch outside this module, of `exc` or of the error it
+    was raised while handling (ending a broken capture raises anew)."""
+    while exc is not None:
+        frames = [f for f in traceback.extract_tb(exc.__traceback__)
+                  if "singa_tpu_torch" in f.filename
+                  and not f.filename.endswith("step_graph.py")]
+        if frames:
+            f = frames[-1]
+            where = f.filename[f.filename.rindex("singa_tpu_torch"):]
+            return f"at {where}:{f.lineno} ({f.line})"
+        exc = exc.__context__
+    return "when the capture ended"
+
+
+@dataclass
+class _Captured:
+    graph: torch.cuda.CUDAGraph
+    batch: Any                  # static input buffers
+    out: Any                    # static outputs
+    state_ptrs: Tuple[int, ...]
+    launches: Dict[str, int]    # kernel launches per replay
+
+
+class StepGraph:
+    """One step function, captured per batch geometry and replayed.
+    `pool` is a `torch.cuda.graph_pool_handle()`: graphs that never run at
+    once (a trainer's train and eval steps) share one memory pool."""
+
+    def __init__(self, name: str, pool, writes_state: bool):
+        self.name = name
+        self.pool = pool
+        self.writes_state = writes_state
+        self._graphs: Dict[Tuple, _Captured] = {}
+
+    def __call__(self, fn: Callable, state, batch):
+        """Copy `batch` into the graph of its geometry (capturing `fn` on
+        first sight) and replay it on the current stream.  `state` must
+        be the tensors the graph was captured over.  (`fn` comes with
+        each call, not at construction, so an owner that holds this
+        object and whose method `fn` is forms no reference cycle.)"""
+        key = geometry(batch)
+        got = self._graphs.get(key)
+        if got is None:
+            got = self._graphs[key] = self._capture(fn, state, batch)
+        elif tuple(t.data_ptr() for t in leaves(state)) != got.state_ptrs:
+            raise ValueError(f"{self.name}: replayed over other state "
+                             f"tensors than it was captured over")
+        copy_batch(got.batch, batch)
+        got.graph.replay()
+        for name, n in got.launches.items():
+            _kernels.LAUNCHES[name] += n
+        return got.out
+
+    def _capture(self, fn, state, batch) -> _Captured:
+        dev = next(leaves(state)).device
+        static = _map(lambda x: torch.empty(tuple(x.shape), dtype=_dtype(x),
+                                            device=dev), batch)
+        copy_batch(static, batch)
+        counts = dict(_kernels.LAUNCHES)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm = (_map(lambda t: t.clone(), state) if self.writes_state
+                    else state)
+            for _ in range(WARMUP):
+                fn(warm, static)
+            del warm
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = dict(_kernels.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = fn(state, static)
+        except RuntimeError as e:
+            raise CaptureError(f"{self.name}: CUDA graph capture failed "
+                               f"{_culprit(e)}: {type(e).__name__}: "
+                               f"{e}") from e
+        finally:
+            captured = {k: _kernels.LAUNCHES[k] - before[k]
+                        for k in before}
+            _kernels.LAUNCHES.update(counts)
+        return _Captured(graph, static, out,
+                         tuple(t.data_ptr() for t in leaves(state)),
+                         {k: n for k, n in captured.items() if n})

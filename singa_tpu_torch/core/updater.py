@@ -6,7 +6,8 @@ and the same weight-decay placement per type:
 - LR schedules: kFixed, kLinear, kExponential, kInverse_t, kInverse,
   kStep (C++ integer division step/freq, a floor), kCosine,
   kWarmupCosine.  Computed on the host in float32, as the JAX package
-  computes them on f32 arrays (`step` as f32, `:45`).
+  computes them on f32 arrays (`step` as f32, `:45`), then written
+  to the device by `Updater.set_step`.
 - kSGD: wd folded into the grad; history = momentum·history + lr·grad,
   data −= history (or data −= lr·grad without momentum).
 - kNesterov: data −= (1+mu)·h_new − mu·h_old.
@@ -28,12 +29,13 @@ trainer holds one copy of each, not two.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..config.schema import UpdaterConfig
+from ..device import params_device
 
 _F = np.float32
 
@@ -87,13 +89,28 @@ class Multipliers(NamedTuple):
 class Updater:
     """state = self.init(params); self.update(step, grads, params, state)
     updates params and state in place.  `multipliers` maps param name to
-    `Multipliers` (default all ones)."""
+    `Multipliers` (default all ones).
+
+    `update` is `set_step` then `apply`.  `set_step` writes every value
+    that changes from step to step (the learning rate of each lr
+    multiplier, with `lr_scale`; Adam's bias corrections c1 and c2) into
+    0-d f32 tensors on the params' device that the updater owns; `apply`
+    is the device work alone, which reads them there.  So a CUDA graph
+    that captures `apply` once replays any step after a `set_step`.
+    `apply` runs one chain of `torch._foreach_*` ops per group of params
+    that share their `Multipliers`, with every rounding of the JAX
+    formula: no two of its steps are fused into one op that rounds once
+    (no addcmul/addcdiv, no `alpha=`), and h / c1 is a true division by
+    the device scalar, as JAX divides.  Eager steps, graph replays and
+    the CPU all run this one path."""
 
     def __init__(self, cfg: UpdaterConfig):
         self.cfg = cfg
         self.type = cfg.type
         # the JAX package's rescue-policy LR scale (Trainer.apply_lr_backoff)
         self.lr_scale = 1.0
+        # ("lr", multiplier) / "c1" / "c2" -> 0-d f32 tensor on the device
+        self._scalars: Dict[Any, torch.Tensor] = {}
 
     def init(self, params: Dict[str, torch.Tensor]
              ) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -110,56 +127,137 @@ class Updater:
                state: Dict[str, Dict[str, torch.Tensor]],
                multipliers: Optional[Dict[str, Multipliers]] = None
                ) -> None:
-        cfg = self.cfg
-        lr = learning_rate(cfg, step) if cfg.base_learning_rate else 0.0
-        lr = float(_F(lr) * _F(self.lr_scale))
-        ones = Multipliers()
-        updates = state.get("update", {})
-        for name, p in params.items():
-            m = multipliers.get(name, ones) if multipliers else ones
-            self._apply_one(step, p, grads[name], state["history"][name],
-                            updates.get(name), float(_F(lr) * _F(m.lr)),
-                            cfg.weight_decay * m.wd)
+        self.set_step(step, params, multipliers)
+        self.apply(grads, params, state, multipliers)
 
-    def _apply_one(self, step, p, g, h, u, lr, wd):
+    def _scalar(self, key, device: torch.device) -> torch.Tensor:
+        t = self._scalars.get(key)
+        if t is None or t.device != device:
+            t = self._scalars[key] = torch.zeros((), dtype=torch.float32,
+                                                 device=device)
+        return t
+
+    @torch.no_grad()
+    def set_step(self, step: int, params: Dict[str, torch.Tensor],
+                 multipliers: Optional[Dict[str, Multipliers]] = None
+                 ) -> None:
+        """Write step `step`'s scalars, computed on the host in f32 as the
+        JAX package computes them, into the device tensors `apply` reads
+        (`fill_`, in stream order after whatever read them last)."""
+        cfg = self.cfg
+        dev = params_device(params)
+        lr = learning_rate(cfg, step) if cfg.base_learning_rate else 0.0
+        lr = _F(lr) * _F(self.lr_scale)
+        for m in _groups(params, multipliers):
+            self._scalar(("lr", m.lr), dev).fill_(float(lr * _F(m.lr)))
+        if self.type == "kAdam":
+            tstep = _F(step) + _F(1)
+            for key, b in (("c1", cfg.beta1), ("c2", cfg.beta2)):
+                self._scalar(key, dev).fill_(
+                    float(_F(1) - np.power(_F(b), tstep)))
+
+    @torch.no_grad()
+    def apply(self, grads: Dict[str, torch.Tensor],
+              params: Dict[str, torch.Tensor],
+              state: Dict[str, Dict[str, torch.Tensor]],
+              multipliers: Optional[Dict[str, Multipliers]] = None
+              ) -> None:
+        """The update of the step last given to `set_step`, in place."""
+        dev = params_device(params)
+        updates = state.get("update")
+        for m, names in _groups(params, multipliers).items():
+            lr = self._scalars.get(("lr", m.lr))
+            if lr is None or lr.device != dev:
+                raise RuntimeError(f"Updater.apply before set_step on {dev}")
+            self._apply_group(
+                [params[k] for k in names], [grads[k] for k in names],
+                [state["history"][k] for k in names],
+                [updates[k] for k in names] if updates is not None
+                else None, lr, self.cfg.weight_decay * m.wd)
+
+    def _apply_group(self, p, g, h, u, lr, wd):
         cfg = self.cfg
         t = self.type
         if t in ("kSGD", "kNesterov", "kAdaDelta", "kAdam") and wd > 0:
-            g = g + p * wd
+            g = _plus_decay(g, p, wd)
         if t == "kSGD":
+            step = torch._foreach_mul(g, lr)                   # lr·g
             if cfg.momentum > 0:
-                h.mul_(cfg.momentum).add_(lr * g)
-                p.sub_(h)
-            else:
-                p.sub_(lr * g)
+                torch._foreach_mul_(h, cfg.momentum)
+                torch._foreach_add_(h, step)
+                step = h
+            torch._foreach_sub_(p, step)
         elif t == "kNesterov":
-            h_old = h.clone()
-            h.mul_(cfg.momentum).add_(lr * g)
-            p.sub_(h * (1 + cfg.momentum) - h_old * cfg.momentum)
+            old = torch._foreach_mul(h, cfg.momentum)          # h_old·mu
+            torch._foreach_mul_(h, cfg.momentum)
+            torch._foreach_add_(h, torch._foreach_mul(g, lr))
+            step = torch._foreach_mul(h, 1 + cfg.momentum)
+            torch._foreach_sub_(step, old)
+            torch._foreach_sub_(p, step)
         elif t in ("kAdaGrad", "kRMSProp"):
-            sq = torch.square(g)
-            if t == "kAdaGrad":
-                h.add_(sq)
-            else:
-                h.mul_(cfg.rho).add_((1 - cfg.rho) * sq)
+            sq = torch._foreach_mul(g, g)
+            if t == "kRMSProp":
+                torch._foreach_mul_(h, cfg.rho)
+                torch._foreach_mul_(sq, 1 - cfg.rho)
+            torch._foreach_add_(h, sq)
             if wd > 0:
-                g = g + p * wd
-            p.sub_(lr * g / torch.sqrt(h + cfg.delta))
+                g = _plus_decay(g, p, wd)
+            step = torch._foreach_mul(g, lr)
+            den = torch._foreach_add(h, cfg.delta)
+            torch._foreach_sqrt_(den)
+            torch._foreach_div_(step, den)
+            torch._foreach_sub_(p, step)
         elif t == "kAdaDelta":
-            h.mul_(cfg.rho).add_((1 - cfg.rho) * torch.square(g))
-            tmp = g * torch.sqrt(u + cfg.delta) / torch.sqrt(h + cfg.delta)
-            u.mul_(cfg.rho).add_((1 - cfg.rho) * torch.square(tmp))
-            p.sub_(tmp)
+            sq = torch._foreach_mul(g, g)
+            torch._foreach_mul_(sq, 1 - cfg.rho)
+            torch._foreach_mul_(h, cfg.rho)
+            torch._foreach_add_(h, sq)
+            num = torch._foreach_add(u, cfg.delta)
+            torch._foreach_sqrt_(num)
+            step = torch._foreach_mul(g, num)
+            den = torch._foreach_add(h, cfg.delta)
+            torch._foreach_sqrt_(den)
+            torch._foreach_div_(step, den)                     # tmp
+            sq = torch._foreach_mul(step, step)
+            torch._foreach_mul_(sq, 1 - cfg.rho)
+            torch._foreach_mul_(u, cfg.rho)
+            torch._foreach_add_(u, sq)
+            torch._foreach_sub_(p, step)
         elif t == "kAdam":
             b1, b2 = cfg.beta1, cfg.beta2
-            h.mul_(b1).add_((1 - b1) * g)                 # first moment
-            u.mul_(b2).add_((1 - b2) * torch.square(g))   # second moment
-            tstep = _F(step) + _F(1)
-            c1 = float(_F(1) - np.power(_F(b1), tstep))
-            c2 = float(_F(1) - np.power(_F(b2), tstep))
-            p.sub_(lr * (h / c1) / (torch.sqrt(u / c2) + cfg.delta))
+            torch._foreach_mul_(h, b1)                         # first moment
+            torch._foreach_add_(h, torch._foreach_mul(g, 1 - b1))
+            sq = torch._foreach_mul(g, g)                      # second moment
+            torch._foreach_mul_(sq, 1 - b2)
+            torch._foreach_mul_(u, b2)
+            torch._foreach_add_(u, sq)
+            step = torch._foreach_div(h, self._scalars["c1"])  # mhat
+            den = torch._foreach_div(u, self._scalars["c2"])   # vhat
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, cfg.delta)
+            torch._foreach_mul_(step, lr)
+            torch._foreach_div_(step, den)
+            torch._foreach_sub_(p, step)
         else:
             raise ValueError(f"unknown updater type {t!r}")
+
+
+def _plus_decay(g, p, wd):
+    """g + p·wd, rounded after the product and after the sum as JAX
+    rounds it; the caller's grads are not written."""
+    out = torch._foreach_mul(p, wd)
+    torch._foreach_add_(out, g)
+    return out
+
+
+def _groups(params, multipliers) -> Dict[Multipliers, list]:
+    """Param names grouped by their `Multipliers`, in params' order."""
+    ones = Multipliers()
+    groups: Dict[Multipliers, list] = {}
+    for name in params:
+        m = multipliers.get(name, ones) if multipliers else ones
+        groups.setdefault(m, []).append(name)
+    return groups
 
 
 def make_updater(cfg: Optional[UpdaterConfig]) -> Updater:

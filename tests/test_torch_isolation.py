@@ -40,6 +40,7 @@ def _forbidden(name: str) -> bool:
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert "singa_tpu_torch.ops._kernels" in mods
+    assert "singa_tpu_torch.core.step_graph" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
