@@ -31,9 +31,26 @@ non-zero before the last line is printed:
    `Trainer.evaluate` over 10 bench batches, as CUDA-graph replays and
    eagerly, in turns: tokens/s, a profiled step's idle share, K1 12 and
    K2 once per batch, and averages equal to the bit.
-4. Serving: the bucketed engine answers greedy and sampled generate
-   requests and predict requests on the same stack (f32 weights); greedy
-   answers must equal `generate` on the unpadded prompts.
+4. Serving, on the same stack with f32 weights.  4a, the bucketed
+   engine: warm-up must capture one CUDA graph per (mode, bucket)
+   (generate is the whole unrolled decode); replayed greedy answers must
+   equal eager (`graphs=False`) ones and `generate` on the unpadded
+   prompts, predict must match `forward_cached`, seeded sampling must
+   give the same tokens on two engines and on an eager one; tokens/s
+   replayed and eager in turns, the idle share of each, and no capture
+   after warm-up.  4b, continuous batching (`ContinuousScheduler`,
+   32 slots, blocks of 16, prompts up to 512, 128 new tokens at most,
+   1281 pool blocks: 1.51 GB of f32 pools, which `pool_bytes` must
+   match): 96 greedy requests (lengths and max_new from numpy seed 11)
+   submitted before `start()` must all finish with `length`, 0 failed,
+   no capture after the two graphs of warm-up; the 4 shortest and 4
+   longest answers must equal `generate` (a differing token must sit at
+   a top-2 logit gap below 1e-4, which is printed), and an eager engine
+   must give every answer equal; 32 sampled requests must give the same
+   tokens twice; the decode step with all 32 slots active and the
+   prefill, replayed and eager in turns, profiles, generated tokens/s,
+   latency and queue-wait percentiles and peak memory.  No kernel of
+   K1-K6 runs on the serving path.
 5. K3 and K4 (the flash backward) against their plain versions, at the
    bench shape (timed as K1, with SDPA's backward as the library
    yardstick) and at GQA, non-causal, every head dim on ragged S in both
@@ -82,7 +99,8 @@ non-zero before the last line is printed:
    the same weights at batch 4 in f32 on the card and on the CPU, whose
    loss and every gradient must agree.
 
-The last lines are one JSON object listing each kernel with its
+Every result line ends with the card's `nvidia-smi` name and power
+limit.  The last lines are one JSON object listing each kernel with its
 launches (K1-K4 over phase 7's training run, K5/K6 over phase 9's),
 error, times and bound; the card's `nvidia-smi` name and power limit;
 and {"ok": true, "device": {...}}.
@@ -120,8 +138,17 @@ BENCH = dict(vocab_size=32768, num_layers=12, embed_dim=768, num_heads=12,
 EVAL_BATCHES = 10       # phase 3's Trainer.evaluate, captured and eager
 
 
+CARD = ""               # nvidia-smi's name and power limit, set by main()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of results, with the card's name and power limit once
+    main() has read them."""
+    print(f"{msg} [{CARD}]" if CARD else msg, flush=True)
+
+
+def trainer_log(msg: str) -> None:
+    log(f"[trainer] {msg}")
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -655,7 +682,7 @@ def bench_trainer(dev, graphs, test_steps=0):
     from singa_tpu_torch import Trainer, transformer_lm
     cfg = transformer_lm(**BENCH, precision="bfloat16")
     cfg.test_steps = test_steps
-    tr = Trainer(cfg, SHAPES, device=dev, graphs=graphs)
+    tr = Trainer(cfg, SHAPES, device=dev, graphs=graphs, log_fn=trainer_log)
     assert tr.graphs is (graphs is not False), (tr.graphs, graphs)
     return tr
 
@@ -764,13 +791,31 @@ def compare_small(dev, arrays):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serving
+# phase 4: serving, 4a the bucket engine replayed, 4b continuous batching
+
+NEAR_TIE = 1e-4         # a greedy token may differ only below this top-2 gap
+
+
+def in_turns(runs: dict, rounds: int = 3) -> dict:
+    """Host ms of each run's callable, `rounds` times in turns (the order
+    flips every round); each callable ends in a fetch to the host."""
+    ms = {k: [] for k in runs}
+    for r in range(rounds):
+        for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[k]()
+            ms[k].append((time.perf_counter() - t0) * 1e3)
+    return ms
 
 
 def phase_serve(dev, arrays):
+    """4a: one CUDA graph per (mode, bucket), captured at warm-up; replays
+    against eager calls and the unpadded `generate`."""
     from singa_tpu_torch import (InferenceEngine, ServeSpec, generate,
                                  params_from_numpy)
     from singa_tpu_torch.models.generate import forward_cached, init_cache
+    from singa_tpu_torch.ops import _kernels
     vocab = BENCH["vocab_size"]
     net = build(BENCH, BENCH["seq_len"])
     params = params_from_numpy(net, arrays, device=dev)
@@ -778,53 +823,285 @@ def phase_serve(dev, arrays):
     prompts = [list(rng.integers(0, vocab, n))
                for n in (128, 100, 77, 64, 50, 33, 17, 5)]
     bucket, max_new = (8, 128), 32
-    greedy = InferenceEngine(net, ServeSpec(buckets=(bucket,),
-                                            max_new_tokens=max_new),
-                             params, device=dev)
-    out = np.stack(greedy.answer("generate", prompts))
-    assert out.shape == (8, max_new) and (out >= 0).all() \
-        and (out < vocab).all()
-    t0 = time.perf_counter()        # a warm run: answers come back on host
-    again = np.stack(greedy.answer("generate", prompts))
-    dt = time.perf_counter() - t0
-    assert np.array_equal(out, again), "greedy runs differ"
-    profile("decode", lambda: greedy.answer("generate", prompts), dt * 1e3)
-    for row, prompt in zip(out, prompts):
+    greedy_spec = ServeSpec(buckets=(bucket,), max_new_tokens=max_new)
+    sampled_spec = ServeSpec(buckets=(bucket,), max_new_tokens=max_new,
+                             temperature=0.8, top_k=50, top_p=0.9, seed=3)
+    _kernels.reset_launches()
+    engines = {}
+    for name, spec, graphs in (("graph", greedy_spec, None),
+                               ("eager", greedy_spec, False),
+                               ("sampled graph", sampled_spec, None),
+                               ("sampled graph 2", sampled_spec, None),
+                               ("sampled eager", sampled_spec, False)):
+        eng = InferenceEngine(net, spec, params, device=dev, log_fn=log,
+                              graphs=graphs)
+        t0 = time.perf_counter()
+        n = eng.warmup(("generate", "predict"))
+        assert eng.graphs is (graphs is None) and \
+            n == (2 if eng.graphs else 0), (name, eng.graphs, n)
+        if eng.graphs:
+            log(f"[serve] {name}: warm-up captured {n} graphs "
+                      f"(generate and predict at bucket {bucket}) in "
+                      f"{time.perf_counter() - t0:.3f} s")
+        engines[name] = eng
+    captured = {k: e.stats.compiles for k, e in engines.items()}
+
+    out = {k: np.stack(engines[k].answer("generate", prompts))
+           for k in ("graph", "eager")}
+    assert out["graph"].shape == (8, max_new) and \
+        ((out["graph"] >= 0) & (out["graph"] < vocab)).all()
+    assert np.array_equal(out["graph"], out["eager"]), \
+        "replayed greedy tokens != eager"
+    for row, prompt in zip(out["graph"], prompts):
         with torch.no_grad():
             want = generate(net, params, np.array([prompt]), max_new)
         assert np.array_equal(row, want[0].cpu().numpy()), \
             ("padded greedy != unpadded generate", len(prompt))
-    log(f"[serve] greedy bucket {bucket} x {max_new} new tokens (prefill "
-        f"included): {dt:.3f} s, {8 * max_new / dt:.1f} tokens/s; equals "
-        f"unpadded generate; two runs identical")
+    ms = in_turns({k: (lambda e=engines[k]: e.answer("generate", prompts))
+                   for k in ("eager", "graph")})
+    for k in ("eager", "graph"):
+        log(f"[serve] 4a greedy bucket {bucket} x {max_new} new "
+                  f"tokens, {k}: "
+                  + ", ".join(f"{t:.3f}" for t in ms[k])
+                  + " ms in rounds 1-3 (turns), "
+                  + ", ".join(f"{8 * max_new / t * 1e3:.1f}" for t in ms[k])
+                  + " tokens/s (prefill included)")
+    log("[serve] 4a replayed greedy tokens equal eager ones and "
+              "unpadded generate's")
+    for k in ("graph", "eager"):
+        prof = profile(f"bucket generate ({k})",
+                       lambda e=engines[k]: e.answer("generate", prompts),
+                       min(ms[k]))
+        log(f"[serve] 4a bucket generate ({k}): idle share "
+                  f"{prof['idle']}")
 
     # predict: next-token log-probs of the padded bucket against
     # forward_cached on each unpadded prompt (f32: rtol/atol 1e-3 covers
-    # the reordered sums of shifted RoPE positions and batch shapes)
-    lp = greedy.answer("predict", prompts)
-    for row, prompt in zip(lp, prompts):
+    # the reordered sums of shifted RoPE positions and batch shapes), and
+    # the replay against the eager call
+    lp = {k: engines[k].answer("predict", prompts) for k in ("graph",
+                                                            "eager")}
+    gap = max(float(np.abs(a - b).max())
+              for a, b in zip(lp["graph"], lp["eager"]))
+    assert gap <= 1e-5, gap
+    for row, prompt in zip(lp["graph"], prompts):
         with torch.no_grad():
             cache = init_cache(net, 1, len(prompt) + 1, torch.float32, dev)
-            logits, _ = forward_cached(net, params, np.array([prompt]),
-                                       cache, 0)
+            logits, _ = forward_cached(
+                net, params, torch.tensor([prompt], device=dev), cache, 0)
             want = torch.log_softmax(logits[0, -1], dim=-1).cpu().numpy()
         np.testing.assert_allclose(row, want, rtol=1e-3, atol=1e-3)
-    log("[serve] predict bucket matches forward_cached per prompt")
+    log(f"[serve] 4a predict bucket matches forward_cached per "
+              f"prompt; replay against eager max|diff| {gap:.3g}")
+
+    sampled = {k: np.stack(engines[k].answer("generate", prompts))
+               for k in ("sampled graph", "sampled graph 2",
+                         "sampled eager")}
+    s0 = sampled["sampled graph"]
+    assert s0.shape == (8, max_new) and ((s0 >= 0) & (s0 < vocab)).all()
+    assert np.array_equal(s0, sampled["sampled graph 2"]), \
+        "seeded sampling differs between two engines"
+    assert np.array_equal(s0, sampled["sampled eager"]), \
+        "seeded sampling: replay != eager"
+    again = np.stack(engines["sampled eager"].answer("generate", prompts))
+    assert not np.array_equal(again, s0), "the next call drew the same"
+    log(f"[serve] 4a top-k/top-p sampled bucket: {len(set(s0.ravel()))} "
+              f"distinct tokens, reproducible from its seed, replay equal "
+              f"to eager")
+    assert {k: e.stats.compiles for k, e in engines.items()} == captured, \
+        "captured after warm-up"
+    assert not any(_kernels.LAUNCHES.values()), _kernels.LAUNCHES
+    log(f"[serve] 4a no capture after warm-up (compiles "
+              f"{captured}); no kernel of K1-K6 on the serving path")
+
+
+CB_SPEC = dict(cb="on", cb_slots=32, cb_block_len=16, cb_prompt_cap=512,
+               max_new_tokens=128, queue_capacity=128,
+               request_timeout_s=600.0)
+CB_REQUESTS = 96
+
+
+def cb_traffic(vocab: int):
+    """96 greedy requests: prompt lengths uniform in 16-512 and max_new
+    in 16-128, from numpy seed 11."""
+    rng = np.random.default_rng(11)
+    plens = rng.integers(16, 513, CB_REQUESTS)
+    max_news = rng.integers(16, 129, CB_REQUESTS)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in plens]
+    return prompts, [int(m) for m in max_news]
+
+
+def serve_cb(net, params, dev, prompts, max_news, graphs, **spec_kw):
+    """Submit every request before `start()` (the order of admission is
+    then fixed), serve them all, and return the engine, the results and
+    the wall time from `start()` to the last answer."""
+    from singa_tpu_torch import InferenceEngine, ServeSpec
+    from singa_tpu_torch.serve import ContinuousScheduler
+    spec = ServeSpec(**{**CB_SPEC, **spec_kw})
+    eng = InferenceEngine(net, spec, params, device=dev, log_fn=log,
+                          graphs=graphs)
+    n = eng.warmup(("generate",))
+    assert n == (2 if graphs is None else 0), n
+    sched = ContinuousScheduler(eng, log_fn=log)
+    tickets = [sched.submit(p, max_new=m) for p, m in zip(prompts, max_news)]
+    t0 = time.perf_counter()
+    sched.start()
+    try:
+        outs = [t.wait(600.0) for t in tickets]
+    finally:
+        sched.stop()
+    wall = time.perf_counter() - t0
+    for out, m in zip(outs, max_news):
+        assert out["finish"] == "length" and len(out["tokens"]) == m, \
+            (out["finish"], len(out["tokens"]), m)
+    snap = eng.stats.snapshot()
+    assert snap["failed"] == 0 and snap["completed"] == len(prompts), snap
+    assert eng.stats.compiles == n, "captured after warm-up"
+    return eng, sched, outs, wall
+
+
+def first_divergence(net, params, dev, prompt, got, want) -> tuple:
+    """(index, top-2 logit gap of the contiguous reference there) of the
+    first token where a paged answer leaves `generate`'s."""
+    from singa_tpu_torch.models.generate import forward_cached, init_cache
+    i = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+    seq = list(prompt) + list(want[:i])
+    with torch.no_grad():
+        cache = init_cache(net, 1, len(seq), torch.float32, dev)
+        logits, _ = forward_cached(net, params,
+                                   torch.tensor([seq], device=dev), cache, 0)
+    top2 = logits[0, -1].topk(2).values
+    return i, float(top2[0] - top2[1])
+
+
+def phase_cb(dev, arrays):
+    """4b: continuous batching over the paged KV cache, prefill and decode
+    step as CUDA graphs, against eager programs and `generate`."""
+    from singa_tpu_torch import generate, params_from_numpy
+    from singa_tpu_torch.ops import _kernels
+    from singa_tpu_torch.serve.kvcache import pool_bytes
+    vocab = BENCH["vocab_size"]
+    net = build(BENCH, BENCH["seq_len"])
+    params = params_from_numpy(net, arrays, device=dev)
+    prompts, max_news = cb_traffic(vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _kernels.reset_launches()
+
+    eng, sched, outs, wall = serve_cb(net, params, dev, prompts, max_news,
+                                      None)
+    spec = eng.spec
+    assert (spec.cb_prefill_len, spec.cb_blocks_per_slot,
+            spec.cb_pool_blocks) == (512, 40, 1281)
+    nbytes = pool_bytes(net, spec.cb_pool_blocks, spec.cb_block_len)
+    held = sum(t.numel() * t.element_size()
+               for e in eng.cb_pools.values() for t in e.values())
+    assert nbytes == held, (nbytes, held)
+    ntok = sum(len(o["tokens"]) for o in outs)
+    snap = eng.stats.snapshot()
+    qw99 = eng.stats.split_quantile("queue_wait", 0.99)
+    log(f"[cb] 4b graph: {len(outs)} of {CB_REQUESTS} greedy requests "
+              f"served (finish length), 0 failed, {snap['cb_steps']} "
+              f"scheduler steps, {ntok} tokens in {wall:.3f} s = "
+              f"{ntok / wall:.1f} generated tokens/s; slot occupancy "
+              f"{snap['cb_slot_occupancy']}, block utilization "
+              f"{snap['cb_block_utilization']}")
+    log(f"[cb] 4b graph: request latency p50/p95/p99 "
+              f"{snap['p50_latency_ms']}/{snap['p95_latency_ms']}/"
+              f"{snap['p99_latency_ms']} ms, queue wait p50/p95/p99 "
+              f"{snap['p50_queue_wait_ms']}/{snap['p95_queue_wait_ms']}/"
+              f"{qw99 * 1e3:.3f} ms, service p50/p95 "
+              f"{snap['p50_service_ms']}/{snap['p95_service_ms']} ms")
+    log(f"[cb] 4b pools {nbytes} bytes (pool_bytes = the tensors "
+              f"held), {spec.cb_pool_blocks} blocks of {spec.cb_block_len}; "
+              f"peak memory "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB "
+              f"above the phase's start")
+
+    by_len = sorted(range(CB_REQUESTS), key=lambda i: len(prompts[i]))
+    for i in by_len[:4] + by_len[-4:]:
+        with torch.no_grad():
+            want = generate(net, params, prompts[i][None],
+                            max_news[i])[0].tolist()
+        got = outs[i]["tokens"]
+        if got != want:
+            k, gap = first_divergence(net, params, dev, prompts[i], got,
+                                      want)
+            log(f"[cb] request {i} (plen {len(prompts[i])}) leaves "
+                      f"generate at token {k}, where the contiguous "
+                      f"reference's top-2 logit gap is {gap:.3g}")
+            assert gap <= NEAR_TIE, (i, k, gap)
+    log("[cb] 4b the 4 shortest and 4 longest prompts' answers "
+              "checked against generate on the unpadded prompt")
+
+    eager, esched, eouts, ewall = serve_cb(net, params, dev, prompts,
+                                           max_news, False)
+    same = sum(a["tokens"] == b["tokens"] for a, b in zip(outs, eouts))
+    log(f"[cb] 4b eager: the same traffic in {ewall:.3f} s = "
+              f"{ntok / ewall:.1f} generated tokens/s; {same} of "
+              f"{CB_REQUESTS} answers equal the replayed ones")
+    assert same == CB_REQUESTS
+
+    # the decode step with every slot active and the prefill, replayed
+    # and eager in turns
+    s, t = spec.cb_slots, spec.cb_blocks_per_slot
+    tables = (1 + np.arange(s * t, dtype=np.int32)).reshape(s, t)
+    ntoks = np.full((s,), 320, np.int32)
+    toks = np.random.default_rng(12).integers(0, vocab, s).astype(np.int32)
+    row = tables[0, :spec.cb_prefill_len // spec.cb_block_len]
+    ptoks = prompts[by_len[-1]][None, :spec.cb_prefill_len].copy()
+    ptoks = np.pad(ptoks, ((0, 0), (0, spec.cb_prefill_len - ptoks.shape[1])))
+    plen = len(prompts[by_len[-1]])
+
+    def decode_steps(e, n=20):
+        for _ in range(n):
+            e.run_cb_decode(e.params, e.cb_pools, toks, ntoks, tables)
+
+    def prefill(e):
+        e.run_cb_prefill(e.params, e.cb_pools, ptoks, plen, row)
+    dec = in_turns({"eager": lambda: decode_steps(eager),
+                    "graph": lambda: decode_steps(eng)})
+    pre = in_turns({"eager": lambda: prefill(eager),
+                    "graph": lambda: prefill(eng)})
+    for k in ("eager", "graph"):
+        log(f"[cb] 4b decode step, {s} slots active at position 320, "
+                  f"{k}: " + ", ".join(f"{m / 20:.3f}" for m in dec[k])
+                  + " ms per step (3 rounds of 20 in turns, tokens "
+                  "fetched each step); prefill at P=512: "
+                  + ", ".join(f"{m:.3f}" for m in pre[k]) + " ms")
+    for k, e in (("graph", eng), ("eager", eager)):
+        prof = profile(f"cb decode step ({k})",
+                       lambda e=e: decode_steps(e, 1), min(dec[k]) / 20,
+                       top=10)
+        log(f"[cb] 4b decode step ({k}): idle share {prof['idle']}")
+    profile("cb prefill (graph)", lambda: prefill(eng), min(pre["graph"]))
+    # a graph reads the params it was captured over: others must raise
+    other = {k: v.clone() for k, v in eng.params.items()}
+    try:
+        eng.run_cb_decode(other, eng.cb_pools, toks, ntoks, tables)
+    except ValueError as e:
+        log(f"[cb] 4b a replay over other params raises: {e}")
+    else:
+        raise AssertionError("the decode graph replayed over other params")
+    del other
+    assert not any(_kernels.LAUNCHES.values()), _kernels.LAUNCHES
+    assert eng.stats.compiles == 2 and eager.stats.compiles == 0
+    del eng, sched, eager, esched
+    torch.cuda.empty_cache()
 
     sampled = []
     for _ in range(2):
-        eng = InferenceEngine(net, ServeSpec(buckets=(bucket,),
-                                             max_new_tokens=max_new,
-                                             temperature=0.8, top_k=50,
-                                             top_p=0.9, seed=3),
-                              params, device=dev)
-        sampled.append(np.stack(eng.answer("generate", prompts)))
-    s0 = sampled[0]
-    assert s0.shape == (8, max_new) and (s0 >= 0).all() \
-        and (s0 < vocab).all()
-    assert np.array_equal(sampled[0], sampled[1]), "seeded sampling differs"
-    log(f"[serve] top-k/top-p sampled bucket: {len(set(s0.ravel()))} "
-        f"distinct tokens, reproducible from its seed")
+        e, sch, souts, swall = serve_cb(
+            net, params, dev, prompts[:32], max_news[:32], None,
+            temperature=0.8, top_k=50, top_p=0.9, seed=3)
+        sampled.append([o["tokens"] for o in souts])
+        del e, sch
+        torch.cuda.empty_cache()
+    assert sampled[0] == sampled[1], "seeded cb sampling differs"
+    log(f"[cb] 4b sampled traffic (32 requests, temperature 0.8, "
+              f"top_k 50, top_p 0.9, seed 3): two runs equal, "
+              f"{len({t for r in sampled[0] for t in r})} distinct tokens")
 
 
 # ---------------------------------------------------------------------------
@@ -861,7 +1138,7 @@ def phase_grads(dev, arrays):
                                          BENCH["vocab_size"], seed=1))
     res = {}
     for d in (dev, "cpu"):
-        tr = Trainer(small_cfg(), SHAPES, device=d)
+        tr = Trainer(small_cfg(), SHAPES, device=d, log_fn=trainer_log)
         params, _ = start(tr, arrays, d)
         _kernels.reset_launches()
         t0 = time.perf_counter()
@@ -1134,7 +1411,7 @@ def phase_resume(dev, arrays):
     def trainer(steps):
         cfg = small_cfg(batchsize=bsz)
         cfg.train_steps, cfg.checkpoint_frequency = steps, k
-        tr = Trainer(cfg, SHAPES, device=dev)
+        tr = Trainer(cfg, SHAPES, device=dev, log_fn=trainer_log)
         assert tr.graphs
         return tr
 
@@ -1503,9 +1780,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
+    global CARD
     smi = card()
     log(f"[card] {smi}; torch {torch.__version__}, cuda "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    CARD = smi
 
     clock = [time.perf_counter()]
 
@@ -1540,7 +1819,9 @@ def main() -> int:
                         "flash_dkv": 0, "lrn_fwd": 0, "lrn_bwd": 0}, launches
     took("phase 3")
     phase_serve(dev, arrays)
-    took("phase 4")
+    took("phase 4a")
+    phase_cb(dev, arrays)
+    took("phase 4b")
     k34 = phase_flash_bwd(dev)
     took("phase 5")
     phase_grads(dev, arrays)
@@ -1570,8 +1851,8 @@ def main() -> int:
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
-    log(json.dumps({"kernels": kernels}))
-    log(smi)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,11 @@ the `Trainer` and checkpoints.  Slice 3 is the vision zoo
 (`core.layers`, `models.vision`) with AlexNet-CIFAR10 training, and K5
 and K6, the cross-channel LRN forward and backward (`ops.lrn`).
 
+Serving (`serve`) runs the bucketed engine as one CUDA graph per
+(mode, bucket) and continuous batching (`serve.ContinuousScheduler`)
+over a paged KV cache, its prefill and decode step captured as two
+graphs.
+
 Entry points run on CUDA unless the caller passes device='cpu'.
 """
 

@@ -9,14 +9,24 @@ one call of it into a `torch.cuda.CUDAGraph` over static batch buffers
 and the caller's params and state, and replays it.  It keeps one graph
 per batch geometry (the path, shape and dtype of every batch leaf).
 
-- The step function `fn(state, batch)` works on `state`, a (nested) dict
-  of tensors that every replay reads and writes in place, and returns
-  its outputs; they are the graph's static outputs, which the next
-  replay overwrites.
-- Warm-up runs `WARMUP` calls on clones of `state` when `fn` writes it,
-  so the caller's step counter and optimizer state do not move; it also
-  builds and loads the kernels and makes cuBLAS's first-call setup, none
-  of which may happen inside a capture.
+- The step function `fn(state, batch)` works on `state`, a dict of
+  (nested dicts of) tensors that every replay reads, and writes in
+  place under the top-level keys named in `writes`; it returns its
+  outputs, the graph's static outputs, which the next replay
+  overwrites.  The same code serves the trainer (params and optimizer
+  state written) and the inference engine (params read, paged KV pools
+  written).
+- Warm-up runs `WARMUP` calls with clones of the written parts of
+  `state`, so the caller's step counter, optimizer state or KV pools do
+  not move; it also builds and loads the kernels and makes cuBLAS's
+  first-call setup, none of which may happen inside a capture.  The
+  clones cost one extra copy of the written state while a graph is
+  captured (`clone_bytes` holds it).
+- Generators that `fn` draws from are registered with every graph
+  (`CUDAGraph.register_generator_state`): a replay then reads the
+  generator's seed and offset when it runs and advances the offset as
+  an eager call does, so a replay after `manual_seed(n)` draws what an
+  eager call seeded with n draws.
 - A capture that fails raises `CaptureError`, naming the op that broke
   it.  Nothing falls back to running eagerly.
 - `_kernels.LAUNCHES` counts Python calls of the kernel wrappers, and a
@@ -113,13 +123,28 @@ class _Captured:
 class StepGraph:
     """One step function, captured per batch geometry and replayed.
     `pool` is a `torch.cuda.graph_pool_handle()`: graphs that never run at
-    once (a trainer's train and eval steps) share one memory pool."""
+    once (a trainer's train and eval steps, an engine's programs) share
+    one memory pool.  `writes` names the top-level keys of the state
+    that `fn` writes in place; `generators` are the CUDA generators it
+    draws from."""
 
-    def __init__(self, name: str, pool, writes_state: bool):
+    def __init__(self, name: str, pool, writes: Tuple[str, ...] = (),
+                 generators: Tuple[torch.Generator, ...] = ()):
         self.name = name
         self.pool = pool
-        self.writes_state = writes_state
+        self.writes = tuple(writes)
+        self.generators = tuple(generators)
+        self.clone_bytes = 0
         self._graphs: Dict[Tuple, _Captured] = {}
+
+    def capture(self, fn: Callable, state, batch) -> bool:
+        """Capture `fn` for the geometry of `batch` unless a graph of it
+        exists; True when this call captured."""
+        key = geometry(batch)
+        if key in self._graphs:
+            return False
+        self._graphs[key] = self._capture(fn, state, batch)
+        return True
 
     def __call__(self, fn: Callable, state, batch):
         """Copy `batch` into the graph of its geometry (capturing `fn` on
@@ -149,14 +174,24 @@ class StepGraph:
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            warm = (_map(lambda t: t.clone(), state) if self.writes_state
-                    else state)
+            warm = {k: _map(lambda t: t.clone(), v) if k in self.writes
+                    else v for k, v in state.items()}
+            self.clone_bytes = sum(
+                t.numel() * t.element_size()
+                for k in self.writes for t in leaves(warm[k]))
             for _ in range(WARMUP):
                 fn(warm, static)
             del warm
         torch.cuda.current_stream(dev).wait_stream(side)
         before = dict(_kernels.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            if not hasattr(graph, "register_generator_state"):
+                raise CaptureError(
+                    f"{self.name}: this PyTorch cannot register a "
+                    f"generator with a CUDA graph, so a replay would "
+                    f"repeat one draw")
+            graph.register_generator_state(gen)
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 out = fn(state, static)

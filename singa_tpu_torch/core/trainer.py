@@ -154,7 +154,7 @@ class Trainer:
         self._state: Dict[str, Any] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self._train_graph = (StepGraph("train_step", self._pool,
-                                       writes_state=True)
+                                       writes=("params", "opt"))
                              if self.graphs else None)
         self.test_step = self._eval_step(self.test_net)
         self.val_step = self._eval_step(self.val_net)
@@ -221,8 +221,7 @@ class Trainer:
             return metrics
         if not self.graphs:
             return forward
-        graph = StepGraph(f"eval_step[{net.phase}]", self._pool,
-                          writes_state=False)
+        graph = StepGraph(f"eval_step[{net.phase}]", self._pool)
 
         def eval_step(params, batch):
             return graph(forward, _own(state, params)["params"], batch)

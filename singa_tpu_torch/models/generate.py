@@ -1,19 +1,24 @@
 """Autoregressive inference for the transformer LM: KV-cache prefill,
-single-token decode, and sampling.
+single-token decode, the paged forms continuous batching runs on, and
+sampling.
 
-Port of `singa_tpu/models/generate.py:40-154`, `294-349` and `467-491`.
-The JAX package compiles prefill plus a `lax.scan` decode into one
-program; here the decode is a Python loop over eager PyTorch calls.
-The same `NeuralNet` drives decode: position-wise layers run their
-normal `apply`; only kAttention (cache write + read, absolute-position
-RoPE) and the heads (emit logits instead of a loss) are special-cased.
+Port of `singa_tpu/models/generate.py:40-291`, `294-349` and
+`467-491`.  The JAX package compiles prefill plus a `lax.scan` decode
+into one program; here `decode` is a Python loop with every position a
+host constant, so the serving engine captures the whole loop, unrolled,
+as one CUDA graph per bucket.  The same `NeuralNet` drives decode:
+position-wise layers run their normal `apply`; only kAttention (cache
+write + read, absolute-position RoPE) and the heads (emit logits
+instead of a loss; kSoftmaxLoss is skipped) are special-cased.
 
-The cache is updated in place (one (B, Hkv, max_len, D) buffer per
-attention layer, written at [pos, pos + T)), where the JAX package
-returns a new one; `forward_cached` still returns it so the call reads
-the same on both sides.  Attention over the cache is a masked dense
-read, so decode launches no K1: at one query token the score row is
-tiny.  `beam_search` and the paged forms come with later slices.
+Caches and paged pools are updated in place (`index_put_`), where the
+JAX package returns new ones from donated buffers; `forward_cached`,
+`forward_paged` and `scatter_prefill` still return them, so call sites
+read the same on both sides.  Token inputs are tensors already on the
+params' device: a copy from host memory cannot be captured into a
+graph, so callers convert before the call.  Attention over a cache is a
+masked dense read, so decode launches no K1: at one query token the
+score row is tiny.  `beam_search` comes with a later slice.
 """
 
 from __future__ import annotations
@@ -82,37 +87,136 @@ def _attn_cached(layer, params, x, entry: CacheEntry, pos: int,
     return layer._proj(params, layer.wo, out.to(x.dtype)), entry
 
 
-def forward_cached(net: NeuralNet, params, tokens, cache: Cache, pos: int,
-                   kmask: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, Cache]:
-    """Run the LM over a (B, T) token chunk at absolute offset `pos`.
-    Returns (logits (B, T, V) float32, the cache, updated in place)."""
+def _forward_lm(net: NeuralNet, params, tokens: torch.Tensor,
+                attend) -> torch.Tensor:
+    """The LM over a (B, T) token tensor, with `attend(layer, full, x)`
+    standing in for every kAttention layer.  Returns (B, T, V) float32
+    logits; kSoftmaxLoss is skipped (no loss at decode)."""
+    if not isinstance(tokens, torch.Tensor):
+        raise TypeError("tokens must be a tensor on the params' device "
+                        "(a host copy inside the call could not be "
+                        "captured into a CUDA graph)")
     full = net._resolve_params(params)
-    tokens = torch.as_tensor(tokens, device=params_device(params)).long()
+    tokens = tokens.long()
     outputs: Dict[str, Any] = {}
-    new_cache: Cache = dict(cache)
     logits = None
     for name in net.topo:
         layer = net.layers[name]
         ltype = layer.cfg.type
-        srcs = [outputs[s] for s in layer.cfg.srclayers]
+        srcs = [net._src_out(outputs, s, name) for s in layer.cfg.srclayers]
         if ltype == "kSequenceData":
             outputs[name] = {"input": tokens, "target": tokens}
         elif ltype == "kSeqLabel":
             outputs[name] = tokens
         elif ltype == "kAttention":
-            outputs[name], new_cache[name] = _attn_cached(
-                layer, full, srcs[0], cache[name], pos, kmask=kmask)
+            outputs[name] = attend(layer, full, srcs[0])
         elif ltype == "kLMHead":
             logits = outputs[name] = layer.apply(full, srcs, _CTX)
         elif ltype == "kLMHeadLoss":
             # the fused loss layer's projection emits the logits
             logits = outputs[name] = layer.project_logits(full, srcs[0])
+        elif ltype == "kSoftmaxLoss":
+            outputs[name] = None     # no loss at decode
         else:
             outputs[name] = layer.apply(full, srcs, _CTX)
     if logits is None:
         raise ValueError("net has no kLMHead/kLMHeadLoss layer")
-    return logits.float(), new_cache
+    return logits.float()
+
+
+def forward_cached(net: NeuralNet, params, tokens: torch.Tensor,
+                   cache: Cache, pos: int,
+                   kmask: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Cache]:
+    """Run the LM over a (B, T) token tensor at absolute offset `pos`.
+    Returns (logits (B, T, V) float32, the cache, updated in place)."""
+    logits = _forward_lm(
+        net, params, tokens,
+        lambda layer, full, x: _attn_cached(layer, full, x, cache[layer.name],
+                                            pos, kmask=kmask)[0])
+    return logits, dict(cache)
+
+
+def _attn_paged(layer, params, x, entry: CacheEntry, tables: torch.Tensor,
+                ntoks: torch.Tensor) -> Tuple[torch.Tensor, CacheEntry]:
+    """Single-token decode attention over a block/paged KV pool.
+
+    `x` is (1, S, E): the S decode slots ride the sequence axis of a
+    batch-1 chunk, so every position-wise layer and `layer.qkv`'s RoPE
+    treat a slot like a sequence position; `ntoks` (S,) is both the
+    per-slot absolute position RoPE rotates by and the per-slot
+    key-visibility horizon.  `entry` holds the layer's (num_blocks,
+    Hkv, block_len, D) pools; `tables` (S, T) maps slot s's logical
+    block t to a pool block (block 0 is the null block: inactive slots
+    and table tails point there, and no mask ever reads it).  Token
+    position p of slot s lives at pool[tables[s, p // bl], :, p % bl].
+
+    Write before read: the new K/V lands at position ntoks[s] first
+    (in place; inactive slots all write the null block, where duplicate
+    writes are harmless), then the gather reads `kpos <= ntoks[s]`, the
+    self-inclusive causal horizon of `_attn_cached` at T=1."""
+    assert layer.causal, f"{layer.name}: decode requires causal attention"
+    _, s, _ = x.shape
+    hkv, d = layer.kv_heads, layer.head_dim
+    bl = entry["k"].shape[2]
+    q, k, v = layer.qkv(params, x, ntoks)       # (1,H,S,D), (1,Hkv,S,D)
+    bidx = tables[torch.arange(s, device=x.device), ntoks // bl]
+    off = ntoks % bl
+    # advanced indices (S,) around the ":" take an (S, Hkv, D) update
+    entry["k"][bidx, :, off] = k[0].transpose(0, 1).to(entry["k"].dtype)
+    entry["v"][bidx, :, off] = v[0].transpose(0, 1).to(entry["v"].dtype)
+
+    t = tables.shape[1]
+    # (S, T, Hkv, bl, D) -> (S, Hkv, T*bl, D): flat position = absolute
+    kk = entry["k"][tables].transpose(1, 2).reshape(s, hkv, t * bl, d)
+    vv = entry["v"][tables].transpose(1, 2).reshape(s, hkv, t * bl, d)
+    kk, vv = kk.to(q.dtype), vv.to(q.dtype)
+    groups = layer.heads // hkv
+    qg = q[0].transpose(0, 1).reshape(s, hkv, groups, 1, d)
+    kpos = torch.arange(t * bl, device=x.device)[None, :]
+    allowed = kpos <= ntoks[:, None]                # (S, T*bl)
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), kk.float())
+    scores = scores / math.sqrt(d)
+    scores = scores.masked_fill(~allowed[:, None, None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs.to(vv.dtype), vv)
+    out = out.reshape(1, s, layer.heads * d)        # back to (1, S, H*D)
+    return layer._proj(params, layer.wo, out.to(x.dtype)), entry
+
+
+def forward_paged(net: NeuralNet, params, tokens: torch.Tensor,
+                  pools: Cache, tables: torch.Tensor, ntoks: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Cache]:
+    """One decode step for S slots against the paged KV pools.
+    `tokens` (1, S): slot s's last sampled token on the sequence axis;
+    `tables` (S, T) block tables; `ntoks` (S,) tokens already written
+    per slot (the incoming token's absolute position).  All three are
+    tensors on the params' device.  Returns (logits (1, S, V) float32,
+    the pools, written in place)."""
+    tables, ntoks = tables.long(), ntoks.long()
+    logits = _forward_lm(
+        net, params, tokens,
+        lambda layer, full, x: _attn_paged(layer, full, x, pools[layer.name],
+                                           tables, ntoks)[0])
+    return logits, pools
+
+
+def scatter_prefill(pools: Cache, cache: Cache,
+                    table_row: torch.Tensor) -> Cache:
+    """Scatter a batch-1 contiguous prefill cache ((1, Hkv, P, D) per
+    layer, P a block_len multiple) into the paged pools, in place, at
+    the blocks named by `table_row` (P // block_len,).  Table entries
+    beyond the slot's real reservation are 0: garbage from pad
+    positions lands in the null block, where no mask ever looks."""
+    row = table_row.long()
+    for name, entry in cache.items():
+        for side in ("k", "v"):
+            pool = pools[name][side]
+            _, hkv, p, d = entry[side].shape
+            bl = pool.shape[2]
+            blocks = entry[side][0].reshape(hkv, p // bl, bl, d)
+            pool[row] = blocks.transpose(0, 1).to(pool.dtype)
+    return pools
 
 
 def _sample(logits: torch.Tensor, gen: Optional[torch.Generator],

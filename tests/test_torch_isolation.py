@@ -20,6 +20,7 @@ from singa_tpu_torch.core.trainer import Trainer
 from singa_tpu_torch.models.generate import init_cache
 from singa_tpu_torch.models.transformer import transformer_lm
 from singa_tpu_torch.serve.engine import InferenceEngine, ServeSpec
+from singa_tpu_torch.serve.kvcache import PagedKVCache, init_pools
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
 pytestmark = pytest.mark.port
@@ -41,6 +42,10 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert "singa_tpu_torch.ops._kernels" in mods
     assert "singa_tpu_torch.core.step_graph" in mods
+    for m in ("serve.batcher", "serve.kvcache", "serve.qos",
+              "serve.scheduler", "serve.stats", "serve.tenancy",
+              "utils.faults"):
+        assert f"singa_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -91,6 +96,10 @@ def test_entry_points_raise_without_cuda():
     params = params_from_numpy(net, arrays, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(net, ServeSpec(), params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_pools(net, 4, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVCache(net, 1, 2, 4, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(cfg, shapes)
     # asked for the CPU, the same calls run there

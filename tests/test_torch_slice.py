@@ -114,8 +114,8 @@ def test_forward_cached_matches_jax(nets, masked):
     for toks, pos in ((prompt, 0), (nxt, p)):
         jl, jc = jgen.forward_cached(jnet, jparams, jnp.asarray(toks), jc,
                                      pos, kmask=jmask)
-        tl, tc = tgen.forward_cached(tnet, tparams, toks, tc, pos,
-                                     kmask=tmask)
+        tl, tc = tgen.forward_cached(tnet, tparams, torch.from_numpy(toks),
+                                     tc, pos, kmask=tmask)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
                                    rtol=RTOL, atol=ATOL)
 
