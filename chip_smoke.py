@@ -13,7 +13,9 @@ non-zero before the last line is printed:
    the HMMA (tensor-core) instructions of K1-K4 by `cuobjdump -sass`
    (their bf16 bodies must have some).
 2. K1 and K2 against their plain PyTorch versions on the card, at the
-   bench shapes and a few more (GQA, non-causal, every head dim, both
+   bench shapes, at lm.conf's strided geometry (one head of 32 per row
+   over B·H = 64 rows, S = 512, bf16, causal; timed too) and a few more
+   (GQA, non-causal, every head dim, both
    dtypes, ragged edges; for K2 vocabs that are not a multiple of its
    split and an exact tie across a split boundary), each with its
    stated tolerance; kernel times on the card's clock by a CUDA-graph
@@ -52,9 +54,9 @@ non-zero before the last line is printed:
    latency and queue-wait percentiles and peak memory.  No kernel of
    K1-K6 runs on the serving path.
 5. K3 and K4 (the flash backward) against their plain versions, at the
-   bench shape (timed as K1, with SDPA's backward as the library
-   yardstick) and at GQA, non-causal, every head dim on ragged S in both
-   dtypes, and with an lse cotangent.
+   bench shape and at lm.conf's strided geometry (both timed as K1, with
+   SDPA's backward as the library yardstick), and at GQA, non-causal,
+   every head dim on ragged S in both dtypes, and with an lse cotangent.
 6. Gradients, card against CPU: one `Trainer.gradients` of the 2-layer
    stack at batch 2 on both devices from the same weights; every param
    must get a gradient on both, within a stated share of its largest
@@ -98,6 +100,32 @@ non-zero before the last line is printed:
    the eval step through `Trainer.evaluate` (K5 twice per step); then
    the same weights at batch 4 in f32 on the card and on the CPU, whose
    loss and every gradient must agree.
+
+10. `examples/transformer/lm.conf` uncut (B=8, S=512, V=4096, E=256,
+   2 blocks, block 1 a kMoE of 4 experts top-2; its attention takes
+   the strided flash route; bf16, Adam) with numpy-seeded weights.
+   (a) One forward and every gradient on the card and on the CPU: the
+   share of tokens whose top-2 expert set (and capacity drops) agree,
+   each attention output, kMoE's output on the tokens routed alike,
+   the loss, and every gradient of the loss over the tokens routed
+   alike, within stated shares of their largest magnitudes; K1, K3, K4
+   twice each, K2 never.  (b) Eager steps
+   against CUDA-graph replays (`graphs=None` must capture) from one
+   copied start: equal under `torch.equal` after 10 steps (counts set
+   to 0 just before the replays: 2/2/2 per step, the capture's record)
+   and again after 51; 3 rounds of 10 in turns, `train_steps(10)`, a
+   profiled step of each (idle share; the replay's kernels by name);
+   the loss over the 51 steps on 10 repeated batches must fall and
+   `moe1/aux` stay finite; kMoE's forward and backward alone, profiled:
+   its products against its dispatch, beside the step's busy time.
+   (c) `beam_search` (4 beams) and greedy `generate`, 32 new tokens
+   from two 64-token prompts in f32, card against CPU, with the first
+   divergence and its top-2 gap where tokens differ.  (d) Serving in
+   f32: one bucket (8, 128) x 32 replayed against eager (equal tokens,
+   tokens/s in turns), and 24 continuous-batching requests over 8 slots
+   replayed against eager (all served, the same answers; a MoE shares
+   each expert's capacity among the rows of a call, so answers are not
+   held against `generate`).
 
 Every result line ends with the card's `nvidia-smi` name and power
 limit.  The last lines are one JSON object listing each kernel with its
@@ -243,7 +271,7 @@ def profile(tag: str, fn, wall_ms: float, top: int = 8) -> dict:
     if not by_name:
         log(f"[profile] {tag}: the profiler recorded no device time "
             f"(busy share not measured)")
-        return {"busy_ms": None, "idle": None, "counts": {}}
+        return {"busy_ms": None, "idle": None, "counts": {}, "ms": {}}
     idle = max(0.0, 1 - busy / wall_ms)
     log(f"[profile] {tag}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
         f"untraced wall, idle share {idle:.3f}, {len(by_name)} kernel "
@@ -251,7 +279,7 @@ def profile(tag: str, fn, wall_ms: float, top: int = 8) -> dict:
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[profile] {tag}:   {t:9.3f} ms  {100 * t / busy:5.1f}%  "
             f"{counts[name]:4d}x  {name[:90]}")
-    return {"busy_ms": busy, "idle": idle, "counts": counts}
+    return {"busy_ms": busy, "idle": idle, "counts": counts, "ms": by_name}
 
 
 def count_named(counts: dict, names) -> dict:
@@ -472,6 +500,8 @@ def check_head_tie(n, e, v, dtype, dev, seed):
 def phase_kernels(dev):
     bf16, f32 = torch.bfloat16, torch.float32
     k1 = check_flash(8, 1024, 12, 12, 64, bf16, True, dev, 1, timed=True)
+    # lm.conf's strided route: one head of 32 per row over B·H = 64 rows
+    check_flash(64, 512, 1, 1, 32, bf16, True, dev, 100, timed=True)
     check_flash(8, 1024, 12, 4, 64, bf16, True, dev, 2)      # GQA
     check_flash(8, 1024, 12, 12, 64, bf16, False, dev, 3)    # non-causal
     check_flash(8, 1024, 12, 12, 32, bf16, True, dev, 4)     # D=32
@@ -611,6 +641,8 @@ def phase_flash_bwd(dev):
     bf16, f32 = torch.bfloat16, torch.float32
     bench = check_flash_bwd(8, 1024, 12, 12, 64, bf16, True, dev, 41,
                             timed=True)
+    # lm.conf's strided route: one head of 32 per row over B·H = 64 rows
+    check_flash_bwd(64, 512, 1, 1, 32, bf16, True, dev, 101, timed=True)
     check_flash_bwd(8, 1024, 12, 4, 64, bf16, True, dev, 42)    # GQA
     check_flash_bwd(8, 1024, 12, 12, 64, bf16, False, dev, 43)  # non-causal
     check_flash_bwd(2, 1024, 12, 12, 64, bf16, True, dev, 44,
@@ -1769,6 +1801,430 @@ def compare_alexnet(dev, arrays):
     log(f"[alexnet] card against CPU: worst gradient ratio {worst:.3g}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: examples/transformer/lm.conf, uncut: kMoE, training, beam
+# search and serving
+
+LM_CONF = os.path.join(REPO, "examples", "transformer", "lm.conf")
+LM_SEQ = 512
+LM_SHAPES = {"data": {"input": (LM_SEQ,), "target": (LM_SEQ,)}}
+# two attention layers on the strided flash route, a kLMHead ->
+# kSoftmaxLoss head (no K2)
+LM_PER_STEP = {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2, "head_fwd": 0,
+               "lrn_fwd": 0, "lrn_bwd": 0}
+LM_PROFILED = {"flash_fwd_mma_kernel": 2, "flash_dq_mma_kernel": 2,
+               "flash_dkv_mma_kernel": 2, "head_fwd_mma_kernel": 0}
+LM_EXACT, LM_ROUNDS, LM_ROUND_STEPS = 10, 3, 10
+LM_BATCHES = 10         # synthetic batches, repeated
+# card against CPU, bf16.  An H100 showed: 12 of 4096 tokens routed to
+# another top-2 set (their router input differs by bf16 ulps); outputs
+# within 0.0023 (attn0), 0.0042 (attn1) and 0.0099 (moe1, tokens routed
+# alike) of their largest magnitudes; loss 1.5e-5 apart
+LM_ROUTED_ALIKE = 0.98  # share of tokens with the same experts and drops
+LM_LOSS_RTOL = 1e-3
+LM_OUT_RTOL = 2 ** -5   # of each layer output's largest magnitude
+LM_GRAD_RTOL = 0.05     # of each gradient's largest magnitude, as phase 6
+
+
+def lm_trainer(dev, graphs):
+    from singa_tpu_torch import Trainer, load_model_config
+    cfg = load_model_config(LM_CONF)
+    assert cfg.precision == "bfloat16", cfg.precision
+    return Trainer(cfg, LM_SHAPES, device=dev, graphs=graphs,
+                   log_fn=trainer_log)
+
+
+def lm_batches(n, seed):
+    from singa_tpu_torch import synthetic_token_batches
+    data = synthetic_token_batches(8, LM_SEQ, 4096, seed=seed)
+    return [next(data) for _ in range(n)]
+
+
+def routing_of(layer, params, x):
+    """The expert set and the kept flags of each token that `layer`
+    (kMoE) routes when its input is x, as `moe_ffn` routes them."""
+    from singa_tpu_torch.ops import moe
+    b, s, e = x.shape
+    router = params[layer.router].to(x.dtype)
+    cap = moe.capacity(b * s, layer.k, layer.n_exp, layer.capacity_factor)
+    r = moe.route(x.reshape(b * s, e), router, layer.k, cap)
+    kept = torch.empty_like(r.slot)
+    kept[r.order] = (r.slot < layer.n_exp * cap).long()
+    experts = torch.sort(r.expert, dim=1).values
+    return experts.cpu(), kept.reshape(b * s, layer.k).cpu(), cap
+
+
+def lm_compare(dev, arrays):
+    """(a) lm.conf's forward and every gradient in bf16, card against
+    CPU, from the same weights and batch: the share of tokens that kMoE
+    routes alike on both, each layer's output (moe1's on the tokens
+    routed alike), the loss, and every gradient of the loss over the
+    tokens routed alike (plus the aux loss).  kMoE sits in the last
+    block, so a token's expert output reaches only its own position's
+    loss: leaving the tokens routed apart out of the loss takes their
+    routing out of every gradient."""
+    from singa_tpu_torch.ops import _kernels
+    batch = lm_batches(1, seed=1)[0]
+    res = {}
+    _kernels.reset_launches()
+    for d in (dev, "cpu"):
+        tr = lm_trainer(d, False)
+        net = tr.train_net
+        params = {k: v.requires_grad_(True) for k, v in
+                  start(tr, arrays, d)[0].items()}
+        loss, metrics, out = net.apply(params, batch, train=True,
+                                       compute_dtype=torch.bfloat16,
+                                       rng=tr.seed, step=0)
+        with torch.no_grad():
+            route = routing_of(net.layers["moe1"], params, out["ln1b"])
+        res[d] = dict(params=params, out=out, aux=metrics["moe1/aux"],
+                      loss=loss.item(), route=route)
+        log(f"[lmconf] (a) b=8 s={LM_SEQ} bf16 on {d}: loss "
+            f"{res[d]['loss']:.7f}, moe1/aux {metrics['moe1/aux'].item():.7f}")
+    card_, cpu = res[dev], res["cpu"]
+    (e_c, k_c, cap), (e_p, k_p, _) = card_["route"], cpu["route"]
+    same_set = (e_c == e_p).all(dim=1)
+    alike = same_set & (k_c == k_p).all(dim=1)
+    dropped = int((k_p == 0).sum())
+    log(f"[lmconf] (a) moe1 routing, card against CPU: top-2 expert set "
+        f"agrees on {float(same_set.float().mean()):.6f} of "
+        f"{len(same_set)} tokens ({int((~same_set).sum())} differ); set "
+        f"and capacity drops agree on {float(alike.float().mean()):.6f}; "
+        f"capacity {cap} per expert, {dropped} of {k_p.numel()} "
+        f"assignments dropped on the CPU")
+    assert alike.float().mean() >= LM_ROUTED_ALIKE, alike.float().mean()
+    for n in ("attn0", "attn1", "moe1"):
+        got = card_["out"][n].detach().float().cpu()
+        want = cpu["out"][n].detach().float()
+        assert torch.isfinite(got).all(), n
+        if n == "moe1":
+            rows = alike.reshape(got.shape[:2])
+            got, want = got[rows], want[rows]
+        gap = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        log(f"[lmconf] (a) {n}: max|card - cpu| {gap:.3g}, max|cpu| "
+            f"{top:.3g}, ratio {gap / top:.3g} (tol {LM_OUT_RTOL})"
+            + (" on the tokens routed alike" if n == "moe1" else ""))
+        assert gap <= LM_OUT_RTOL * top, n
+    lc, lp = card_["loss"], cpu["loss"]
+    log(f"[lmconf] (a) loss gap |card - cpu| {abs(lc - lp):.3g} (rtol "
+        f"{LM_LOSS_RTOL}); aux gap "
+        f"{abs(card_['aux'].item() - cpu['aux'].item()):.3g}")
+    assert abs(lc - lp) <= LM_LOSS_RTOL * abs(lp), (lc, lp)
+    grads = {}
+    for d, r in res.items():
+        logits, labels = r["out"]["lm_head"], r["out"]["labels"]
+        nll = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]).float(),
+            labels.reshape(-1).long(), reduction="none")
+        mask = alike.to(nll.device).float()
+        objective = torch.sum(nll * mask) / torch.sum(mask) + r["aux"]
+        names = sorted(r["params"])
+        g = torch.autograd.grad(objective, [r["params"][n] for n in names])
+        grads[d] = {n: x.float().cpu() for n, x in zip(names, g)}
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    assert launches == LM_PER_STEP, launches
+    worst = 0.0
+    for name in sorted(grads["cpu"]):
+        want, got = grads["cpu"][name], grads[dev][name]
+        top = want.abs().max().item()
+        gap = (got - want).abs().max().item()
+        worst = max(worst, gap / top)
+        log(f"[lmconf] (a)   grad {name}: max|card - cpu| {gap:.3g}, "
+            f"max|cpu| {top:.3g}, ratio {gap / top:.3g} (tol "
+            f"{LM_GRAD_RTOL})")
+        assert torch.isfinite(got).all() and gap <= LM_GRAD_RTOL * top, name
+    log(f"[lmconf] (a) gradients of the loss over the "
+        f"{int(alike.sum())} tokens routed alike: worst ratio {worst:.3g}; "
+        f"launches on the card {launches}")
+
+
+def lm_train(dev, arrays):
+    """(b) eager steps against CUDA-graph replays from one copied start,
+    equal under torch.equal after LM_EXACT steps and at the end; rounds
+    in turns; train_steps; the loss over all steps; a profiled replay by
+    kernel name; the MoE's share of a step's device time."""
+    from singa_tpu_torch.ops import _kernels
+    b = 8
+    batches = lm_batches(LM_BATCHES, seed=0)
+    runs = {}
+    for mode, graphs in (("eager", False), ("graph", None)):
+        tr = lm_trainer(dev, graphs)
+        assert tr.graphs is (graphs is None), (mode, tr.graphs)
+        params, opt = start(tr, arrays, dev)
+        runs[mode] = dict(tr=tr, state=(params, opt), ms=[], step=0,
+                          losses=[], aux=[])
+
+    def steps(mode, n, check=False):
+        run = runs[mode]
+        params, opt = run["state"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            k = run["step"]
+            before = dict(_kernels.LAUNCHES)
+            params, opt, m = run["tr"].train_step(
+                params, opt, batches[k % LM_BATCHES], k)
+            loss, aux = torch.stack([m["loss"], m["moe1/aux"]]).tolist()
+            run["losses"].append(loss)              # one fetch a step
+            run["aux"].append(aux)
+            if check:
+                per = {x: _kernels.LAUNCHES[x] - before[x] for x in before}
+                assert per == LM_PER_STEP, (mode, k, per)
+            run["step"] += 1
+        run["state"] = (params, opt)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    # the main path: counts from 0 just before, read just after
+    _kernels.reset_launches()
+    steps("graph", LM_EXACT, check=True)
+    launches = dict(_kernels.LAUNCHES)
+    captured = [g.launches for g in runs["graph"]["tr"]._train_graph
+                ._graphs.values()]
+    assert captured == [{k: v for k, v in LM_PER_STEP.items() if v}], \
+        captured
+    steps("eager", LM_EXACT, check=True)
+    gaps = lm_state_gaps(runs["eager"]["state"], runs["graph"]["state"])
+    log(f"[lmconf] (b) {LM_EXACT} eager steps and {LM_EXACT} replays from "
+        f"one copied start: params and Adam state equal under torch.equal: "
+        f"{not gaps}; losses equal: "
+        f"{runs['eager']['losses'] == runs['graph']['losses']}")
+    for name, gap in sorted(gaps.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[lmconf] (b)   {name}: max|graph - eager| {gap:.3g}")
+    assert not gaps, f"{len(gaps)} tensors differ"
+    for r in range(LM_ROUNDS):
+        for mode in (("eager", "graph") if r % 2 == 0
+                     else ("graph", "eager")):
+            runs[mode]["ms"].append(steps(mode, LM_ROUND_STEPS))
+    for mode, run in runs.items():
+        params, opt = run["state"]
+        idx = [(run["step"] + i) % LM_BATCHES for i in range(LM_ROUND_STEPS)]
+        stacked = {"data": {f: torch.from_numpy(np.stack(
+            [batches[i]["data"][f] for i in idx])).to(dev)
+            for f in ("input", "target")}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, ms = run["tr"].train_steps(params, opt, stacked,
+                                                run["step"], LM_ROUND_STEPS,
+                                                stacked=True)
+        run["losses"] += ms["loss"].tolist()    # the one sync
+        run["aux"] += ms["moe1/aux"].tolist()
+        run["scan_ms"] = (time.perf_counter() - t0) * 1e3 / LM_ROUND_STEPS
+        run["step"] += LM_ROUND_STEPS
+        run["state"] = (params, opt)
+        prof = profile(f"lm.conf train_step ({mode})",
+                       lambda m=mode: steps(m, 1), min(run["ms"]), top=12)
+        run["busy"], run["idle"], run["prof"] = \
+            prof["busy_ms"], prof["idle"], prof
+        if mode == "graph":
+            check_replay_profile(prof, LM_PROFILED)
+    for mode, run in runs.items():
+        log(f"[lmconf] (b) {mode}: step "
+            + ", ".join(f"{t:.3f}" for t in run["ms"])
+            + f" ms in rounds 1-{LM_ROUNDS} of {LM_ROUND_STEPS} (turns, "
+            f"host clock, one fetch a step), "
+            + ", ".join(f"{b * LM_SEQ / t * 1e3:.1f}" for t in run["ms"])
+            + f" tokens/s; train_steps({LM_ROUND_STEPS}) with one sync "
+            f"{run['scan_ms']:.3f} ms a step, "
+            f"{b * LM_SEQ / run['scan_ms'] * 1e3:.1f} tokens/s; profiled "
+            f"step busy {run['busy']} ms, idle share {run['idle']}")
+    gaps = lm_state_gaps(runs["eager"]["state"], runs["graph"]["state"])
+    g = runs["graph"]
+    log(f"[lmconf] (b) after {g['step']} steps each: equal under "
+        f"torch.equal: {not gaps}; losses equal: "
+        f"{runs['eager']['losses'] == g['losses']}")
+    assert runs["eager"]["step"] == g["step"] and not gaps, \
+        sorted(gaps.items(), key=lambda kv: -kv[1])[:8]
+    losses, aux = g["losses"], g["aux"]
+    tail = sum(losses[-5:]) / 5
+    log(f"[lmconf] (b) {len(losses)} steps on {LM_BATCHES} repeated "
+        f"batches: loss first {losses[0]:.5f}, mean of last 5 {tail:.5f} "
+        f"(must be < first - {LOSS_MARGIN}); moe1/aux first {aux[0]:.6f}, "
+        f"last {aux[-1]:.6f}; losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    assert all(math.isfinite(x) for x in losses + aux)
+    assert tail < losses[0] - LOSS_MARGIN, losses
+    moe_share(dev, arrays, g)
+    return launches
+
+
+def moe_share(dev, arrays, run):
+    """kMoE's forward and backward alone at lm.conf's shape (bf16 input
+    (8, 512, 256), the run's params), profiled: its device time split
+    into the expert products (cuBLAS) and the dispatch (routing, sort,
+    scatter, gather, index_add and their backward), beside the replayed
+    step's busy time."""
+    from singa_tpu_torch.ops import moe
+    tr = run["tr"]
+    layer = tr.train_net.layers["moe1"]
+    params = run["state"][0]
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((8, LM_SEQ, 256), generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    p = {n: params[k].to(torch.bfloat16).detach().requires_grad_(True)
+         for n, k in (("router", layer.router), ("w1", layer.w1),
+                      ("b1", layer.b1), ("w2", layer.w2), ("b2", layer.b2))}
+    dy = torch.randn((8, LM_SEQ, 256), generator=g, device=dev).to(
+        torch.bfloat16)
+
+    def fwd_bwd():
+        out, aux = moe.moe_ffn(x, p, layer.k, layer.capacity_factor)
+        torch.autograd.backward([out, aux], [dy, torch.ones_like(aux)])
+    ms = time_ms(fwd_bwd, 10, 2)
+    prof = profile("kMoE forward+backward alone", fwd_bwd, ms, top=12)
+    if not prof["ms"]:
+        log("[lmconf] (b) kMoE share: not measured (no device time)")
+        return
+    gemm = sum(t for n, t in prof["ms"].items()
+               if re.search(r"gemm|cutlass|xmma|sm90", n))
+    busy = prof["busy_ms"]
+    step = run["busy"]
+    log(f"[lmconf] (b) kMoE forward+backward alone: {ms:.3f} ms "
+        f"(events), device busy {busy:.3f} ms: expert products "
+        f"{gemm:.3f} ms, dispatch {busy - gemm:.3f} ms "
+        f"({100 * (busy - gemm) / busy:.1f}%); against the replayed "
+        f"step's {step} ms busy: kMoE "
+        + (f"{100 * busy / step:.1f}%, its dispatch "
+           f"{100 * (busy - gemm) / step:.1f}%" if step else "not measured"))
+
+
+def lm_decode(dev, arrays):
+    """(c) beam_search (4 beams) and greedy generate, 32 new tokens from
+    two 64-token prompts, f32 weights, on the card and on the CPU."""
+    from singa_tpu_torch import (beam_search, build_net, generate,
+                                 load_model_config, params_from_numpy)
+    from singa_tpu_torch.models.generate import forward_cached, init_cache
+    from singa_tpu_torch.ops import _kernels
+    net = build_net(load_model_config(LM_CONF), "kTest", LM_SHAPES)
+    prompts = np.random.default_rng(13).integers(0, 4096, (2, 64))
+    res = {}
+    _kernels.reset_launches()
+    for d in (dev, "cpu"):
+        params = params_from_numpy(net, arrays, device=d)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            toks, scores = beam_search(net, params, prompts, 32, num_beams=4)
+            greedy = generate(net, params, prompts, 32)
+        res[d] = dict(beam=toks.cpu(), scores=scores.cpu(),
+                      greedy=greedy.cpu(), params=params)
+        log(f"[lmconf] (c) beam_search (4 beams) and greedy, 2 prompts of "
+            f"64, 32 new tokens, f32 on {d}: "
+            f"{time.perf_counter() - t0:.2f} s; beam scores "
+            + ", ".join(f"{v:.5f}" for v in scores.tolist()))
+    assert not any(_kernels.LAUNCHES.values()), _kernels.LAUNCHES
+    card_, cpu = res[dev], res["cpu"]
+    for what in ("beam", "greedy"):
+        got, want = card_[what], cpu[what]
+        assert got.shape == (2, 32) and ((got >= 0) & (got < 4096)).all()
+        for i in range(2):
+            same = torch.equal(got[i], want[i])
+            line = (f"[lmconf] (c) {what} prompt {i}: card and CPU tokens "
+                    f"equal: {same}")
+            if not same:
+                k = int((got[i] != want[i]).nonzero()[0, 0])
+                seq = torch.cat([torch.from_numpy(prompts[i]),
+                                 want[i][:k]])[None]
+                with torch.no_grad():
+                    logits, _ = forward_cached(
+                        net, cpu["params"], seq,
+                        init_cache(net, 1, seq.shape[1], device="cpu"), 0)
+                top2 = logits[0, -1].topk(2).values
+                line += (f"; first divergence at token {k}, where the "
+                         f"CPU's top-2 logit gap is "
+                         f"{float(top2[0] - top2[1]):.3g}")
+            log(line)
+    if torch.equal(card_["beam"], cpu["beam"]):
+        gap = (card_["scores"] - cpu["scores"]).abs().max().item()
+        log(f"[lmconf] (c) beam scores max|card - cpu| {gap:.3g} (tol 1e-3)")
+        assert gap <= 1e-3, gap
+    assert torch.isfinite(card_["scores"]).all()
+
+
+LM_CB = dict(cb="on", cb_slots=8, cb_block_len=16, cb_prompt_cap=256,
+             max_new_tokens=64, queue_capacity=64, request_timeout_s=600.0)
+
+
+def lm_serve(dev, arrays):
+    """(d) lm.conf served with f32 weights: one engine bucket (8, 128) x
+    32 new tokens as a CUDA graph against an eager engine, then a
+    continuous-batching run of 24 requests (8 slots) replayed against
+    eager: every request served, the same answers (a MoE's capacity is
+    shared by the rows of a call, so answers are held against the same
+    traffic eager, not against generate)."""
+    from singa_tpu_torch import (InferenceEngine, ServeSpec, build_net,
+                                 load_model_config, params_from_numpy)
+    from singa_tpu_torch.ops import _kernels
+    net = build_net(load_model_config(LM_CONF), "kTest", LM_SHAPES)
+    params = params_from_numpy(net, arrays, device=dev)
+    rng = np.random.default_rng(17)
+    prompts = [list(rng.integers(0, 4096, n))
+               for n in (128, 100, 77, 64, 50, 33, 17, 5)]
+    spec = ServeSpec(buckets=((8, 128),), max_new_tokens=32)
+    _kernels.reset_launches()
+    engines = {}
+    for name, graphs in (("graph", None), ("eager", False)):
+        eng = InferenceEngine(net, spec, params, device=dev, log_fn=log,
+                              graphs=graphs)
+        n = eng.warmup(("generate",))
+        assert n == (1 if graphs is None else 0), (name, n)
+        engines[name] = eng
+    out = {k: np.stack(e.answer("generate", prompts))
+           for k, e in engines.items()}
+    assert out["graph"].shape == (8, 32) and \
+        ((out["graph"] >= 0) & (out["graph"] < 4096)).all()
+    assert np.array_equal(out["graph"], out["eager"]), \
+        "replayed bucket tokens != eager"
+    ms = in_turns({k: (lambda e=e: e.answer("generate", prompts))
+                   for k, e in engines.items()})
+    for k in ("eager", "graph"):
+        log(f"[lmconf] (d) bucket (8, 128) x 32 new tokens, {k}: "
+            + ", ".join(f"{t:.3f}" for t in ms[k])
+            + " ms in rounds 1-3 (turns), "
+            + ", ".join(f"{8 * 32 / t * 1e3:.1f}" for t in ms[k])
+            + " tokens/s (prefill included); replay equals eager")
+    prof = profile("lm.conf bucket generate (graph)",
+                   lambda: engines["graph"].answer("generate", prompts),
+                   min(ms["graph"]))
+    log(f"[lmconf] (d) bucket generate (graph): idle share {prof['idle']}")
+    del engines
+    crng = np.random.default_rng(19)
+    cprompts = [crng.integers(0, 4096, n).astype(np.int32)
+                for n in crng.integers(16, 257, 24)]
+    cmax = [int(m) for m in crng.integers(8, 65, 24)]
+    answers = {}
+    for name, graphs in (("graph", None), ("eager", False)):
+        eng, _, outs, wall = serve_cb(net, params, dev, cprompts, cmax,
+                                      graphs, **LM_CB)
+        answers[name] = [o["tokens"] for o in outs]
+        ntok = sum(len(a) for a in answers[name])
+        snap = eng.stats.snapshot()
+        log(f"[lmconf] (d) cb {name}: {len(outs)} of 24 requests served "
+            f"(finish length), 0 failed, {snap['cb_steps']} scheduler "
+            f"steps, {ntok} tokens in {wall:.3f} s = {ntok / wall:.1f} "
+            f"generated tokens/s; latency p50/p99 {snap['p50_latency_ms']}"
+            f"/{snap['p99_latency_ms']} ms")
+        del eng
+    assert answers["graph"] == answers["eager"], "cb replay != eager"
+    assert not any(_kernels.LAUNCHES.values()), _kernels.LAUNCHES
+    log("[lmconf] (d) cb replayed answers equal eager ones, all 24")
+
+
+def phase_lmconf(dev):
+    """Phase 10: examples/transformer/lm.conf uncut (B=8, S=512, V=4096,
+    E=256, 2 blocks, the second a kMoE of 4 experts top-2, bf16, Adam)
+    with numpy-seeded weights."""
+    from singa_tpu_torch import build_net, load_model_config, numpy_params
+    arrays = numpy_params(build_net(load_model_config(LM_CONF), "kTrain",
+                                    LM_SHAPES), seed=0)
+    lm_compare(dev, arrays)
+    launches = lm_train(dev, arrays)
+    lm_decode(dev, arrays)
+    lm_serve(dev, arrays)
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1835,6 +2291,8 @@ def main() -> int:
     launches.update({k: v for k, v in phase_alexnet(dev).items()
                      if k in ("lrn_fwd", "lrn_bwd")})
     took("phase 9")
+    phase_lmconf(dev)
+    took("phase 10")
 
     kernels = []
     for name, res, replaces in (

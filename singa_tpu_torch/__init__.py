@@ -18,6 +18,10 @@ Serving (`serve`) runs the bucketed engine as one CUDA graph per
 over a paged KV cache, its prefill and decode step captured as two
 graphs.
 
+`examples/transformer/lm.conf`, the repo's flagship LM config, runs
+whole: kMoE (`ops.moe`) with its router aux loss in training, replayed
+or eager, `models.generate.beam_search`, and serving a MoE net.
+
 Entry points run on CUDA unless the caller passes device='cpu'.
 """
 
@@ -29,7 +33,8 @@ from .core.trainer import Trainer
 from .core.updater import Multipliers, Updater, learning_rate
 from .data import synthetic_image_batches
 from .device import resolve_device
-from .models.generate import forward_cached, generate, init_cache
+from .models.generate import (beam_search, forward_cached, generate,
+                              init_cache)
 from .models.transformer import synthetic_token_batches, transformer_lm
 from .models.vision import (alexnet_cifar10, alexnet_cifar10_full,
                             alexnet_imagenet, lenet_mnist, mlp_mnist)

@@ -4,8 +4,10 @@ Port of `singa_tpu/core/net.py:43-163`, `217-240` and `285-354`: the
 graph from `srclayers` edges, the topological sort, per-phase layer
 filtering by `exclude`, shape setup in topo order, the param index with
 `share_param` aliases, `init_params`, `multipliers` (`:165-168`) and
-`apply`, the relu+LRN fusion (`:122-140`) and the Slice-aware source
-lookups (`:112-121`, `:346-351`).  `apply` takes the call's seed and
+`apply`, the relu+LRN fusion (`:122-140`), the Slice-aware source
+lookups (`:112-121`, `:346-351`) and the layers' auxiliary losses
+(`:333-338`), which join the total loss and the metrics as
+"<layer>/aux".  `apply` takes the call's seed and
 step (`rng`, `step`), from which each layer that draws (dropout, the RGB
 crop and mirror) seeds its own generator (`Context.layer_rng`).  Mesh
 constraints, partition padding and remat wait for the parallel slice.
@@ -179,7 +181,9 @@ class NeuralNet:
         outputs maps layer name → activation.  `batch` may hold numpy
         arrays; they are moved to the params' device.  `rng` (a seed) and
         `step` seed the generators of layers that draw; such a layer
-        raises in training when `rng` is None."""
+        raises in training when `rng` is None.  A layer that leaves an
+        auxiliary loss in `_aux` (kMoE) adds it to total_loss and to
+        metrics as "<layer>/aux"."""
         if train is None:
             train = self.phase == "kTrain"
         full = self._resolve_params(params)
@@ -202,6 +206,12 @@ class NeuralNet:
                           layer_index=idx, step=step, device=dev)
             out = layer.apply(full, srcs, ctx)
             outputs[name] = out
+            aux = getattr(layer, "_aux", None)
+            if aux is not None:
+                # auxiliary losses (kMoE's router balance) join the
+                # objective and the metric report
+                total_loss = total_loss + aux
+                metrics[f"{name}/aux"] = aux
             if layer.is_loss:
                 total_loss = total_loss + out["loss"]
                 for k, v in out.items():

@@ -1,7 +1,8 @@
 """Sequence-model layer family of the port: the transformer LM's layers.
 
-Port of `singa_tpu/core/seq_layers.py` without kMoE (later slice) and
-without the mesh branches (one card; the parallel slice brings them).
+Port of `singa_tpu/core/seq_layers.py` without the mesh branches (one
+card; the parallel slice brings them, and with them the expert axis
+that kMoE's stacked params shard over).
 kAttention keeps the JAX package's three routes and their predicates:
 the packed flash route (K1 on the card) when seq_parallel is "none",
 S % 128 == 0 and head_dim % 8 == 0; the strided flash route (K1 with one
@@ -11,8 +12,12 @@ behaviour for short or odd sequences.  kLMHeadLoss takes the fused head
 (K2) when the head is tied, top-1, kernel-legal and on the card, where
 the JAX package asks for a TPU; elsewhere `chunked_lm_xent`.
 
+kMoE runs `ops.moe.moe_ffn`, plain torch ops as the JAX package's XLA
+op, and leaves its scaled router aux loss in `_aux` for `NeuralNet.apply`
+to add to the objective.
+
 Layer types: kSequenceData, kSeqLabel, kEmbed, kRMSNorm, kAttention,
-kFeedForward, kResidualAdd, kLMHead, kLMHeadLoss.
+kFeedForward, kMoE, kResidualAdd, kLMHead, kLMHeadLoss.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch.nn.functional as F
 
 from ..config.schema import ParamConfig
 from ..ops import attention as attn_ops
-from ..ops import head_loss, loss as loss_ops
+from ..ops import head_loss, loss as loss_ops, moe as moe_ops
 from .layers import Layer, LayerError, ParamSpec, _cast, register_layer
 
 # (layer name, seq_len, head_dim) triples that already warned about the
@@ -255,6 +260,44 @@ class FeedForwardLayer(Layer):
         if self.gated:
             h = h * torch.matmul(x, w(self.w3))
         return torch.matmul(h, w(self.w2))
+
+
+@register_layer("kMoE")
+class MoELayer(Layer):
+    """Mixture-of-experts FFN over (B, S, E): top-k routing over
+    `num_experts` expert FFNs with stacked weights."""
+
+    def setup(self, src_shapes):
+        p = self.cfg.moe_param
+        if p is None:
+            raise LayerError(f"{self.name}: moe_param required")
+        b, s, e = tuple(src_shapes[0])
+        self.n_exp = p.num_experts
+        self.k = p.experts_per_token
+        self.capacity_factor = p.capacity_factor
+        self.aux_coef = p.router_aux_coef
+        f = p.expert_hidden or 4 * e
+        self.out_shape = (b, s, e)
+        std = 1.0 / math.sqrt(e)
+        n = self.n_exp
+        self.router = _declare_with_default(self, 0, "router", (e, n), std)
+        self.w1 = _declare_with_default(self, 1, "w1", (n, e, f), std)
+        self.b1 = _declare_with_default(self, 2, "b1", (n, f), 0.0)
+        self.w2 = _declare_with_default(self, 3, "w2", (n, f, e),
+                                        1.0 / math.sqrt(f))
+        self.b2 = _declare_with_default(self, 4, "b2", (n, e), 0.0)
+        self._aux = None
+
+    def apply(self, params, srcs, ctx):
+        # every param in the compute dtype, the router too: in bf16 it
+        # is rounded before moe_ffn upcasts it for the f32 product
+        p = {name: _cast(params[key], ctx.compute_dtype)
+             for name, key in (("router", self.router), ("w1", self.w1),
+                               ("b1", self.b1), ("w2", self.w2),
+                               ("b2", self.b2))}
+        out, aux = moe_ops.moe_ffn(srcs[0], p, self.k, self.capacity_factor)
+        self._aux = self.aux_coef * aux
+        return out
 
 
 @register_layer("kResidualAdd")

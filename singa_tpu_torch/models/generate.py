@@ -2,11 +2,11 @@
 single-token decode, the paged forms continuous batching runs on, and
 sampling.
 
-Port of `singa_tpu/models/generate.py:40-291`, `294-349` and
-`467-491`.  The JAX package compiles prefill plus a `lax.scan` decode
-into one program; here `decode` is a Python loop with every position a
-host constant, so the serving engine captures the whole loop, unrolled,
-as one CUDA graph per bucket.  The same `NeuralNet` drives decode:
+Port of `singa_tpu/models/generate.py:40-291`, `294-349`, `352-464`
+(`beam_search`) and `467-491`.  The JAX package compiles prefill plus a
+`lax.scan` decode into one program; here `decode` is a Python loop with
+every position a host constant, so the serving engine captures the
+whole loop, unrolled, as one CUDA graph per bucket.  The same `NeuralNet` drives decode:
 position-wise layers run their normal `apply`; only kAttention (cache
 write + read, absolute-position RoPE) and the heads (emit logits
 instead of a loss; kSoftmaxLoss is skipped) are special-cased.
@@ -18,7 +18,10 @@ read the same on both sides.  Token inputs are tensors already on the
 params' device: a copy from host memory cannot be captured into a
 graph, so callers convert before the call.  Attention over a cache is a
 masked dense read, so decode launches no K1: at one query token the
-score row is tiny.  `beam_search` comes with a later slice.
+score row is tiny.  `beam_search` runs eagerly, on tensors only (every
+position a host constant, no value read back), and ranks candidates
+with `ops.topk.top_k`, whose ties keep the lowest index first as
+`jax.lax.top_k` does.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from ..core.layers import Context
 from ..core.net import NeuralNet
 from ..device import DeviceLike, params_device, params_dtype, resolve_device
+from ..ops.topk import top_k
 
 CacheEntry = Dict[str, torch.Tensor]   # {"k","v"}: (B, Hkv, max_len, D)
 Cache = Dict[str, CacheEntry]          # attention-layer name -> entry
@@ -297,3 +301,92 @@ def generate(net: NeuralNet, params, prompt, max_new_tokens: int,
     return decode(net, params, prompt, int(max_new_tokens), generator,
                   float(temperature), int(top_k), float(top_p), eos_id,
                   int(max_len))
+
+
+def beam_search(net: NeuralNet, params, prompt, max_new_tokens: int,
+                num_beams: int = 4, length_penalty: float = 0.0,
+                eos_id: Optional[int] = None,
+                max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam-search decode on the params' device: returns (tokens (B,
+    max_new_tokens) int64, log-prob scores (B,) float32) of the best beam
+    per sequence.  The prefill runs at batch B, then the decode at
+    B·num_beams with beam varying fastest (flat row b·W + j is batch b's
+    beam j), the KV cache reordered every step.  After `eos_id` a beam
+    is frozen: it keeps emitting eos at zero added cost and its score
+    stops moving.  `length_penalty` alpha divides the final scores by
+    length**alpha for ranking (0 ranks by raw log-prob).  `max_len`
+    over-allocates the KV cache as in `generate`."""
+    if int(num_beams) < 1:
+        raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+    dev = params_device(params)
+    prompt = torch.as_tensor(prompt, device=dev).long()
+    b, p = prompt.shape
+    n = int(max_new_tokens)
+    if n <= 0:
+        return (torch.zeros((b, 0), dtype=torch.long, device=dev),
+                torch.zeros((b,), dtype=torch.float32, device=dev))
+    if max_len is None:
+        max_len = p + n
+    elif max_len < p + n:
+        raise ValueError(f"max_len={max_len} < prompt({p}) + "
+                         f"max_new_tokens({n})")
+    w = int(num_beams)
+    cache = init_cache(net, b, int(max_len), params_dtype(params), dev)
+    logits, cache = forward_cached(net, params, prompt, cache, 0)
+    lp0 = torch.log_softmax(logits[:, -1].float(), dim=-1)
+    vocab = lp0.shape[-1]
+    if eos_id is not None and not 0 <= eos_id < vocab:
+        raise ValueError(f"eos_id={eos_id} out of range for vocab size "
+                         f"{vocab}")
+    # only min(W, V) distinct beams exist after one token: the rest get
+    # -1e30 scores (and the first token), so they never outrank a real
+    # candidate
+    k0 = min(w, vocab)
+    scores, tok = top_k(lp0, k0)
+    if k0 < w:
+        scores = torch.cat([scores, scores.new_full((b, w - k0), -1e30)],
+                           dim=1)
+        tok = torch.cat([tok, tok[:, :1].expand(b, w - k0)], dim=1)
+    cache = {name: {side: a.repeat_interleave(w, dim=0)
+                    for side, a in entry.items()}
+             for name, entry in cache.items()}
+    seqs = torch.zeros((b, w, n), dtype=torch.long, device=dev)
+    seqs[:, :, 0] = tok
+    done = (tok == eos_id if eos_id is not None
+            else torch.zeros((b, w), dtype=torch.bool, device=dev))
+    lengths = torch.ones((b, w), dtype=torch.int32, device=dev)
+    if eos_id is not None:
+        # a finished beam only continues with eos at zero cost, so its
+        # score freezes and it cannot spawn siblings
+        frozen = torch.full((vocab,), -1e30, device=dev)
+        frozen[eos_id] = 0.0
+    rows = torch.arange(b, device=dev)[:, None] * w
+    last = tok
+    for t in range(1, n):
+        logits, cache = forward_cached(net, params, last.reshape(b * w, 1),
+                                       cache, p + t - 1)
+        lp = torch.log_softmax(logits[:, -1].float(),
+                               dim=-1).reshape(b, w, vocab)
+        if eos_id is not None:
+            lp = torch.where(done[:, :, None], frozen, lp)
+        cand = (scores[:, :, None] + lp).reshape(b, w * vocab)
+        scores, idx = top_k(cand, w)
+        beam = idx // vocab
+        last = idx % vocab
+        seqs = torch.take_along_dim(seqs, beam[:, :, None], dim=1)
+        seqs[:, :, t] = last
+        done = torch.gather(done, 1, beam)
+        lengths = torch.where(done, torch.gather(lengths, 1, beam),
+                              torch.full_like(lengths, t + 1))
+        if eos_id is not None:
+            done = done | (last == eos_id)
+        flat = (rows + beam).reshape(-1)
+        cache = {name: {side: a.index_select(0, flat)
+                        for side, a in entry.items()}
+                 for name, entry in cache.items()}
+    ranked = (scores / lengths.float() ** length_penalty
+              if length_penalty else scores)
+    best = torch.argmax(ranked, dim=1)
+    pick = torch.arange(b, device=dev)
+    return seqs[pick, best], scores[pick, best]

@@ -6,7 +6,8 @@ built from one call hold the same param keys.  Pre-norm blocks:
 
     x += attn(rmsnorm(x));  x += ffn_or_moe(rmsnorm(x))
 
-`moe_every > 0` emits kMoE, which the port does not run yet.
+`moe_every > 0` puts kMoE in place of kFeedForward in every
+`moe_every`-th block.
 """
 
 from __future__ import annotations

@@ -14,6 +14,8 @@ from typing import Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .topk import top_k
+
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           scale: float = 1.0) -> torch.Tensor:
@@ -44,7 +46,7 @@ def _hits(logits, labels, topk: int):
     if topk == 1:
         # argmax keeps top_k's tie-break: the lowest index wins
         return torch.argmax(logits, dim=-1) == labels
-    idx = torch.topk(logits, topk, dim=-1).indices
+    idx = top_k(logits, topk)[1]
     return torch.any(idx == labels[:, None], dim=-1)
 
 

@@ -44,7 +44,7 @@ def test_importing_every_module_loads_no_jax():
     assert "singa_tpu_torch.core.step_graph" in mods
     for m in ("serve.batcher", "serve.kvcache", "serve.qos",
               "serve.scheduler", "serve.stats", "serve.tenancy",
-              "utils.faults"):
+              "utils.faults", "ops.moe", "ops.topk"):
         assert f"singa_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -16,7 +16,14 @@ exactly.  The null block (0) is left out of pool comparisons: inactive
 slots and pad blocks all write it, no mask ever reads it, and which
 duplicate write lands there is unspecified on both sides.  On the CPU
 the engine calls its programs eagerly; the CUDA graphs they become on
-the card are held against eager calls by `chip_smoke.py` phase 4."""
+the card are held against eager calls by `chip_smoke.py` phase 4.
+
+A MoE net (kMoE in the second block, 4 experts, top-2) shares each
+expert's capacity among all the rows of a call: at decode the slots are
+the tokens, idle slots included (they feed token 0 at position 0, as
+the reference's do), so a slot's answer depends on its neighbours and
+cannot be held against `generate`.  It is held against the JAX
+package's `forward_paged` and scheduler on the same inputs instead."""
 
 import importlib
 import time
@@ -31,6 +38,7 @@ from singa_tpu.models.transformer import transformer_lm as jtransformer_lm
 from singa_tpu.serve.engine import InferenceEngine as JEngine
 from singa_tpu.serve.engine import ServeSpec as JSpec
 from singa_tpu.serve.kvcache import init_pools as jinit_pools
+from singa_tpu.serve.scheduler import ContinuousScheduler as JScheduler
 
 from singa_tpu_torch.core.net import build_net as tbuild_net
 from singa_tpu_torch.models.transformer import \
@@ -52,14 +60,26 @@ SHAPES = {"data": {"input": (SEQ,), "target": (SEQ,)}}
 QUIET = dict(log_fn=lambda s: None)
 
 
-@pytest.fixture(scope="module")
-def nets():
-    jnet = jbuild_net(jtransformer_lm(**CFG), "kTest", SHAPES)
-    tnet = tbuild_net(ttransformer_lm(**CFG), "kTest", SHAPES)
+MOE = dict(moe_every=2, num_experts=4, experts_per_token=2)
+
+
+def _nets(**kw):
+    jnet = jbuild_net(jtransformer_lm(**CFG, **kw), "kTest", SHAPES)
+    tnet = tbuild_net(ttransformer_lm(**CFG, **kw), "kTest", SHAPES)
     arrays = numpy_params(tnet, seed=0)
     jparams = {k: jnp.asarray(v) for k, v in arrays.items()}
     tparams = params_from_numpy(tnet, arrays, device="cpu")
     return jnet, jparams, tnet, tparams
+
+
+@pytest.fixture(scope="module")
+def nets():
+    return _nets()
+
+
+@pytest.fixture(scope="module")
+def moe_nets():
+    return _nets(**MOE)
 
 
 def _random_pools(net, num_blocks, block_len, seed):
@@ -85,6 +105,16 @@ def _assert_pools_close(tpools, jpools, tol=POOL_RTOL_OF_MAX):
 
 
 def test_forward_paged_matches_jax(nets):
+    _check_forward_paged(nets)
+
+
+def test_forward_paged_matches_jax_on_a_moe_net(moe_nets):
+    """4 slots at capacity int(1.25 · 4 · 2 / 4) = 2 per expert: some
+    assignments drop, and the idle slot's token joins the count."""
+    _check_forward_paged(moe_nets)
+
+
+def _check_forward_paged(nets):
     jnet, jparams, tnet, tparams = nets
     jpools, tpools = _random_pools(nets, 14, 4, seed=1)
     # slots 0-2 decode at positions 5, 9 and 2; slot 3 is inactive (its
@@ -191,6 +221,36 @@ def test_paged_greedy_matches_contiguous_and_jax(nets):
         assert out["tokens"] == port == ref, p.size
         assert out["finish"] == "length"
     assert sched.stats.snapshot()["failed"] == 0
+
+
+def test_moe_scheduler_matches_jax_scheduler(moe_nets):
+    """Six requests through 3 slots of a MoE net (capacity 1 per expert
+    at decode), submitted before `start()` so that admission runs in
+    one order on both sides: slots join, retire and sit idle in the
+    same steps, and every answer equals the JAX scheduler's token for
+    token."""
+    jnet, jparams, tnet, tparams = moe_nets
+    text = "buckets=2x16,max_new_tokens=12,cb=on,cb_slots=3,cb_block_len=4"
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, VOCAB, n).astype(np.int32)
+               for n in (1, 5, 9, SEQ, 3, 7)]
+    max_new = [12, 4, 7, 12, 5, 9]
+    scheds = (JScheduler(JEngine(jnet, JSpec.parse(text), params=jparams,
+                                 **QUIET), **QUIET),
+              ContinuousScheduler(InferenceEngine(
+                  tnet, ServeSpec.parse(text), tparams, device="cpu",
+                  **QUIET), **QUIET))
+    answers = []
+    for sched in scheds:
+        tickets = [sched.submit(p, max_new=m)
+                   for p, m in zip(prompts, max_new)]
+        sched.start()
+        try:
+            answers.append([t.wait(60.0)["tokens"] for t in tickets])
+        finally:
+            sched.stop()
+    assert answers[1] == answers[0]
+    assert [len(a) for a in answers[1]] == max_new
 
 
 def test_short_joins_and_finishes_while_long_decodes(nets):
