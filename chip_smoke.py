@@ -126,6 +126,30 @@ non-zero before the last line is printed:
    replayed against eager (all served, the same answers; a MoE shares
    each expert's capacity among the rows of a call, so answers are not
    held against `generate`).
+11. The serving front ends on lm.conf uncut, served in f32.  The
+   port's `Trainer` takes 10 replayed Adam steps and saves step 5 to a
+   workspace (npz).  (a) `python -m singa_tpu_torch.main serve
+   -model_conf examples/transformer/lm.conf --workspace <ws>
+   --serve_spec 'buckets=1x16/4x32/8x64,max_new_tokens=32,eos_id=2'
+   --smoke 8` as a subprocess, then again with cb=on: each must exit 0,
+   serve step 5 and print its snapshot; wall time each.  (b) An
+   `InferenceServer` on the card (cb=on, 8 slots, the static buckets,
+   HTTP and the wire, ports 0): 16 greedy requests one at a time
+   through `server.generate`, HTTP /generate, HTTP ndjson streaming and
+   the port's `BinaryEngineHandle` unary and streamed, in two rounds,
+   must all give the tokens an eager engine (`graphs=False`) gives;
+   latency p50/p99 and tokens/s per front end, and the front end's
+   cost per request over in process; /healthz 200 advertising the
+   wire port; /metrics with `singa_wire_*`, the serve counters and the
+   captures per program.  (c) Step 10 saved while 6 clients load the
+   server (reload poll 50 ms): the `serve.reload` event must say
+   "reloaded", no request fails, answers afterwards equal an eager
+   engine over step 10's params, no capture after warm-up and every
+   param's `data_ptr` unchanged; the save-to-first-answer time and the
+   reload's `copy_` ms.  (d) A step-15 snapshot with verdict
+   "diverged" must be refused: /healthz 503 with the stale reason,
+   still serving step 10.  The serving path launches none of K1-K6
+   (counts set to 0 before the server starts, read after it stops).
 
 Every result line ends with the card's `nvidia-smi` name and power
 limit.  The last lines are one JSON object listing each kernel with its
@@ -2225,6 +2249,357 @@ def phase_lmconf(dev):
 
 
 
+# phase 11: the serving front ends, on lm.conf uncut, served in f32
+FRONT_SPEC = "buckets=1x16/4x32/8x64,max_new_tokens=32,eos_id=2"
+FRONT_CB = ",cb=on,cb_slots=8,cb_block_len=16"
+FRONT_N = 16            # requests of the measured set, prompts 8-64
+FRONT_WAIT = 120.0      # every wait of this phase is bounded
+
+
+def front_train(dev, ws):
+    """lm.conf, 10 Adam steps replayed by the port's Trainer from numpy
+    seed 0; the step-5 snapshot goes to `ws` (npz), the step-10 state
+    comes back for a save while the server is under load."""
+    from singa_tpu_torch import (CheckpointManager, numpy_params,
+                                 state_to_numpy)
+    tr = lm_trainer(dev, None)
+    assert tr.graphs == (tr.device.type == "cuda"), \
+        "lm.conf's train step must be captured on the card"
+    params, opt = start(tr, numpy_params(tr.train_net, seed=0), dev)
+    mgr = CheckpointManager(ws, log_fn=log)
+    losses = []
+    for step, batch in enumerate(lm_batches(10, seed=2)):
+        params, opt, m = tr.train_step(params, opt, batch, step)
+        losses.append(float(m["loss"]))
+        if step + 1 == 5:
+            mgr.save(5, params, opt)
+    assert all(math.isfinite(x) for x in losses), losses
+    log(f"[front] 11 lm.conf trained 10 replayed steps, loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; step 5 saved to the "
+        f"workspace (npz)")
+    return state_to_numpy(params, opt)
+
+
+def front_cli(ws):
+    """11a: `python -m singa_tpu_torch.main serve ... --smoke 8` as a user
+    runs it, with the static buckets and with cb=on: each must exit 0,
+    serve the workspace's step 5 and print its snapshot."""
+    torch.cuda.empty_cache()
+    for name, extra in (("buckets", ""), ("cb=on", FRONT_CB)):
+        cmd = [sys.executable, "-m", "singa_tpu_torch.main", "serve",
+               "-model_conf", LM_CONF, "--workspace", ws,
+               "--serve_spec", FRONT_SPEC + extra, "--smoke", "8"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            print(res.stdout[-6000:], res.stderr[-6000:], file=sys.stderr)
+        assert res.returncode == 0, (name, res.returncode)
+        snap = json.loads([ln for ln in res.stdout.splitlines()
+                           if ln.startswith("{")][-1])
+        assert snap["params_step"] == 5, snap
+        assert snap["completed"] == 8 and snap["failed"] == 0, snap
+        assert snap["compiles"] > 0, "the CLI did not capture on the card"
+        log(f"[front] 11a CLI serve --smoke 8 ({name}): exit 0 in "
+            f"{wall:.3f} s wall (process start, import, load, capture, 8 "
+            f"requests), step 5, {snap['generated_tokens']} tokens, "
+            f"{snap['compiles']} CUDA graphs captured, latency p50/p99 "
+            f"{snap['p50_latency_ms']}/{snap['p99_latency_ms']} ms")
+        print(f"[front] 11a snapshot ({name}): {json.dumps(snap)}",
+              flush=True)
+
+
+def front_eager(net, arrays, dev, spec, prompts):
+    """Each prompt alone through an eager engine's scheduler."""
+    from singa_tpu_torch import InferenceEngine, params_from_numpy
+    from singa_tpu_torch.serve import ContinuousScheduler
+    eng = InferenceEngine(net, spec, params_from_numpy(net, arrays,
+                                                       device=dev),
+                          device=dev, log_fn=log, graphs=False)
+    sched = ContinuousScheduler(eng, log_fn=log).start()
+    try:
+        return [sched.submit(p).wait(FRONT_WAIT)["tokens"] for p in prompts]
+    finally:
+        sched.stop()
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def front_clients(server):
+    """name -> prompt -> (tokens, host clock at the first token or
+    None), through each front end."""
+    import urllib.request
+    from singa_tpu_torch.serve.wire import BinaryEngineHandle
+    host, port = server.address
+    handle = BinaryEngineHandle("e0", server.wire_address)
+
+    def http(p, stream=False):
+        body = {"tokens": [int(t) for t in p], "stream": stream}
+        req = urllib.request.Request(f"http://{host}:{port}/generate",
+                                     data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=FRONT_WAIT) as r:
+            if not stream:
+                return json.loads(r.read())["tokens"], None
+            return streamed(json.loads(x) for x in r if x.strip())
+
+    def streamed(events):
+        toks, first, last = [], None, None
+        for ev in events:
+            last = ev
+            if "token" in ev:
+                first = first or time.perf_counter()
+                toks.append(ev["token"])
+        assert last.get("done"), last
+        return toks, first
+
+    return handle, {
+        "in process": lambda p: (server.generate(
+            p, timeout=FRONT_WAIT)["tokens"], None),
+        "HTTP": http,
+        "HTTP ndjson stream": lambda p: http(p, stream=True),
+        "wire": lambda p: (handle.request("generate", p,
+                                          timeout=FRONT_WAIT)["tokens"],
+                           None),
+        "wire stream": lambda p: streamed(
+            handle.request_stream(p, timeout=FRONT_WAIT))}
+
+
+def front_inprocess(dev, ws, state10):
+    """11b-11d: an InferenceServer on the card (cb=on, the static
+    buckets, HTTP and the wire) over the workspace."""
+    import urllib.request
+
+    from singa_tpu_torch import (CheckpointManager, build_net,
+                                 load_model_config, obs)
+    from singa_tpu_torch.obs import perf
+    from singa_tpu_torch.ops import _kernels
+    from singa_tpu_torch.serve import (InferenceEngine, InferenceServer,
+                                       ServeSpec)
+    net = build_net(load_model_config(LM_CONF), "kTrain", LM_SHAPES)
+    spec = ServeSpec.parse(FRONT_SPEC + FRONT_CB + ",reload_poll_s=0.05,"
+                           "request_timeout_s=120")
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, 4096, n).astype(np.int32)
+               for n in rng.integers(8, 65, FRONT_N)]
+    p5 = CheckpointManager(ws, log_fn=log).restore()[0]
+    want5 = front_eager(net, p5, dev, spec, prompts)
+    want10 = front_eager(net, state10[0], dev, spec, prompts)
+    assert want5 != want10, "steps 5 and 10 answer alike"
+    _kernels.reset_launches()
+    engine = InferenceEngine(net, spec, device=dev, workspace=ws,
+                             log_fn=log)
+    server = InferenceServer(engine, port=0, wire_on=True, log_fn=log)
+    t0 = time.perf_counter()
+    server.start()
+    log(f"[front] 11b server started in {time.perf_counter() - t0:.3f} s "
+        f"(load step {engine.params_step}, {engine.stats.compiles} CUDA "
+        f"graphs: cb prefill, cb decode, 3 predict buckets)")
+    try:
+        # cb prefill, cb decode, predict at 3 buckets
+        assert engine.params_step == 5
+        assert engine.stats.compiles == (5 if engine.graphs else 0)
+        warm, anomalies = engine.stats.compiles, perf.watch().anomalies
+        ptrs = {k: v.data_ptr() for k, v in engine.params.items()}
+        host, port = server.address
+        with urllib.request.urlopen(f"http://{host}:{port}/healthz",
+                                    timeout=30) as r:
+            health = json.loads(r.read())
+        assert r.status == 200 and health["ok"], health
+        assert health["wire_port"] == server.wire_address[1], health
+        handle, clients = front_clients(server)
+        try:
+            front_measure(clients, prompts, want5)
+            prof = profile("one in-process request (cb, 32 new tokens)",
+                           lambda: server.generate(prompts[0]),
+                           host_ms(lambda: server.generate(prompts[0]),
+                                   n=3))
+            log(f"[front] 11b one in-process request: idle share "
+                f"{prof['idle']}")
+        finally:
+            handle.close()
+        with urllib.request.urlopen(f"http://{host}:{port}/metrics",
+                                    timeout=30) as r:
+            metrics = r.read().decode()
+        names = ["singa_wire_frames_rx_total", "singa_serve_completed_total"]
+        if engine.graphs:      # captures and device memory: on the card
+            names += ['singa_compiles_total{program="cb_prefill"}',
+                      'singa_compiles_total{program="cb_decode"}',
+                      'singa_compiles_total{program="predict"}',
+                      "singa_hbm_live_bytes"]
+        for name in names:
+            assert name in metrics, name
+        log("[front] 11b /healthz 200 advertising the wire port; /metrics "
+            "carries singa_wire_*, the serve counters and the captures "
+            "per program: " + ", ".join(
+                ln for ln in metrics.splitlines()
+                if ln.startswith("singa_compiles_total")))
+        obs_dir = os.path.join(ws, "obs")
+        obs.enable(obs.ObsSpec(events=os.path.join(obs_dir, "events.jsonl"),
+                               trace_ring=65536))
+        try:
+            front_reload(server, ws, state10, prompts, want10)
+        finally:
+            obs.disable()
+        with open(os.path.join(obs_dir, "events.jsonl")) as f:
+            outcomes = [ev["outcome"] for ev in map(json.loads, f)
+                        if ev["kind"] == "serve.reload"]
+        assert outcomes == ["reloaded", "refused"], outcomes
+        assert engine.stats.compiles == warm, "captured after warm-up"
+        assert perf.watch().anomalies == anomalies
+        assert {k: v.data_ptr() for k, v in engine.params.items()} == ptrs
+        log(f"[front] 11c captures after warm-up: 0 (perf anomalies "
+            f"{perf.watch().anomalies - anomalies}); every param's "
+            f"data_ptr unchanged; serve.reload events {outcomes}")
+    finally:
+        server.stop()
+    assert not any(_kernels.LAUNCHES.values()), _kernels.LAUNCHES
+    log("[front] 11 the serving path launched none of K1-K6 (f32, "
+        "prompts under 128, kLMHead -> kSoftmaxLoss)")
+
+
+def front_measure(clients, prompts, want):
+    """The same requests, one at a time, through each front end in two
+    rounds (the order flips): equal tokens everywhere, equal to the
+    eager engine; per-request latency p50/p99 and tokens/s."""
+    lat = {k: [] for k in clients}
+    ttft = {k: [] for k in clients}
+    ntok = {k: 0 for k in clients}
+    for rnd in range(2):
+        for name in (list(clients) if rnd == 0 else list(clients)[::-1]):
+            for p, w in zip(prompts, want):
+                t0 = time.perf_counter()
+                got, first = clients[name](p)
+                lat[name].append(time.perf_counter() - t0)
+                assert got == w, (name, got, w)
+                ntok[name] += len(got)
+                if first is not None:
+                    ttft[name].append(first - t0)
+    for name in clients:
+        log(f"[front] 11b {name}: {len(lat[name])} requests one at a time, "
+            f"latency p50 {_pct(lat[name], 50):.3f} ms, p99 "
+            f"{_pct(lat[name], 99):.3f} ms, mean "
+            f"{1e3 * sum(lat[name]) / len(lat[name]):.3f} ms, "
+            f"{ntok[name] / sum(lat[name]):.1f} tokens/s; tokens equal "
+            f"the eager engine's"
+            + (f"; first token p50 {_pct(ttft[name], 50):.3f} ms, p99 "
+               f"{_pct(ttft[name], 99):.3f} ms" if ttft[name] else ""))
+    base = np.median(lat["in process"])
+    for name in clients:
+        if name != "in process":
+            log(f"[front] 11b front-end cost of {name}: "
+                f"{1e3 * (np.median(lat[name]) - base):.3f} ms per request "
+                f"over in process (medians)")
+
+
+def front_reload(server, ws, state10, prompts, want10):
+    """11c: save step 10 under load and wait for the reload; 11d: a
+    diverged step-15 snapshot is refused and /healthz turns 503."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from singa_tpu_torch import CheckpointManager
+    engine = server.engine
+    host, port = server.address
+    stop = threading.Event()
+    done, errors = [], []
+
+    def client(i):
+        k = i
+        while not stop.is_set():
+            p = prompts[k % len(prompts)]
+            k += 1
+            try:
+                if i % 3 == 2:
+                    body = json.dumps({"tokens": [int(t) for t in p]})
+                    req = urllib.request.Request(
+                        f"http://{host}:{port}/generate",
+                        data=body.encode())
+                    with urllib.request.urlopen(req,
+                                                timeout=FRONT_WAIT) as r:
+                        out = json.loads(r.read())
+                else:
+                    out = server.generate(p, timeout=FRONT_WAIT)
+                done.append((time.perf_counter(), out["step"]))
+            except Exception as e:  # noqa: BLE001 — counted, then raised
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(6)]
+    for t in threads:
+        t.start()
+    time.sleep(1.0)
+    before = len(done)
+    t_save = time.perf_counter()
+    CheckpointManager(ws, log_fn=log).save(10, *state10)
+    t_saved = time.perf_counter()
+    while engine.params_step != 10 and \
+            time.perf_counter() - t_save < FRONT_WAIT:
+        time.sleep(0.005)
+    t_live = time.perf_counter()
+    assert engine.params_step == 10, "step 10 was not reloaded"
+    time.sleep(1.0)
+    stop.set()
+    for t in threads:
+        t.join(FRONT_WAIT)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+    assert engine.stats.reloads == 1 and engine.stats.reload_failures == 0
+    first_new = min(t for t, s in done if s == 10)
+    log(f"[front] 11c hot reload under load (6 clients, 4 in process, 2 "
+        f"HTTP): {len(done)} requests completed, 0 failed, {before} before "
+        f"the save; save {1e3 * (t_saved - t_save):.3f} ms, save to step "
+        f"10 live {1e3 * (t_live - t_save):.3f} ms, save to the first "
+        f"answer on step 10 {1e3 * (first_new - t_save):.3f} ms; the "
+        f"reload's copy_ into the captured params "
+        f"{engine.reload_copy_ms:.3f} ms")
+    got = [server.generate(p, timeout=FRONT_WAIT) for p in prompts]
+    assert all(o["step"] == 10 for o in got)
+    assert [o["tokens"] for o in got] == want10, \
+        "answers after the reload != an eager engine over step 10"
+    log(f"[front] 11c after the reload: {len(got)} answers equal an eager "
+        f"engine built over step 10's params")
+    p15, o15 = state10
+    CheckpointManager(ws, log_fn=log).save(
+        15, {k: v * 0.5 for k, v in p15.items()}, o15,
+        health={"verdict": "diverged"})
+    t0 = time.perf_counter()
+    while not engine.stats.reloads_refused and \
+            time.perf_counter() - t0 < FRONT_WAIT:
+        time.sleep(0.005)
+    assert engine.stats.reloads_refused == 1 and engine.params_step == 10
+    try:
+        urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=30)
+        raise AssertionError("/healthz answered 200 over stale params")
+    except urllib.error.HTTPError as e:
+        code, health = e.code, json.loads(e.read())
+    assert code == 503 and health["status"] == "degraded", health
+    assert "reload refused" in health["reasons"][0], health
+    out = server.generate(prompts[0], timeout=FRONT_WAIT)
+    assert out["step"] == 10 and out["tokens"] == want10[0]
+    log(f"[front] 11d diverged step 15 refused: /healthz {code} "
+        f"({health['reasons'][0]}); still serving step 10, answers "
+        f"unchanged")
+
+
+def phase_front(dev):
+    """Phase 11: the serving front ends on lm.conf uncut, served in f32
+    from a workspace the port's Trainer wrote."""
+    import shutil
+    import tempfile
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    ws = tempfile.mkdtemp(prefix="front-", dir=os.path.join(REPO, "build"))
+    try:
+        state10 = front_train(dev, ws)
+        front_cli(ws)
+        front_inprocess(dev, ws, state10)
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2293,6 +2668,8 @@ def main() -> int:
     took("phase 9")
     phase_lmconf(dev)
     took("phase 10")
+    phase_front(dev)
+    took("phase 11")
 
     kernels = []
     for name, res, replaces in (

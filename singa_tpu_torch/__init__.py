@@ -22,6 +22,12 @@ graphs.
 whole: kMoE (`ops.moe`) with its router aux loss in training, replayed
 or eager, `models.generate.beam_search`, and serving a MoE net.
 
+The serving front ends: `python -m singa_tpu_torch.main serve`, the
+`serve.MicroBatcher`, `serve.InferenceServer` over HTTP and the binary
+wire (`serve.wire`), checkpoint load and hot reload into the params the
+graphs were captured over, `health()`, and the `obs` layer (spans,
+events, metrics, capture and memory accounting) they report through.
+
 Entry points run on CUDA unless the caller passes device='cpu'.
 """
 

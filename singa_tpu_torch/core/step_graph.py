@@ -137,6 +137,10 @@ class StepGraph:
         self.clone_bytes = 0
         self._graphs: Dict[Tuple, _Captured] = {}
 
+    def has(self, batch) -> bool:
+        """Whether a graph of `batch`'s geometry was captured."""
+        return geometry(batch) in self._graphs
+
     def capture(self, fn: Callable, state, batch) -> bool:
         """Capture `fn` for the geometry of `batch` unless a graph of it
         exists; True when this call captured."""

@@ -3,11 +3,13 @@ left-padded micro-batches, and the two continuous-batching programs
 over a paged KV cache, each a CUDA graph on the card.
 
 Port of `singa_tpu/serve/engine.py`: `ServeSpec` (`:62-258`), the
-left-pad mask (`:261-270`), the bucket programs (`:602-654`), the cb
-programs (`:657-802`), `warmup` (`:846-865`), the `engine.stall` site
-(`:879-892`), the per-call key (`:894-901`) and `run_batch`
-(`:903-931`).  The JAX engine AOT-compiles one program per (mode,
-bucket) plus the cb prefill and decode step; here each of those is a
+left-pad mask (`:261-270`), the params lifecycle — `load`,
+`poll_reload`, `reload_to`, `health()` (`:284-599`) — the bucket
+programs (`:602-654`), the cb programs (`:657-802`), `warmup`
+(`:846-865`), the `engine.stall` site (`:879-892`), the per-call key
+(`:894-901`) and `run_batch` (`:903-931`).  The JAX engine
+AOT-compiles one program per (mode, bucket) plus the cb prefill and
+decode step; here each of those is a
 `StepGraph` (core/step_graph.py) on CUDA — captured by `warmup()` (or
 at first use), replayed thereafter — and a plain eager call on the CPU
 or under `graphs=False`.  `ServeStats.compiles` moves only where a graph
@@ -34,8 +36,36 @@ Variable-length prompts are LEFT-padded to the bucket length with a
 per-key validity mask: RoPE rotations are relative, so left-padding
 keeps every attended (query, key) distance, the last real prompt token
 sits at P-1 in every row, and masked pad keys weigh exactly zero after
-softmax.  Checkpoint load and hot reload, `health()` and the serving
-front ends come with the port of the HTTP server and wire.
+softmax.
+
+Hot reload.  The JAX engine swaps a new params tree in with one
+attribute store; here the graphs were captured over the live tensors,
+so a reload COPIES the restored arrays into them instead:
+- every name, shape and stored dtype is checked against the live dict
+  first (`_check_geometry`, the reference's `_tree_spec`); a mismatch
+  refuses the reload and writes nothing — a half-copied model never
+  serves;
+- the copy runs under the engine's lock, which a micro-batch
+  (`MicroBatcher`) or a whole scheduler iteration (its prefills and its
+  decode step) holds through `hold()`, so a batch or an iteration runs
+  on one params version from start to end; the copy is finished on the
+  device before the lock is released;
+- the fresh-init fallback (`reload_to(-1)`) and the params served before
+  the last explicit reload are host COPIES, not references, because the
+  live tensors change in place.
+
+The degrade contract is the reference's: a failed restore keeps the old
+params live (`reload_failures`, fingerprint unchanged so the next poll
+retries); a walk-back that lands on the served step is
+`reloads_refused`; a poll that races a live writer is `torn_polls`.
+One race the reference leaves open is closed here: both packages' saves
+rename a snapshot into place before they record its health verdict in
+the manifest, and a poll between the two took the snapshot for a
+healthy one, so a diverged snapshot could serve until the next poll.
+Such a poll is a torn poll now (`CheckpointManager.save_in_flight`).
+Each capture runs inside `obs.perf.compile_span`: `warmup()` marks its
+mode families warm, so a capture after warmup is a
+`perf.recompile_anomaly`.
 """
 
 from __future__ import annotations
@@ -43,17 +73,21 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.step_graph import StepGraph
 from ..device import DeviceLike, params_device, params_dtype, resolve_device
 from ..models.generate import (_sample, decode, forward_cached,
                                forward_paged, init_cache, scatter_prefill)
+from ..obs import perf
 from ..utils import faults
+from ..utils.checkpoint import CheckpointManager
 from .kvcache import Pools, init_pools
 from .stats import ServeStats
 
@@ -284,21 +318,44 @@ def left_pad(prompts: Sequence[Sequence[int]], bucket: Tuple[int, int],
     return tokens, plens
 
 
+def _stored_dtype(t: torch.Tensor) -> torch.dtype:
+    # checkpoints hold bf16 tensors as f32 (numpy has no bfloat16)
+    return torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+
+
+def _host_copy(params) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu", copy=True) for k, v in params.items()}
+
+
 class InferenceEngine:
-    """Serves `params` on `device` (CUDA unless the caller passes
+    """Serves params on `device` (CUDA unless the caller passes
     device='cpu'): `run_batch` runs one left-padded micro-batch in
     generate or predict mode, `run_cb_prefill` / `run_cb_decode` the
     continuous-batching programs that `ContinuousScheduler` drives.
+    With a `workspace` it loads the latest healthy checkpoint there and
+    hot-reloads later ones (see the module docstring); `params` is the
+    fallback served when the workspace holds nothing restorable, and at
+    least one of the two is needed.  (`params` comes third, before
+    `workspace`, as the port's callers pass it.)
 
     `graphs` picks how programs run.  None: as CUDA-graph replays on
     CUDA, eagerly on the CPU.  True: as replays, or raise on the CPU.
-    False: eagerly.  `self.graphs` holds the choice.  Thread-safe: one
-    program call at a time (seed, copy in, replay, fetch)."""
+    False: eagerly.  `self.graphs` holds the choice.  `pinned` engines
+    (fleet members) never follow the workspace on their own: only
+    `reload_to` moves them.  Thread-safe: one program call at a time
+    (seed, copy in, replay, fetch) under one re-entrant lock, which
+    `hold()` keeps across a whole batch or scheduler iteration and a
+    reload's copy takes."""
 
-    def __init__(self, net, spec: ServeSpec, params: Dict[str, torch.Tensor],
+    def __init__(self, net, spec: ServeSpec,
+                 params: Optional[Dict[str, torch.Tensor]] = None,
                  device: DeviceLike = None,
                  stats: Optional[ServeStats] = None, log_fn=print,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None,
+                 workspace: Optional[str] = None, pinned: bool = False):
+        if workspace is None and params is None:
+            raise ValueError("InferenceEngine needs a checkpoint "
+                             "workspace or explicit params")
         self.net = net
         self.spec = spec
         self.device = resolve_device(device)
@@ -308,11 +365,38 @@ class InferenceEngine:
         self.graphs = graphs is not False and self.device.type == "cuda"
         self.stats = stats if stats is not None else ServeStats()
         self.log = log_fn
-        self._params = {k: v.to(self.device) for k, v in params.items()}
+        self.ckpt = (CheckpointManager(workspace, log_fn=log_fn)
+                     if workspace is not None else None)
+        self._params: Optional[Dict[str, torch.Tensor]] = (
+            {k: v.to(self.device) for k, v in params.items()}
+            if params is not None else None)
         self.params_step = -1           # constructor params, no checkpoint
+        # the fresh-init fallback that `reload_to(-1)` restores, and the
+        # params served before the last explicit reload: host copies,
+        # since the live tensors change in place.  Only an engine that
+        # follows a workspace can reload, so only it keeps them.
+        self._init_params = (_host_copy(self._params)
+                             if self.ckpt is not None
+                             and self._params is not None else None)
+        self._prev_params: Optional[Dict[str, torch.Tensor]] = None
+        self._prev_step: Optional[int] = None
+        self._fingerprint: Optional[tuple] = None
+        self.pinned = bool(pinned)
+        # set by a refused or failed reload (the engine serves stale
+        # params), cleared by the next successful one: health() reports it
+        self._stale_reason: Optional[str] = None
+        # consecutive unexpected deaths of the server's reload poll
+        self._poll_death_streak = 0
+        # wall time of the last reload's copy into the live tensors
+        self.reload_copy_ms: Optional[float] = None
+        # CompileWatch scope: a capture after THIS engine's warmup is
+        # the anomaly, not one of a sibling engine warming up later
+        self._perf_scope = f"engine-{id(self):x}"
         self._gen = torch.Generator(device=self.device)
         self._key_counter = 0
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
+        # one reload at a time (the poll thread and /admin/reload)
+        self._reload_lock = threading.Lock()
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self._programs: Dict[Tuple, Tuple[Callable, Optional[StepGraph]]] = {}
         self._cb_pools: Optional[Pools] = None
@@ -320,11 +404,276 @@ class InferenceEngine:
         # host-side sleep before every program call
         self.stall_s = 0.0
 
+    def note_poll_death(self) -> int:
+        self._poll_death_streak += 1
+        return self._poll_death_streak
+
+    def note_poll_ok(self) -> None:
+        self._poll_death_streak = 0
+
+    # -- params lifecycle ----------------------------------------------------
     @property
-    def params(self) -> Dict[str, torch.Tensor]:
-        """The served params.  Read ONCE per micro-batch or scheduler
-        step and passed to the program calls."""
+    def params(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The live params dict (None before `load()` on an engine built
+        from a workspace alone).  Its tensors are what the graphs were
+        captured over; a reload copies into them."""
         return self._params
+
+    @contextmanager
+    def hold(self):
+        """Hold the engine's lock for a whole micro-batch or scheduler
+        iteration and yield (params, step): a reload's copy waits until
+        the block ends, so the block runs on one params version."""
+        with self._lock:
+            yield self._params, self.params_step
+
+    def _check_geometry(self, new, step: int) -> None:
+        live = self._params
+        bad = sorted(set(new) ^ set(live))
+        for k in sorted(set(new) & set(live)):
+            if (tuple(new[k].shape) != tuple(live[k].shape)
+                    or new[k].dtype not in (live[k].dtype,
+                                            _stored_dtype(live[k]))):
+                bad.append(k)
+        if bad:
+            raise RuntimeError(
+                f"checkpoint step {step} has a different parameter "
+                f"geometry than the serving model (params {bad[:4]}); "
+                f"refusing the swap")
+
+    def _swap(self, params, step: int) -> None:
+        """Serve `params` (numpy arrays or tensors) as step `step`: the
+        first load places them on the device; later ones are checked
+        against the live tensors' geometry and copied into them under
+        the lock, the copy finished on the device before it is
+        released."""
+        new = {k: v if isinstance(v, torch.Tensor)
+               else torch.from_numpy(np.asarray(v))
+               for k, v in params.items()}
+        if self._params is not None:
+            self._check_geometry(new, step)
+        with self._lock:
+            if self._params is None:
+                self._params = {k: v.to(self.device)
+                                for k, v in new.items()}
+            else:
+                t0 = time.perf_counter()
+                for k, v in new.items():
+                    self._params[k].copy_(v)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self.reload_copy_ms = (time.perf_counter() - t0) * 1e3
+            self.params_step = step
+        perf.set_memory_tree("serve_params", self._params,
+                             scope=self._perf_scope)
+
+    def load(self) -> int:
+        """Initial load: the latest healthy checkpoint (walking back past
+        unhealthy or corrupt snapshots), else the constructor params.
+        Returns the served step (-1 = constructor params)."""
+        if self.ckpt is not None:
+            restored = self.ckpt.restore(skip_unhealthy=True)
+            self._fingerprint = self.ckpt.fingerprint()
+            if restored is not None:
+                p, _, step = restored
+                self._swap(p, step)
+            elif self._params is None:
+                raise RuntimeError(
+                    f"no restorable healthy checkpoint under "
+                    f"{self.ckpt.dir} and no fallback params")
+        if self._params is not None:
+            perf.set_memory_tree("serve_params", self._params,
+                                 scope=self._perf_scope)
+        return self.params_step
+
+    def poll_reload(self) -> str:
+        """One hot-reload attempt: "reloaded" | "unchanged" | "refused"
+        | "failed" ("pinned" on a fleet member).  Never raises and never
+        unseats the live params on failure."""
+        if self.ckpt is None:
+            return "unchanged"
+        if self.pinned:
+            return "pinned"
+        with obs.span("engine.reload") as sp:
+            with self._reload_lock:
+                outcome = self._poll_reload()
+            sp.set(outcome=outcome, step=self.params_step)
+        if outcome != "unchanged":
+            obs.emit_event("serve.reload", outcome=outcome,
+                           step=self.params_step)
+        return outcome
+
+    def _poll_reload(self) -> str:
+        try:
+            faults.maybe_fault("serve.reload")
+            torn_before = self.ckpt.torn_polls
+            fp = self.ckpt.fingerprint()
+            if self.ckpt.torn_polls > torn_before:
+                # the poll raced a live writer: no change, retried on
+                # the next tick; never a reload off a torn read
+                self.stats.count("torn_polls")
+                return "unchanged"
+            if fp == self._fingerprint:
+                return "unchanged"
+            if self.ckpt.save_in_flight():
+                # the newest snapshot is on disk but its verdict is not:
+                # restoring now would take a diverged snapshot for a
+                # healthy one; retried on the next tick
+                self.stats.count("torn_polls")
+                return "unchanged"
+            restored = self.ckpt.restore(skip_unhealthy=True)
+            if restored is None or restored[2] == self.params_step:
+                # nothing newer is healthy: record the fingerprint so
+                # the refusal is not retried every tick
+                self._fingerprint = fp
+                self.stats.count("reloads_refused")
+                self._stale_reason = (
+                    f"reload refused: newer checkpoint on disk is not "
+                    f"healthy/restorable; serving stale step "
+                    f"{self.params_step}")
+                self.log("serve: reload refused — no newer healthy "
+                         f"checkpoint (serving step {self.params_step})")
+                return "refused"
+            p, _, step = restored
+            self._swap(p, step)
+            self._fingerprint = fp
+            self._stale_reason = None
+            self.stats.count("reloads")
+            self.log(f"serve: hot-reloaded checkpoint step {step}")
+            return "reloaded"
+        except Exception as e:  # noqa: BLE001 — degrade, never crash
+            # fingerprint NOT updated: the next poll retries
+            self.stats.count("reload_failures")
+            self._stale_reason = (
+                f"reload failed ({type(e).__name__}); serving stale "
+                f"step {self.params_step}")
+            self.log(f"warning: serve reload failed "
+                     f"({type(e).__name__}: {e}); keeping params from "
+                     f"step {self.params_step}")
+            return "failed"
+
+    def reload_to(self, step: Optional[int] = None,
+                  skip_unhealthy: bool = False) -> str:
+        """Explicit reload (the fleet rollout's command channel; works on
+        a pinned engine): checkpoint `step` (None = latest), by default
+        without the healthy-verdict walk-back.  Step -1 restores the
+        fresh-init fallback; a step no longer on disk that was served
+        just before the current params comes back from memory.  Returns
+        "reloaded" | "unchanged" | "refused" | "failed"; never raises and
+        never unseats the live params on failure."""
+        if self.ckpt is None:
+            return "refused"
+        with obs.span("engine.reload", target=step) as sp:
+            with self._reload_lock:
+                outcome = self._reload_to(step, skip_unhealthy)
+            sp.set(outcome=outcome, step=self.params_step)
+        if outcome != "unchanged":
+            obs.emit_event("serve.reload", outcome=outcome,
+                           step=self.params_step, target=step)
+        return outcome
+
+    def _reload_to(self, step: Optional[int],
+                   skip_unhealthy: bool) -> str:
+        try:
+            faults.maybe_fault("serve.reload")
+            if step is not None and int(step) < 0:
+                if self._init_params is None:
+                    self.stats.count("reloads_refused")
+                    self.log("serve: reload to step -1 refused — no "
+                             "fresh-init fallback params")
+                    return "refused"
+                if self.params_step < 0:
+                    self._stale_reason = None
+                    return "unchanged"
+                self._prev_params = _host_copy(self._params)
+                self._prev_step = self.params_step
+                self._swap(self._init_params, -1)
+                self._stale_reason = None
+                self.stats.count("reloads")
+                self.log("serve: reloaded to fresh-init params "
+                         "(step -1)")
+                return "reloaded"
+            if step is not None and int(step) == self.params_step:
+                # already live in memory: disk could only fail
+                self._stale_reason = None
+                return "unchanged"
+            fp = self.ckpt.fingerprint()
+            restored = self.ckpt.restore(step=step,
+                                         skip_unhealthy=skip_unhealthy)
+            if restored is None:
+                if (step is not None and self._prev_params is not None
+                        and int(step) == self._prev_step):
+                    # the snapshot left the disk, but it is what this
+                    # engine served just before: swap back from memory
+                    prev_p, prev_s = self._prev_params, self._prev_step
+                    self._prev_params = _host_copy(self._params)
+                    self._prev_step = self.params_step
+                    self._swap(prev_p, prev_s)
+                    self._fingerprint = fp
+                    self._stale_reason = None
+                    self.stats.count("reloads")
+                    self.log(f"serve: reloaded to step {step} from "
+                             f"in-memory previous params (snapshot no "
+                             f"longer on disk)")
+                    return "reloaded"
+                self.stats.count("reloads_refused")
+                self._stale_reason = (
+                    f"explicit reload to step {step} found nothing "
+                    f"restorable; serving stale step {self.params_step}")
+                self.log(f"serve: explicit reload to step {step} "
+                         f"refused — nothing restorable")
+                return "refused"
+            p, _, got = restored
+            if got == self.params_step:
+                self._fingerprint = fp
+                self._stale_reason = None
+                return "unchanged"
+            prev = _host_copy(self._params)
+            prev_step = self.params_step
+            self._swap(p, got)
+            self._prev_params, self._prev_step = prev, prev_step
+            self._fingerprint = fp
+            self._stale_reason = None
+            self.stats.count("reloads")
+            self.log(f"serve: reloaded to checkpoint step {got}"
+                     + (f" (asked for {step})"
+                        if step is not None and got != step else ""))
+            return "reloaded"
+        except Exception as e:  # noqa: BLE001 — degrade, never crash
+            self.stats.count("reload_failures")
+            self._stale_reason = (
+                f"reload to step {step} failed ({type(e).__name__}); "
+                f"serving stale step {self.params_step}")
+            self.log(f"warning: explicit reload to step {step} failed "
+                     f"({type(e).__name__}: {e}); keeping params from "
+                     f"step {self.params_step}")
+            return "failed"
+
+    # -- health --------------------------------------------------------------
+    def health(self) -> Dict[str, Any]:
+        """Liveness verdict for /healthz and a router: degraded when the
+        engine is wedged (`spec.degraded_after` consecutive failed
+        batches), stale (a refused or failed reload) or its reload poll
+        keeps dying."""
+        reasons = []
+        k = int(self.spec.degraded_after)
+        streak = self.stats.consecutive_batch_failures
+        if streak >= k:
+            reasons.append(f"{streak} consecutive failed batches "
+                           f"(threshold {k})")
+        if self._stale_reason is not None:
+            reasons.append(self._stale_reason)
+        if self._poll_death_streak >= k:
+            reasons.append(
+                f"reload poll died {self._poll_death_streak} times "
+                f"in a row (threshold {k}); params may be going "
+                f"stale")
+        return {"ok": not reasons,
+                "status": "ok" if not reasons else "degraded",
+                "step": self.params_step,
+                "family": self.spec.family,
+                "pinned": self.pinned,
+                "reasons": reasons}
 
     @property
     def cb_pools(self) -> Pools:
@@ -459,15 +808,36 @@ class InferenceEngine:
             return {"params": params, "pools": self.cb_pools}
         return {"params": params}
 
+    def _geometry(self, key: Tuple) -> str:
+        spec = self.spec
+        if key[0].startswith("cb_"):
+            return (f"slots={spec.cb_slots},blocks={spec.cb_pool_blocks},"
+                    f"block_len={spec.cb_block_len}")
+        return f"b{key[1]}_p{key[2]}"
+
     def _capture(self, key: Tuple, state, inputs) -> None:
         """Capture program `key`'s graph unless it exists (under the
-        lock); counts one compile per graph."""
+        lock); counts one compile per graph, timed by CompileWatch in
+        this engine's scope (the cb programs in the generate family)."""
         fn, graph = self._program(key)
-        if graph is not None and graph.capture(fn, state, inputs):
-            self.stats.count("compiles")
-            self.log(f"serve: captured {graph.name} as a CUDA graph"
-                     + (f"; its warm-up cloned {graph.clone_bytes} bytes "
-                        f"of KV pools" if graph.clone_bytes else ""))
+        if graph is None:
+            return
+        if graph.has(inputs):
+            perf.lookup_hit(key[0])
+            return
+        family = "generate" if key[0].startswith("cb_") else key[0]
+        geometry = self._geometry(key)
+        with obs.span("engine.compile", mode=key[0], geometry=geometry), \
+                perf.compile_span(key[0], geometry=geometry,
+                                  scope=self._perf_scope, family=family):
+            graph.capture(fn, state, inputs)
+        self.stats.count("compiles")
+        if key[0].startswith("cb_"):
+            perf.set_memory_tree("kv_pool", self.cb_pools,
+                                 scope=self._perf_scope)
+        self.log(f"serve: captured {graph.name} as a CUDA graph"
+                 + (f"; its warm-up cloned {graph.clone_bytes} bytes "
+                    f"of KV pools" if graph.clone_bytes else ""))
 
     def _call(self, key: Tuple, state, inputs: Dict[str, np.ndarray]
               ) -> np.ndarray:
@@ -481,12 +851,17 @@ class InferenceEngine:
                 # before the seed: the capture's warm-up draws
                 self._capture(key, state, inputs)
             self._next_generator()
+            t0 = time.perf_counter()
             if graph is not None:
                 out = graph(fn, state, inputs)
             else:
                 out = fn(state, {k: torch.from_numpy(np.array(v)).to(
                     self.device) for k, v in inputs.items()})
-            return out.cpu().numpy()
+            out = out.cpu().numpy()
+            perf.observe_step(key[0], time.perf_counter() - t0)
+            if key[0] in ("generate", "cb_prefill"):
+                perf.mark_serving_ready()      # first warm token (latch)
+            return out
 
     def warmup(self, modes=("generate",)) -> int:
         """Capture every (mode, bucket) program up front; with cb=on the
@@ -494,6 +869,8 @@ class InferenceEngine:
         bucket list says (predict stays on buckets).  Returns the number
         of graphs captured; afterwards serving never captures again
         (`stats.compiles` stays put).  Eager engines capture nothing."""
+        if self._params is None:
+            raise RuntimeError("engine has no params; call load()")
         before = self.stats.compiles
         for mode in modes:
             if mode == "generate" and self.spec.cb_on:
@@ -501,11 +878,13 @@ class InferenceEngine:
             else:
                 keys = [(mode, b, p) for b, p in self.spec.buckets]
             for key in keys:
-                _, graph = self._program(key)
-                if graph is not None:
-                    with self._lock:
-                        self._capture(key, self._state(key, self._params),
-                                      self._dummy_inputs(key))
+                with self._lock:
+                    self._capture(key, self._state(key, self._params),
+                                  self._dummy_inputs(key))
+        for mode in modes:
+            # from here on a capture in this scope for a warmed mode
+            # family is a perf.recompile_anomaly
+            perf.mark_warm(self._perf_scope, mode)
         return self.stats.compiles - before
 
     # -- execution -----------------------------------------------------------
@@ -540,12 +919,16 @@ class InferenceEngine:
         next-token log-probs for predict."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; modes are {MODES}")
-        params = self._params if params is None else params
         tokens = np.asarray(tokens, np.int32)
         key = (mode, *tokens.shape)
-        out = self._call(key, {"params": params},
-                         {"tokens": tokens,
-                          "plens": np.asarray(plens, np.int32)})
+        # on the dispatch thread this nests under batcher.dispatch and
+        # inherits its batch-M correlation id
+        with obs.span("engine.run_batch", mode=mode, batch=key[1],
+                      plen=key[2]):
+            out = self._call(key, {"params": self._params if params is None
+                                   else params},
+                             {"tokens": tokens,
+                              "plens": np.asarray(plens, np.int32)})
         return out.astype(np.int32) if mode == "generate" else out
 
     def run_cb_prefill(self, params, pools: Pools, tokens: np.ndarray,

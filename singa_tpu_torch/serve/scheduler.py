@@ -5,9 +5,9 @@ Port of `singa_tpu/serve/scheduler.py:69-704`.  The engine's two
 programs are CUDA graphs on the card: `start()` captures them on the
 caller's thread (`engine.warmup`) before the loop thread starts, since a
 capture fails while another thread works on the card; the loop thread
-only replays.  The reference's telemetry (`obs` spans and events, the
-`perf.set_memory` gauge) comes with the port of `obs`; each of its
-sites is marked below with the reference line.
+only replays.  Its telemetry is the reference's: the `scheduler.admit`
+and `scheduler.prefill` spans, the `serve.shed` and `serve.cb_retire`
+events, and the `kv_pool` MemoryWatch component.
 
 The static MicroBatcher ties a request's fate to its batch: the
 bucket program decodes all `max_new_tokens` for every row, so one long
@@ -33,9 +33,10 @@ program replay per prefill and one per decode step, both captured at
 warmup with (slots, blocks-per-slot, block_len, pool size) as the only
 geometry — no capture after warmup, same guarantee as the bucket path.
 
-Params atomicity: the loop reads `engine.params` ONCE per iteration
-and threads it through that iteration's prefills and decode step, so
-a hot-reload swap can never tear a step.  A stream that spans a
+Params atomicity: each iteration runs inside `engine.hold()`, which
+holds the engine's lock across that iteration's prefills and decode
+step; a hot reload copies into the live params under the same lock, so
+it can never tear a step.  A stream that spans a
 reload finishes on the new params from the next step on — each step
 is internally consistent, which is the no-tear guarantee the static
 path makes per batch.
@@ -63,12 +64,14 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from .. import obs
+from ..obs import perf
 from ..device import params_dtype
 from ..utils import faults
 from . import qos
 from .batcher import Cancelled, DeadlineExpired, Overloaded
 from .engine import InferenceEngine
-from .kvcache import PagedKVCache
+from .kvcache import PagedKVCache, pool_bytes
 from .stats import ServeStats
 from .tenancy import TenantRegistry
 
@@ -194,6 +197,10 @@ class _CBRequest:
     priority: str = "interactive"
     tenant: str = "default"
     cancel_event: Optional[threading.Event] = None
+    # trace context captured at submit — the prefill runs on the
+    # scheduler loop thread, so its span needs an explicit anchor to
+    # land in the submitting request's trace
+    link: Any = None
     t_admit: float = 0.0
     produced: List[int] = field(default_factory=list)
 
@@ -261,7 +268,14 @@ class ContinuousScheduler:
                 device=self.engine.device, pools=self.engine.cb_pools)
             self.stats.gauge("cb_slot_capacity", spec.cb_slots)
             self.stats.gauge("cb_blocks_total", self.kv.usable_blocks)
-            # reference :264 perf.set_memory("kv_pool", pool_bytes(...))
+            # MemoryWatch: the pools, from the same block geometry
+            # init_pools used (analytic == actual here)
+            perf.set_memory(
+                "kv_pool",
+                pool_bytes(self.engine.net, spec.cb_pool_blocks,
+                           spec.cb_block_len,
+                           params_dtype(self.engine.params)),
+                scope=self.engine._perf_scope)
         # capture on this thread, before the loop thread works on the
         # card (a no-op once warmed)
         self.engine.warmup(("generate",))
@@ -373,53 +387,57 @@ class ContinuousScheduler:
             raise DeadlineExpired(
                 f"dead on arrival: deadline passed "
                 f"{now - deadline:.3f}s before admission")
-        # reference :381-382 inherits obs.current_corr() and captures
-        # obs.trace_context(); here the reference's fallback id
-        corr = f"cbreq-{next(self._req_ids)}"
+        # inherit the caller's correlation chain when one is open on
+        # this thread (the HTTP handler's serve.request span) instead
+        # of minting a fresh cbreq-N
+        corr = obs.current_corr() or f"cbreq-{next(self._req_ids)}"
+        link = obs.trace_context()
         req = _CBRequest(tokens=arr, plen=int(arr.size), max_new=mn,
                          nblocks=nblocks,
                          ticket=StreamTicket(corr,
                                              first_index=resume_from),
                          t_submit=now, deadline=deadline, corr=corr,
                          priority=priority, tenant=tenant,
-                         cancel_event=cancel_event)
+                         cancel_event=cancel_event, link=link)
         quota = self.tenancy.queue_quota(tenant, spec.queue_capacity)
-        # reference :391 obs.span("scheduler.admit", ...) around this
-        try:
-            faults.maybe_fault("serve.admit")
-        except faults.FaultError as e:
-            self._shed(f"admission fault: {e}", corr=corr,
-                       priority=priority, tenant=tenant)
-        with self._cv:
-            if self._stop:
-                raise RuntimeError("scheduler is stopped")
-            depth = len(self._pending)
-            tdepth = sum(1 for r in self._pending
-                         if r.tenant == tenant)
-            if depth >= spec.queue_capacity or \
-                    tdepth >= quota or \
-                    not self._brownout_admits(priority, depth,
-                                              tenant):
-                pass          # shed outside the happy path below
+        with obs.span("scheduler.admit", corr=corr,
+                      plen=int(arr.size), max_new=mn,
+                      priority=priority, tenant=tenant):
+            try:
+                faults.maybe_fault("serve.admit")
+            except faults.FaultError as e:
+                self._shed(f"admission fault: {e}", corr=corr,
+                           priority=priority, tenant=tenant)
+            with self._cv:
+                if self._stop:
+                    raise RuntimeError("scheduler is stopped")
+                depth = len(self._pending)
+                tdepth = sum(1 for r in self._pending
+                             if r.tenant == tenant)
+                if depth >= spec.queue_capacity or \
+                        tdepth >= quota or \
+                        not self._brownout_admits(priority, depth,
+                                                  tenant):
+                    pass          # shed outside the happy path below
+                else:
+                    self._pending.append(req)
+                    self._class_backoffs.reset(priority,
+                                               tenant=tenant)
+                    self.stats.count("submitted")
+                    self.stats.tenants.count("submitted", tenant)
+                    self.stats.gauge("queue_depth", len(self._pending))
+                    self._cv.notify()
+                    return req.ticket
+            if depth >= spec.queue_capacity:
+                why = f"queue full ({spec.queue_capacity} requests)"
+            elif tdepth >= quota:
+                why = (f"tenant {tenant} queue quota full "
+                       f"({tdepth}/{quota} of {spec.queue_capacity})")
             else:
-                self._pending.append(req)
-                self._class_backoffs.reset(priority,
-                                           tenant=tenant)
-                self.stats.count("submitted")
-                self.stats.tenants.count("submitted", tenant)
-                self.stats.gauge("queue_depth", len(self._pending))
-                self._cv.notify()
-                return req.ticket
-        if depth >= spec.queue_capacity:
-            why = f"queue full ({spec.queue_capacity} requests)"
-        elif tdepth >= quota:
-            why = (f"tenant {tenant} queue quota full "
-                   f"({tdepth}/{quota} of {spec.queue_capacity})")
-        else:
-            why = (f"brownout: queue {depth}/"
-                   f"{spec.queue_capacity} sheds {priority}")
-        self._shed(why, corr=corr, priority=priority,
-                   tenant=tenant)
+                why = (f"brownout: queue {depth}/"
+                       f"{spec.queue_capacity} sheds {priority}")
+            self._shed(why, corr=corr, priority=priority,
+                       tenant=tenant)
 
     def _brownout_admits(self, priority: str, depth: int,
                          tenant: str = "default") -> bool:
@@ -443,7 +461,9 @@ class ContinuousScheduler:
         self.stats.tenants.count("shed", tenant)
         retry = self._class_backoffs.shed_delay(priority,
                                                 tenant=tenant)
-        # reference :452 obs.emit_event("serve.shed", ...)
+        obs.emit_event("serve.shed", why=why, corr=corr,
+                       priority=priority, tenant=tenant,
+                       retry_after=round(retry, 4))
         raise Overloaded(f"request shed ({why}); retry after "
                          f"{retry:.3f}s", retry_after=retry)
 
@@ -460,19 +480,18 @@ class ContinuousScheduler:
 
     def _iterate(self) -> None:
         """One scheduler step: expire, admit, decode, account."""
-        # ONE params read covers this step's prefills AND decode — the
-        # per-step no-tear guarantee (see module docstring)
-        params = self.engine.params
-        step_no = self.engine.params_step
         now = time.monotonic()
         self._expire_pending(now)
-        try:
-            self._admit_pending(params, step_no)
-            if self._active.any():
-                self._decode_step(params, step_no)
-        except Exception as e:  # noqa: BLE001 — fail step, keep serving
-            self._fail_step(e)
-            return
+        # ONE hold covers this step's prefills AND decode — the per-step
+        # no-tear guarantee (see module docstring)
+        with self.engine.hold() as (params, step_no):
+            try:
+                self._admit_pending(params, step_no)
+                if self._active.any():
+                    self._decode_step(params, step_no)
+            except Exception as e:  # noqa: BLE001 — fail step, keep serving
+                self._fail_step(e)
+                return
         if self.kv is not None:
             self.stats.observe_cb_step(int(self._active.sum()),
                                        self.kv.blocks_in_use)
@@ -570,10 +589,13 @@ class ContinuousScheduler:
             toks = np.zeros((1, spec.cb_prefill_len), np.int32)
             toks[0, :req.plen] = req.tokens
             try:
-                # reference :581 obs.span("scheduler.prefill", ...)
-                tok0, self.kv.pools = self.engine.run_cb_prefill(
-                    params, self.kv.pools, toks, req.plen,
-                    row[:spec.cb_prefill_len // spec.cb_block_len])
+                with obs.span("scheduler.prefill", corr=req.corr,
+                              trace=req.link[0] if req.link else None,
+                              parent=req.link[1] if req.link else None,
+                              slot=slot, plen=req.plen):
+                    tok0, self.kv.pools = self.engine.run_cb_prefill(
+                        params, self.kv.pools, toks, req.plen,
+                        row[:spec.cb_prefill_len // spec.cb_block_len])
             except Exception as e:  # noqa: BLE001 — fail req, keep going
                 # the slot is not in _slot_req yet: clean it here so
                 # the blocks cannot leak, fail only this request
@@ -641,7 +663,9 @@ class ContinuousScheduler:
             # not a completion, not a failure: no latency sample, no
             # strike — the caller asked for it (hedge loser)
             self.stats.count("cancelled")
-            # reference :655 obs.emit_event("serve.cb_retire", ...)
+            obs.emit_event("serve.cb_retire", corr=req.corr,
+                           finish=finish, tokens=len(req.produced),
+                           slot=slot)
             req.ticket._fail(Cancelled(
                 "cancelled by caller mid-decode"))
             return
@@ -652,7 +676,9 @@ class ContinuousScheduler:
         self.stats.tenants.count("completed", req.tenant)
         self.stats.tenants.observe_latency(now - req.t_submit,
                                            req.tenant)
-        # reference :668 obs.emit_event("serve.cb_retire", ...)
+        obs.emit_event("serve.cb_retire", corr=req.corr,
+                       finish=finish, tokens=len(req.produced),
+                       slot=slot, tenant=req.tenant)
         req.ticket._resolve({"tokens": list(req.produced),
                              "step": step_no, "finish": finish,
                              "slots": self.spec.cb_slots})

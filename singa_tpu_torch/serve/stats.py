@@ -2,9 +2,7 @@
 `data.pipeline.PipelineStats`.
 
 The port's own copy of `singa_tpu/serve/stats.py` (JAX-free there too;
-the port imports nothing of the JAX package).  Its `/metrics` export
-(`register_into`, a collector on `obs.MetricsRegistry`, and the
-Prometheus histograms it wires) comes with the port of `obs`.
+the port imports nothing of the JAX package).
 
 One `ServeStats` instance is shared by the `InferenceEngine` (compile /
 reload accounting), the `MicroBatcher` (admission / batching / latency),
@@ -33,6 +31,9 @@ handler, the bench smoke, and tests all see the same semantics:
     scheduler steps) and `cb_block_utilization` (KV blocks in use /
     pool size).
 
+`register_into(registry)` additionally exposes every snapshot field
+through an `obs.MetricsRegistry` pull-time collector (the /metrics
+Prometheus endpoint) without changing any of the above.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ class ServeStats:
         self._t0 = time.monotonic()
         # per-tenant engine-level accounting (serve/tenancy.py):
         # bounded-cardinality labels, exported as singa_tenant_* by
-        # a metrics registry.  Callers pass registry-FOLDED labels.
+        # register_into.  Callers pass registry-FOLDED labels.
         self.tenants = TenantCounts(
             ("submitted", "completed", "shed"))
         self._latencies: deque = deque(maxlen=max(int(latency_window), 1))
@@ -127,6 +128,12 @@ class ServeStats:
                                      # unexpected exception (restarted
                                      # under Backoff; /healthz degrades
                                      # on a persistent streak)
+        # real Prometheus histograms (cumulative buckets + _sum/_count)
+        # created by register_into(); None until then so the hot path
+        # costs one attribute check when /metrics is not wired
+        self._hist_latency = None
+        self._hist_queue_wait = None
+        self._hist_service = None
 
     # -- mutation ----------------------------------------------------------
     def count(self, field: str, n: int = 1) -> None:
@@ -161,6 +168,8 @@ class ServeStats:
             now = time.monotonic()
             self._completions.append(now)
             self._timed_lats.append((now, seconds))
+        if self._hist_latency is not None:
+            self._hist_latency.observe(float(seconds))
 
     def observe_request(self, queue_wait_s: float, service_s: float,
                         ntokens: int) -> None:
@@ -175,6 +184,10 @@ class ServeStats:
             self.generated_tokens += int(ntokens)
             if ntokens > 0 and service_s > 0:
                 self._tok_rates.append(ntokens / service_s)
+        if self._hist_queue_wait is not None:
+            self._hist_queue_wait.observe(max(float(queue_wait_s), 0.0))
+        if self._hist_service is not None:
+            self._hist_service.observe(max(float(service_s), 0.0))
 
     def observe_cb_step(self, active_slots: int,
                         blocks_in_use: int) -> None:
@@ -311,8 +324,67 @@ class ServeStats:
             "p99_latency_ms": q(0.99),
         }
 
+    def register_into(self, registry,
+                      prefix: str = "singa_serve") -> None:
+        """Register every snapshot field into an `obs.MetricsRegistry`
+        as a pull-time collector (counters for the monotonic tallies,
+        gauges for the derived/point-in-time values) — additive;
+        snapshot() semantics are untouched, so /metrics and /stats
+        agree by construction."""
+        from ..obs.metrics import Sample
+
+        counters = ("submitted", "completed", "failed", "expired",
+                    "expired_on_arrival", "cancelled", "shed",
+                    "shed_interactive", "shed_batch",
+                    "shed_best_effort", "rejected", "resumed",
+                    "generated_tokens", "batches",
+                    "batched_requests", "batch_slots", "cb_steps",
+                    "compiles", "reloads", "reload_failures",
+                    "reloads_refused", "torn_polls",
+                    "reload_poll_deaths")
+        gauges = ("queue_depth", "consecutive_batch_failures", "qps",
+                  "qps_recent", "uptime_s", "p50_latency_ms",
+                  "p95_latency_ms", "p99_latency_ms",
+                  "shed_rate_recent", "p95_latency_recent_ms",
+                  "p99_latency_recent_ms", "p50_queue_wait_ms",
+                  "p95_queue_wait_ms", "p50_service_ms",
+                  "p95_service_ms", "p50_tokens_per_s",
+                  "p95_tokens_per_s", "batch_occupancy",
+                  "cb_slot_occupancy", "cb_slot_occupancy_recent",
+                  "cb_block_utilization",
+                  "cb_blocks_in_use", "cb_blocks_total")
+
+        def collect():
+            snap = self.snapshot()
+            out = [Sample(f"{prefix}_{k}_total", "counter",
+                          f"serving counter {k!r}", float(snap[k]))
+                   for k in counters]
+            out += [Sample(f"{prefix}_{k}", "gauge",
+                           f"serving gauge {k!r}", float(snap[k]))
+                    for k in gauges if snap.get(k) is not None]
+            return out
+
+        registry.register_collector(collect)
+        # per-tenant labeled series (bounded cardinality — see
+        # tenancy.TenantCounts); engine-level registries never collide
+        # with the router's because each server owns its own registry
+        self.tenants.register_into(registry)
+        # real histograms (cumulative le buckets + _sum/_count) next
+        # to the reservoir quantiles: the reservoir gives honest
+        # recent p50/p95, the histogram aggregates across scrapes and
+        # fleet members the way Prometheus expects
+        self._hist_latency = registry.histogram(
+            f"{prefix}_request_latency_seconds",
+            "end-to-end request latency on this engine")
+        self._hist_queue_wait = registry.histogram(
+            f"{prefix}_queue_wait_seconds",
+            "time queued before dispatch/admission")
+        self._hist_service = registry.histogram(
+            f"{prefix}_service_seconds",
+            "time being served after dispatch")
+
     def snapshot(self) -> Dict[str, Any]:
-        """JSON-ready view for /stats and the bench."""
+        """JSON-ready view for /stats."""
         p50, p95, p99 = (self.latency_quantile(0.50),
                          self.latency_quantile(0.95),
                          self.latency_quantile(0.99))

@@ -2,8 +2,7 @@
 fleet.
 
 The port's own copy of `singa_tpu/serve/tenancy.py` (JAX-free there
-too); `TenantCounts.register_into`, its `/metrics` collector, comes
-with the port of `obs`.
+too).
 
 The serving tier's earlier protections were fleet-global — RetryBudget,
 brownout fractions, Retry-After streaks, shed accounting, autoscaler
@@ -372,3 +371,30 @@ class TenantCounts:
             row["p95_ms"] = self.p95_ms(t)
             out[t] = row
         return out
+
+    def register_into(self, registry,
+                      prefix: str = "singa_tenant") -> None:
+        """Labeled `singa_tenant_*` series: one sample per (field,
+        tenant label) plus a per-tenant p95 gauge.  Cardinality is
+        bounded by construction — `max_tenants` labels at most."""
+        from ..obs.metrics import Sample
+
+        def collect():
+            out = []
+            for t in self.tenants():
+                labels = (("tenant", t),)
+                with self._lock:
+                    row = dict(self._counts.get(t, {}))
+                for field in self.fields:
+                    out.append(Sample(
+                        f"{prefix}_{field}_total", "counter",
+                        f"per-tenant counter {field!r}",
+                        float(row.get(field, 0)), labels))
+                p95 = self.p95_ms(t)
+                if p95 is not None:
+                    out.append(Sample(
+                        f"{prefix}_p95_ms", "gauge",
+                        "per-tenant p95 latency (ms)", p95, labels))
+            return out
+
+        registry.register_collector(collect)

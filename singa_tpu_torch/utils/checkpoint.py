@@ -12,10 +12,15 @@ by the JAX package through orbax (step directories) is not readable
 here.
 
 `restore` verifies the snapshot against the manifest and walks back to
-the previous good one past any corrupt, partial or unreadable snapshot.
-What the JAX module adds on top — orbax, the `ckpt.save` /
-`ckpt.restore` fault sites and the health verdicts in the manifest —
-waits for the robustness slice (ROADMAP.md §A8).
+the previous good one past any corrupt, partial or unreadable snapshot;
+with `skip_unhealthy` it also walks back past any snapshot whose health
+verdict in the manifest is not "ok" (a snapshot without one counts as
+ok).  `save(..., health=)` records a verdict; the serving engine reads
+them (`serve/engine.py`).  Restores run inside the `ckpt.restore` span
+and consult its fault site.  What the JAX module adds on top — orbax,
+the `ckpt.save` fault site and span, and the Trainer's health probes
+that write verdicts while training — waits for the robustness slice
+(ROADMAP.md §A8).
 
 Snapshots hold numpy arrays: `save` takes tensors or arrays (moved to
 the host; bf16 tensors are stored as f32) and `restore` returns numpy,
@@ -32,6 +37,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .. import obs
+from . import faults
 
 # Parameter-layout generation, the JAX package's: bump when a change
 # re-orders elements inside a stored parameter without changing its
@@ -129,13 +137,27 @@ class CheckpointManager:
                      f"verifying snapshots by load only")
             return {}
 
-    def _manifest_record(self, step: int, path: str) -> None:
+    def _manifest_record(self, step: int, path: str,
+                         health: Optional[Dict[str, Any]] = None) -> None:
         man = self._read_manifest()
-        man[os.path.basename(path)] = {"step": step,
-                                       "size": os.path.getsize(path),
-                                       "sha256": _sha256_file(path)}
+        entry: Dict[str, Any] = {"step": step,
+                                 "size": os.path.getsize(path),
+                                 "sha256": _sha256_file(path)}
+        if health is not None:
+            entry["health"] = health
+        man[os.path.basename(path)] = entry
         _atomic_write(self._manifest_path(),
                       json.dumps(man, indent=1, sort_keys=True).encode())
+
+    def health_verdict(self, step: int) -> Optional[str]:
+        """The health verdict recorded at save time ("ok" / "spike" /
+        "diverged" / "nonfinite"), or None for a snapshot saved without
+        one (treated as ok by the `skip_unhealthy` walk-back)."""
+        entry = self._read_manifest().get(f"step_{step}.npz")
+        if not isinstance(entry, dict):
+            return None
+        health = entry.get("health")
+        return health.get("verdict") if isinstance(health, dict) else None
 
     def _verify(self, step: int) -> Optional[str]:
         """Path of a checksum-clean snapshot for `step`, else None.
@@ -153,7 +175,12 @@ class CheckpointManager:
 
     # -- save --------------------------------------------------------------
     def save(self, step: int, params: Dict[str, Any],
-             opt_state: Dict[str, Any]) -> None:
+             opt_state: Dict[str, Any],
+             health: Optional[Dict[str, Any]] = None) -> None:
+        """Snapshot the state triple.  `health` ({"verdict": ..., ...})
+        is recorded in MANIFEST.json, so `restore(skip_unhealthy=True)`
+        can walk back past a snapshot taken in a numerically suspect
+        window."""
         if self.latest_step() is not None:
             # never mix layouts in one directory (the marker is
             # per-directory)
@@ -170,7 +197,7 @@ class CheckpointManager:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
-        self._manifest_record(step, path)
+        self._manifest_record(step, path, health=health)
         # stamp only after a successful save
         self._write_version()
 
@@ -215,20 +242,51 @@ class CheckpointManager:
         self._last_fp = (steps, man)
         return self._last_fp
 
+    def save_in_flight(self) -> bool:
+        """True while the newest snapshot on disk has no manifest entry
+        but the manifest holds others: a save between renaming its
+        snapshot into place and recording its size, checksum and health
+        verdict.  A serving poll waits for the record rather than take
+        the snapshot for an unverified, healthy one."""
+        steps = self.available_steps()
+        if not steps:
+            return False
+        man = self._read_manifest()
+        return bool(man) and f"step_{steps[-1]}.npz" not in man
+
     # -- restore -----------------------------------------------------------
-    def restore(self, step: Optional[int] = None
+    def restore(self, step: Optional[int] = None,
+                skip_unhealthy: bool = False
                 ) -> Optional[Tuple[Dict, Dict, int]]:
         """(params, opt_state, step) as numpy dicts from the latest (or
         the latest <= `step`) restorable snapshot, else None.  A corrupt
         or partial snapshot is logged and skipped: the next older one is
-        tried."""
+        tried.  With `skip_unhealthy`, so is a snapshot whose recorded
+        health verdict is not "ok"."""
+        with obs.span("ckpt.restore",
+                      skip_unhealthy=skip_unhealthy) as sp:
+            out = self._restore(step, skip_unhealthy)
+            if out is not None:
+                sp.set(step=out[2])
+            return out
+
+    def _restore(self, step: Optional[int], skip_unhealthy: bool
+                 ) -> Optional[Tuple[Dict, Dict, int]]:
         steps = self.available_steps()
         if step is not None:
             steps = [s for s in steps if s <= step]
         if not steps:
             return None
         self._check_version()
+        faults.maybe_fault("ckpt.restore")
         for s in reversed(steps):
+            if skip_unhealthy:
+                verdict = self.health_verdict(s)
+                if verdict is not None and verdict != "ok":
+                    self.log(f"warning: checkpoint step {s} has health "
+                             f"verdict {verdict!r}; skipping to the "
+                             f"previous snapshot")
+                    continue
             try:
                 return self._restore_one(s)
             except (OSError, ValueError, KeyError, EOFError,

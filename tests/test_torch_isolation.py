@@ -44,7 +44,9 @@ def test_importing_every_module_loads_no_jax():
     assert "singa_tpu_torch.core.step_graph" in mods
     for m in ("serve.batcher", "serve.kvcache", "serve.qos",
               "serve.scheduler", "serve.stats", "serve.tenancy",
-              "utils.faults", "ops.moe", "ops.topk"):
+              "utils.faults", "ops.moe", "ops.topk", "serve.server",
+              "serve.wire", "serve.router", "obs", "obs.perf",
+              "obs.trace", "obs.flightrec", "data.discovery", "main"):
         assert f"singa_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -96,6 +98,8 @@ def test_entry_points_raise_without_cuda():
     params = params_from_numpy(net, arrays, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(net, ServeSpec(), params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(net, ServeSpec(), workspace="unused")
     with pytest.raises(RuntimeError, match="CUDA"):
         init_pools(net, 4, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
