@@ -2600,6 +2600,527 @@ def phase_front(dev):
         shutil.rmtree(ws, ignore_errors=True)
 
 
+# -- phase 12: training as users run it -------------------------------------
+CLI_STEPS = 40          # the supervised lm.conf runs
+CLI_CHUNK = 8
+CLI_CKPT = 8            # the cadence written into the copy of lm.conf
+CLI_FAULTS = "ckpt.save@1:torn,step.train@2:preempt"
+CLI_SPIKE_STEPS = 16
+ALEX_CLI_STEPS = 4
+ALEX_RECORDS = 2048
+FEED_ROUNDS = 2
+HEALTH_ROUNDS, HEALTH_STEPS = 3, 16
+# the CLI as `python -m singa_tpu_torch.main` runs it (its `__main__` is
+# `sys.exit(main())`), with the kernel launch counts written to a file
+CLI_WRAPPER = """
+import json, sys
+from singa_tpu_torch.main import main
+from singa_tpu_torch.ops import _kernels
+out, dev, argv = sys.argv[1], sys.argv[2] or None, sys.argv[3:]
+code = main(argv, device=dev)
+with open(out, "w") as f:
+    json.dump({"code": code, "launches": _kernels.LAUNCHES}, f)
+sys.exit(code)
+"""
+
+
+def cli_conf(tmp, conf=None):
+    """A copy of lm.conf (or `conf`) with a checkpoint every CLI_CKPT
+    steps: the shipped config sets none, and `--workspace` alone then
+    saves only at the end, so a fault would have nothing to resume."""
+    with open(conf or LM_CONF) as f:
+        text = re.sub(r"(?m)^checkpoint_frequency:.*$", "", f.read())
+    path = os.path.join(tmp, "lm_ckpt.conf")
+    with open(path, "w") as f:
+        f.write(f"checkpoint_frequency: {CLI_CKPT}\n" + text)
+    return path
+
+
+def cli_argv(conf, ws, steps=CLI_STEPS, *extra):
+    return ["-model_conf", conf, "--synthetic", "--steps", str(steps),
+            "--workspace", ws, "--scan_chunk", str(CLI_CHUNK), *extra]
+
+
+def run_main(argv, dev, trace=None):
+    """`singa_tpu_torch.main.main(argv)` in this process; returns (exit
+    code, the log it printed).  `trace` turns telemetry on and writes
+    the span trace there."""
+    import contextlib
+    import io
+    from singa_tpu_torch.main import main as tmain
+    if trace:
+        argv = [*argv, "--obs", "on", "--obs_spec", f"trace={trace}"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        code = tmain(argv, device=None if dev == "cuda" else dev)
+    return code, buf.getvalue()
+
+
+def snapshot(ws, step=None):
+    """(params, opt_state, step) of a workspace's newest (or `step`'s)
+    snapshot, as CPU tensors."""
+    from singa_tpu_torch import CheckpointManager
+    p, o, s = CheckpointManager(ws, log_fn=lambda m: None).restore(step)
+    t = lambda d: {k: (t(v) if isinstance(v, dict)  # noqa: E731
+                       else torch.from_numpy(np.asarray(v)))
+                   for k, v in d.items()}
+    return t(p), t(o), s
+
+
+def state_equal(a, b) -> bool:
+    """Two (nested) dicts or tuples of tensors equal under torch.equal."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(state_equal, a, b))
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def expect_in(text, *needles):
+    for n in needles:
+        assert n in text, (n, text[-3000:])
+
+
+def cli_trainer(conf, dev, health=None, graphs=None):
+    from singa_tpu_torch import Trainer, load_model_config
+    from singa_tpu_torch.data import discover_input_shapes
+    cfg = load_model_config(conf)
+    return Trainer(cfg, discover_input_shapes(cfg, force_synthetic=True),
+                   device=dev, log_fn=lambda m: None, health=health,
+                   graphs=graphs)
+
+
+def cli_stream(conf, skip=()):
+    """The CLI's synthetic training stream (seed 0), without the stream
+    indices in `skip`."""
+    from singa_tpu_torch import load_model_config
+    from singa_tpu_torch.data import resolve_data_source
+    cfg = load_model_config(conf)
+    p = next(l for l in cfg.neuralnet.layer if l.type == "kSequenceData")
+    it, _ = resolve_data_source(cfg, p.seqdata_param.batchsize, seed=0,
+                                force_synthetic=True)
+    try:
+        for i, b in enumerate(it):
+            if i not in skip:
+                yield b
+    finally:
+        it.close()
+
+
+def train_a(dev, conf, ws, expect_launches):
+    """12a: the supervised CLI in a subprocess, with a torn save and a
+    preemption: exit 0, the torn snapshot skipped, a resume from step
+    CLI_CKPT, a workspace the port restores, and (on the card) 2 K1,
+    K3 and K4 launches a step."""
+    out = os.path.join(ws, "launches.json")
+    argv = cli_argv(conf, ws, CLI_STEPS, "--max-restarts", "2",
+                    "--feeder", "on", "--fault_spec", CLI_FAULTS)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", CLI_WRAPPER, out,
+                          "" if dev == "cuda" else dev, *argv], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    text = res.stdout + res.stderr
+    if res.returncode != 0:
+        print(text[-8000:], file=sys.stderr)
+    assert res.returncode == 0, res.returncode
+    expect_in(text, "checkpoint step 16 is corrupt or partial",
+              f"resumed from step {CLI_CKPT} (attempt 2)",
+              "preemption at", "training done")
+    with open(out) as f:
+        launches = json.load(f)["launches"]
+    # attempt 1 trains steps [0, 16), attempt 2 [8, 40)
+    trained = 2 * CLI_CKPT + (CLI_STEPS - CLI_CKPT)
+    if expect_launches:
+        want = {k: 0 for k in launches}
+        want.update({k: 2 * trained for k in ("flash_fwd", "flash_dq",
+                                              "flash_dkv")})
+        assert launches == want, launches
+    tr = cli_trainer(conf, dev)
+    p, o = tr.init(0)
+    p, o, step = tr.resume(p, o, ws)
+    assert step == CLI_STEPS and all(torch.isfinite(v).all()
+                                     for v in p.values())
+    log(f"[cli] 12a python -m singa_tpu_torch.main {' '.join(argv[:2])} "
+        f"... --fault_spec '{CLI_FAULTS}' --feeder on: exit 0 in "
+        f"{wall:.3f} s wall (process start included); the torn step-16 "
+        f"snapshot skipped, resumed from step {CLI_CKPT}; {trained} steps "
+        f"trained for {CLI_STEPS}; launches {launches}; the workspace "
+        f"restores in the port at step {step}")
+    return launches
+
+
+def trace_spans(path):
+    with open(path) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def train_b(dev, conf, ws_sup, ws_ref, ws_a):
+    """12b: the same supervised run through main(argv) in this process
+    (with telemetry on, for 12g's times), against an uninterrupted run:
+    final params and Adam state equal under torch.equal; 12a's workspace
+    too."""
+    trace = os.path.join(ws_sup, "trace.json")
+    code, text = run_main(cli_argv(conf, ws_sup, CLI_STEPS,
+                                   "--max-restarts", "2", "--feeder", "on",
+                                   "--fault_spec", CLI_FAULTS), dev,
+                          trace=trace)
+    assert code == 0, text[-3000:]
+    expect_in(text, f"resumed from step {CLI_CKPT} (attempt 2)")
+    code, text = run_main(cli_argv(conf, ws_ref, CLI_STEPS, "--feeder", "on"),
+                          dev)
+    assert code == 0, text[-3000:]
+    sup, ref, cli = snapshot(ws_sup), snapshot(ws_ref), snapshot(ws_a)
+    assert sup[2] == ref[2] == cli[2] == CLI_STEPS
+    for name, got in (("in process", sup), ("12a's subprocess", cli)):
+        assert state_equal(got[0], ref[0]), name
+        assert state_equal(got[1], ref[1]), name
+    # the same faults on a trainer held here: its restart copies the
+    # restored state into the captured tensors and captures nothing anew
+    from singa_tpu_torch.core.supervisor import Supervisor
+    from singa_tpu_torch.utils.faults import Backoff, FaultSchedule, inject
+    from singa_tpu_torch.utils.health import HealthMonitor
+    tr = cli_trainer(conf, dev, health=HealthMonitor(log_fn=lambda m: None))
+    tr.cfg.train_steps = CLI_STEPS
+    sup = Supervisor(tr, os.path.join(ws_sup, "held"), max_restarts=2,
+                     backoff=Backoff(base=0.0, cap=0.0, jitter=0.0),
+                     log=lambda m: None)
+    with inject(FaultSchedule.parse(CLI_FAULTS)):
+        p, o, _ = sup.run(lambda: cli_stream(conf), seed=0,
+                          scan_chunk=CLI_CHUNK)
+    assert [f.kind for f in sup.failures] == ["preemption"], sup.failures
+    ncap = len(tr._train_graph._graphs) if tr.graphs else 0
+    assert ncap == (1 if dev == "cuda" else 0), ncap
+    assert state_equal(p, ref[0]) and state_equal(o, ref[1])
+    del tr, sup
+    spans = trace_spans(trace)
+    att = sorted((e for e in spans if e["name"] == "supervisor.attempt"),
+                 key=lambda e: e["ts"])
+    assert len(att) == 2, [e["args"] for e in att]
+    fail = att[0]["ts"] + att[0]["dur"]
+
+    def first_after(name):
+        return min(e["ts"] + e["dur"] for e in spans
+                   if e["name"] == name and e["ts"] >= fail)
+    saves = [e["dur"] / 1e3 for e in spans if e["name"] == "ckpt.save"]
+    restores = [e["dur"] / 1e3 for e in spans
+                if e["name"] == "ckpt.restore"]
+    log(f"[cli] 12b supervised main(argv) in process equals an "
+        f"uninterrupted run after {CLI_STEPS} steps (params and Adam "
+        f"state, torch.equal), and so does 12a's workspace; a Supervisor "
+        f"on a trainer held here restarts once and equals it too, with "
+        f"{ncap} CUDA graph captured in both attempts")
+    log(f"[cli] 12g preemption -> first chunk after the restore "
+        f"dispatched {(first_after('trainer.chunk') - fail) / 1e3:.3f} ms, "
+        f"its {CLI_CHUNK} steps' metrics drained "
+        f"{(first_after('trainer.drain') - fail) / 1e3:.3f} ms (init, "
+        f"restore, stream fast-forward, first chunk; from the span trace)")
+    log(f"[cli] 12g lm.conf snapshot save (params + Adam state, f32 npz, "
+        f"fsync): {len(saves)} saves, mean {np.mean(saves):.3f} ms, max "
+        f"{max(saves):.3f} ms; restore: {len(restores)}, mean "
+        f"{np.mean(restores):.3f} ms, max {max(restores):.3f} ms")
+
+
+def train_c(dev, conf, ws):
+    """12c: NaN gradients at step 13 with blamed batches and an LR
+    backoff: the fatal window is never saved (its save refused), the
+    run rolls back to step 8 with lr_scale 0.5, and lands equal to a
+    manual baseline making the same decisions; a replay after the
+    backoff equals an eager step."""
+    from singa_tpu_torch.utils.faults import FaultSchedule, inject
+    from singa_tpu_torch.utils.health import (HealthMonitor,
+                                              NumericDivergence)
+    from singa_tpu_torch import CheckpointManager
+    # the refusal, on a captured trainer on the card
+    mon = HealthMonitor(log_fn=lambda m: None)
+    tr = cli_trainer(conf, dev, health=mon)
+    tr.cfg.train_steps = CLI_STEPS
+    p, o = tr.init(0)
+    wsr = os.path.join(ws, "refused")
+    try:
+        with inject(FaultSchedule.parse("step.grad@13:nan")):
+            tr.run(p, o, cli_stream(conf), seed=0, workspace=wsr,
+                   scan_chunk=CLI_CHUNK)
+        raise AssertionError("no NumericDivergence")
+    except NumericDivergence as e:
+        assert (e.step, e.status, e.metric) == (13, "nonfinite",
+                                                "grad_norm"), e
+    ck = CheckpointManager(wsr, log_fn=lambda m: None)
+    assert ck.available_steps() == [CLI_CKPT], ck.available_steps()
+    assert not mon.ok_to_save()
+    st = tr._state or {"params": p, "opt": o}
+    assert tr._save_checkpoint(ck, 16, st["params"], st["opt"]) is False
+    assert ck.available_steps() == [CLI_CKPT]
+    del tr
+    # the CLI's rescue
+    wsc = os.path.join(ws, "rescue")
+    code, text = run_main(cli_argv(
+        conf, wsc, CLI_STEPS, "--max-restarts", "2", "--fault_spec",
+        "step.grad@13:nan", "--health_spec", "blame_batches=2,lr_backoff=0.5"),
+        dev)
+    assert code == 0, text[-3000:]
+    expect_in(text, "numeric divergence at step 13",
+              "blaming batches [13, 15)", "LR backoff x0.5 (scale now 0.5)",
+              f"resumed from step {CLI_CKPT} (attempt 2)")
+    got = snapshot(wsc)
+    # the baseline: CLI_CKPT steps, then lr x0.5 without stream batches
+    # 13 and 14, as replays and eagerly
+    finals = {}
+    for graphs in (None, False):
+        tr = cli_trainer(conf, dev, graphs=graphs)
+        tr.cfg.train_steps = CLI_CKPT
+        p, o = tr.init(0)
+        it = cli_stream(conf)
+        p, o, _ = tr.run(p, o, it, seed=0, scan_chunk=CLI_CKPT)
+        it.close()
+        tr.cfg.train_steps = CLI_STEPS
+        tr.updater.lr_scale = 0.5
+        it = cli_stream(conf, skip=(13, 14))
+        for _ in range(CLI_CKPT):
+            next(it)
+        p, o, _ = tr.run(p, o, it, seed=0, start_step=CLI_CKPT,
+                         scan_chunk=CLI_CHUNK)
+        finals["replay" if graphs is None else "eager"] = (p, o)
+        del tr
+    for mode, (p, o) in finals.items():
+        assert state_equal(got[0], p) and state_equal(got[1], o), mode
+    log(f"[cli] 12c step.grad@13:nan: NumericDivergence (13, nonfinite, "
+        f"grad_norm) on the card, the window's save refused (snapshots "
+        f"{ck.available_steps()}); the CLI rescue (blame_batches=2, "
+        f"lr_backoff=0.5) rolled back to step {CLI_CKPT} with lr_scale "
+        f"0.5 and equals its manual baseline, replayed and eager, after "
+        f"{CLI_STEPS} steps (torch.equal)")
+
+
+def train_d(dev, conf, ws):
+    """12d: a spike at step 9 leaves the step-16 snapshot with verdict
+    "spike" in the manifest; an engine on that workspace serves step 8,
+    the last "ok" one."""
+    from singa_tpu_torch import CheckpointManager, InferenceEngine, ServeSpec
+    code, text = run_main(cli_argv(conf, ws, CLI_SPIKE_STEPS, "--fault_spec",
+                                   "step.grad@9:spike"), dev)
+    assert code == 0, text[-3000:]
+    expect_in(text, "health SPIKE at step 9")
+    ck = CheckpointManager(ws, log_fn=lambda m: None)
+    verdicts = {s: ck.health_verdict(s) for s in ck.available_steps()}
+    assert verdicts == {CLI_CKPT: "ok", 2 * CLI_CKPT: "spike"}, verdicts
+    tr = cli_trainer(conf, dev)
+    net = tr.test_net or tr.train_net
+    eng = InferenceEngine(net, ServeSpec(buckets=((1, 16),),
+                                         max_new_tokens=4),
+                          device=dev, workspace=ws, log_fn=lambda m: None)
+    assert eng.load() == CLI_CKPT
+    want = snapshot(ws, CLI_CKPT)[0]
+    assert all(torch.equal(eng.params[k].float().cpu(), want[k])
+               for k in want)
+    toks = eng.run_batch("generate", np.ones((1, 16), np.int32),
+                         np.array([16], np.int32))
+    assert toks.shape == (1, 4)
+    log(f"[cli] 12d step.grad@9:spike: manifest verdicts {verdicts}, "
+        f"written by the trainer; an engine on the workspace serves step "
+        f"{eng.params_step} (the last 'ok') and generates {toks.tolist()}")
+
+
+def train_e(dev, conf):
+    """12e: --feeder on against off at scan_chunk CLI_CHUNK on one
+    trainer, in turns: equal params after each run (torch.equal), one
+    capture for the geometry, tokens/s of each."""
+    tr = cli_trainer(conf, dev)
+    tr.cfg.train_steps = CLI_STEPS
+    b = tr.train_net.layers["data"].cfg.seqdata_param
+    tokens = CLI_STEPS * b.batchsize * b.seq_len
+    res, ms = {}, {"on": [], "off": []}
+    # a first run with the feeder captures (its thread stages meanwhile);
+    # then rounds in turns
+    order = ["on"] + [m for r in range(FEED_ROUNDS)
+                      for m in (("off", "on") if r % 2 == 0
+                                else ("on", "off"))]
+    for i, mode in enumerate(order):
+        p, o = tr.init(0)
+        it = cli_stream(conf)
+        torch.cuda.synchronize() if dev == "cuda" else None
+        t0 = time.perf_counter()
+        p, o, _ = tr.run(p, o, it, seed=0, scan_chunk=CLI_CHUNK,
+                         feeder=(mode == "on"))
+        torch.cuda.synchronize() if dev == "cuda" else None
+        if i:
+            ms[mode].append((time.perf_counter() - t0) * 1e3)
+        it.close()
+        state = ({k: v.clone() for k, v in p.items()},
+                 {k: {n: t.clone() for n, t in d.items()}
+                  for k, d in o.items()})
+        if mode in res:
+            assert state_equal(state, res[mode]), mode
+        res[mode] = state
+    assert state_equal(res["on"], res["off"])
+    ncap = len(tr._train_graph._graphs) if tr.graphs else 0
+    assert ncap == (1 if dev == "cuda" else 0), ncap
+    log(f"[cli] 12e --feeder on equals off after {CLI_STEPS} steps "
+        f"(torch.equal), {ncap} capture for the one geometry over "
+        f"{len(order)} runs (the first, with the feeder, captures); "
+        f"{CLI_STEPS}-step runs in turns ({order[1:]}): on "
+        f"{[round(x, 3) for x in ms['on']]} ms, off "
+        f"{[round(x, 3) for x in ms['off']]} ms; tokens/s on "
+        f"{tokens / (np.mean(ms['on']) / 1e3):.1f}, off "
+        f"{tokens / (np.mean(ms['off']) / 1e3):.1f}")
+
+
+def train_g_health(dev, conf):
+    """12g: the replayed lm.conf step with the health probes and without,
+    in turns, and the drain's share of a chunk."""
+    from singa_tpu_torch.utils.health import HealthMonitor
+    it = cli_stream(conf)
+    batches = [next(it) for _ in range(CLI_CHUNK)]
+    it.close()
+    stacked = {"data": {f: torch.from_numpy(np.stack(
+        [b["data"][f] for b in batches])).to(dev) for f in ("input",
+                                                            "target")}}
+    runs, drains = {}, {"on": [], "off": []}
+    for mode in ("off", "on"):
+        mon = HealthMonitor(log_fn=lambda m: None) if mode == "on" else None
+        tr = cli_trainer(conf, dev, health=mon)
+        p, o = tr.init(0)
+        state = {"p": p, "o": o, "step": 0}
+
+        def run(tr=tr, state=state, mon=mon, mode=mode):
+            for _ in range(HEALTH_STEPS // CLI_CHUNK):
+                p, o, m = tr.train_steps(state["p"], state["o"], stacked,
+                                         state["step"], CLI_CHUNK,
+                                         stacked=True)
+                state.update(p=p, o=o)
+                torch.cuda.synchronize() if dev == "cuda" else None
+                t0 = time.perf_counter()
+                for s, mm in enumerate(tr.drain_metrics(m),
+                                       start=state["step"]):
+                    if mon is not None:
+                        mon.observe(s, mm)
+                drains[mode].append((time.perf_counter() - t0) * 1e3)
+                state["step"] += CLI_CHUNK
+        run()                       # captures
+        drains[mode].clear()
+        runs[mode] = run
+    ms = in_turns(runs, HEALTH_ROUNDS)
+    step = {k: np.mean(v) / HEALTH_STEPS for k, v in ms.items()}
+    share = {k: np.sum(drains[k]) / np.sum(ms[k]) for k in ms}
+    log(f"[cli] 12g replayed lm.conf step (chunks of {CLI_CHUNK}, "
+        f"{HEALTH_ROUNDS} rounds of {HEALTH_STEPS} steps in turns): health "
+        f"on {step['on']:.4f} ms, off {step['off']:.4f} ms "
+        f"({100 * (step['on'] / step['off'] - 1):+.2f}%); runs on "
+        f"{[round(x, 3) for x in ms['on']]} ms, off "
+        f"{[round(x, 3) for x in ms['off']]} ms; the drain (one fetch of "
+        f"a chunk's metrics after the device is idle, plus classifying "
+        f"{CLI_CHUNK} steps) is {100 * share['on']:.2f}% of the time with "
+        f"health on ({np.mean(drains['on']):.3f} ms a chunk), "
+        f"{100 * share['off']:.2f}% off ({np.mean(drains['off']):.3f} ms)")
+
+
+def alexnet_shard(tmp, n=ALEX_RECORDS, shape=(3, 32, 32)):
+    """A shard folder of `n` CIFAR-shaped records (uint8 images and
+    labels, numpy seed 0) written with the port's Shard, and a copy of
+    examples/cifar10/alexnet.conf that reads it."""
+    from singa_tpu_torch.data.records import Record, SingleLabelImageRecord
+    from singa_tpu_torch.data.shard import Shard
+    folder = os.path.join(tmp, "cifar_shard")
+    os.makedirs(folder)
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, (n,) + shape, dtype=np.uint8)
+    labels = rng.integers(0, 10, n)
+    with Shard(folder, Shard.KCREATE) as sh:
+        for i in range(n):
+            sh.insert(f"{i:06d}", Record(image=SingleLabelImageRecord(
+                shape=list(shape), label=int(labels[i]),
+                pixel=imgs[i].tobytes())).encode())
+    with open(ALEX_CONF) as f:
+        text = f.read()
+    assert text.count("batchsize: 1024") == 1
+    text = text.replace("batchsize: 1024",
+                        f'batchsize: 1024\n      path: "{folder}"')
+    conf = os.path.join(tmp, "alexnet_shard.conf")
+    with open(conf, "w") as f:
+        f.write(text)
+    return folder, conf
+
+
+def train_f(dev, tmp, expect_launches, n=ALEX_RECORDS, batch=None):
+    """12f: AlexNet-CIFAR10 from a shard folder through the CLI: the
+    discovered geometry is the shard's, K5 and K6 launch 2 + 2 a step,
+    and the loss is finite."""
+    from singa_tpu_torch import load_model_config
+    from singa_tpu_torch.data import discover_input_shapes
+    from singa_tpu_torch.data.discovery import _peek_shard
+    from singa_tpu_torch.ops import _kernels
+    t0 = time.perf_counter()
+    folder, conf = alexnet_shard(tmp, n)
+    t_write = time.perf_counter() - t0
+    assert _peek_shard(folder) == (3, 32, 32)
+    shapes = discover_input_shapes(load_model_config(conf))
+    assert shapes["data"]["pixel"] == (3, 32, 32), shapes
+    argv = ["-model_conf", conf, "--steps", str(ALEX_CLI_STEPS)]
+    if batch:
+        argv += ["--batchsize", str(batch)]
+    torch.cuda.synchronize() if dev == "cuda" else None
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    code, text = run_main(argv, dev)
+    torch.cuda.synchronize() if dev == "cuda" else None
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    assert code == 0, text[-3000:]
+    done = [ln for ln in text.splitlines() if "training done" in ln][-1]
+    loss = float(re.search(r"loss : ([-+0-9.einfa]+)", done).group(1))
+    assert math.isfinite(loss), done
+    if expect_launches:
+        want = {k: 0 for k in launches}
+        want.update(lrn_fwd=2 * ALEX_CLI_STEPS, lrn_bwd=2 * ALEX_CLI_STEPS)
+        assert launches == want, launches
+    log(f"[cli] 12f AlexNet-CIFAR10 (examples/cifar10/alexnet.conf, batch "
+        f"{batch or 1024}) from a shard folder of {n} records written in "
+        f"{t_write:.3f} s: discovery peeked {shapes['data']['pixel']}; "
+        f"{ALEX_CLI_STEPS} CLI steps in {wall:.3f} s wall (net build, "
+        f"data, eager steps); launches {launches}; mean loss {loss:.6f}")
+    return launches
+
+
+def phase_cli(dev, conf=None, expect_launches=True, alex=None):
+    """Phase 12: training as users run it — the CLI with the Supervisor,
+    the health tier, the fault sites and the data pipeline.  `conf`
+    (lm.conf by default) and `alex` ((records, batch) for 12f) cut it
+    down for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli-", dir=os.path.join(REPO, "build"))
+    clock = [time.perf_counter()]
+
+    def took(what):
+        now = time.perf_counter()
+        log(f"[time] phase 12{what}: {now - clock[0]:.1f} s")
+        clock[0] = now
+    try:
+        conf = cli_conf(tmp, conf)
+        ws = {k: os.path.join(tmp, k) for k in ("a", "b", "ref", "c", "d")}
+        launches = train_a(dev, conf, ws["a"], expect_launches)
+        took("a")
+        train_b(dev, conf, ws["b"], ws["ref"], ws["a"])
+        took("b")
+        train_c(dev, conf, ws["c"])
+        took("c")
+        train_d(dev, conf, ws["d"])
+        took("d")
+        train_e(dev, conf)
+        took("e")
+        launches.update({k: v for k, v in train_f(
+            dev, tmp, expect_launches, *(alex or ())).items()
+            if k in ("lrn_fwd", "lrn_bwd")})
+        took("f")
+        train_g_health(dev, conf)
+        took("g")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache() if dev == "cuda" else None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2670,6 +3191,9 @@ def main() -> int:
     took("phase 10")
     phase_front(dev)
     took("phase 11")
+    cli = phase_cli(dev)
+    log(f"[cli] phase 12's launches on the CLI paths: {cli}")
+    took("phase 12")
 
     kernels = []
     for name, res, replaces in (

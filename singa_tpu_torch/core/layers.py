@@ -17,9 +17,10 @@ kSlice, kSplit, kBridgeSrc, kBridgeDst.  Vision activations are NHWC at
 every layer boundary, as in the JAX zoo.  The sequence family lives in
 core/seq_layers.py and registers on import.
 
-Not ported yet (ROADMAP.md A6, A7): kMnistImage's elastic distortion
-(`ops/augment.py`) and kRGBImage's `meanfile` (`data/records.py`); a
-config that asks for either raises instead of skipping it.
+Not ported yet (ROADMAP.md A6): kMnistImage's elastic distortion
+(`ops/augment.py`) and kRGBImage's `meanfile` (a mean record read with
+`data/records.py`); a config that asks for either raises instead of
+skipping it.
 """
 
 from __future__ import annotations
@@ -225,8 +226,8 @@ class RGBImageLayer(Layer):
     Crop offsets and mirror coins are drawn per image from the layer's
     generator, as the reference draws them per record; mirroring is
     train-only (the JAX package's two deviations, `:265-275`).  The mean
-    comes with the batch (`mean`); a configured `meanfile` needs
-    `data/records.py`, not ported yet (ROADMAP.md A7), and raises."""
+    comes with the batch (`mean`); a configured `meanfile` is not
+    loaded yet (ROADMAP.md A6) and raises."""
 
     def setup(self, src_shapes):
         p = self.cfg.rgbimage_param
@@ -235,10 +236,10 @@ class RGBImageLayer(Layer):
         self.mirror = bool(p.mirror) if p else False
         if p and p.meanfile:
             raise LayerError(
-                f"{self.name}: rgbimage_param.meanfile {p.meanfile!r} needs "
-                f"the record reader (data/records.py, ROADMAP.md A7), which "
-                f"the port does not have yet; supply the mean with the "
-                f"batch as its 'mean' field")
+                f"{self.name}: rgbimage_param.meanfile {p.meanfile!r}: "
+                f"the port does not load a mean record (data/records.py) "
+                f"yet (ROADMAP.md A6); "
+                f"supply the mean with the batch as its 'mean' field")
         b, c, h, w = src_shapes[0]["pixel"]   # (B, C, H, W) host layout
         cs = self.cropsize
         self.draws = self.mirror or bool(cs and (h > cs or w > cs))

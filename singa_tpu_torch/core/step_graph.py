@@ -28,7 +28,9 @@ per batch geometry (the path, shape and dtype of every batch leaf).
   an eager call does, so a replay after `manual_seed(n)` draws what an
   eager call seeded with n draws.
 - A capture that fails raises `CaptureError`, naming the op that broke
-  it.  Nothing falls back to running eagerly.
+  it.  Nothing falls back to running eagerly.  Captures are
+  thread-local, so a thread that copies the next batches to the card
+  meanwhile (`data.feed.DeviceFeeder`) does not break them.
 - `_kernels.LAUNCHES` counts Python calls of the kernel wrappers, and a
   replay makes none: the launches made while capturing are recorded and
   added to the counts at every replay.  Warm-up and capture add nothing
@@ -197,7 +199,11 @@ class StepGraph:
                     f"repeat one draw")
             graph.register_generator_state(gen)
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            # thread-local capture: another thread's CUDA calls (a
+            # DeviceFeeder staging the next chunk) neither break the
+            # capture nor join it
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
                 out = fn(state, static)
         except RuntimeError as e:
             raise CaptureError(f"{self.name}: CUDA graph capture failed "

@@ -28,27 +28,42 @@ checkpoint_frequency/checkpoint_after_steps; metrics averaged over the
 display interval (worker.cc:350-386); per-phase wall time in the style
 of TimerInfo (worker.h:91-114).
 
-Not ported yet (ROADMAP.md): the overlapped feeder, elastic/async sync,
-pipeline nets, health probes, fault sites, the SIGTERM/SIGINT checkpoint
-guard, contrastive-divergence (RBM) training and `profile_phases`.
+The robustness tier of the JAX trainer is here too: with a
+`HealthMonitor` (`health=`) the train step computes the health probes
+on the device (`utils/health.py`), eager or captured, and they drain
+with the chunk's metrics; a fatal verdict raises `NumericDivergence`
+before a hook or a save sees the step, and saves carry the window's
+verdict (a fatal window's save is refused).  The `step.train` site is
+visited once per loop iteration and `step.grad` once per step; a step
+whose gradients a `step.grad` fault poisons runs eagerly on the graphs'
+own tensors, so the captured graphs never branch.  While a workspace
+is checkpointed, SIGTERM/SIGINT save at the current step and return.
+`run(scan_chunk=k)` stages chunks through `data.feed` (a `DeviceFeeder`
+thread by default).
+
+Not ported yet (ROADMAP.md): elastic/async sync, pipeline nets,
+contrastive-divergence (RBM) training and `profile_phases`.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
-import numpy as np
 import torch
 
+from .. import obs
 from ..config.schema import ModelConfig
 from ..device import DeviceLike, resolve_device
+from ..obs import perf
+from ..utils import faults
 from ..utils.checkpoint import CheckpointManager
 from ..weights import opt_state_from_numpy, params_from_numpy
 from . import seq_layers  # noqa: F401  (registers the layer types)
 from .layers import LAYER_REGISTRY
-from .net import NeuralNet, _to_device, build_net
+from .net import NeuralNet, build_net
 from .step_graph import StepGraph, leaves
 from .updater import make_updater
 
@@ -81,8 +96,9 @@ class Performance:
 @dataclass
 class TimerInfo:
     """Per-phase wall-time accumulator (worker.h:91-114): `wait` (the
-    batch source) and `train` (the step, ending when its metrics reach
-    the host)."""
+    batch source, or the feeder), `stage` (stacking and issuing a
+    chunk's copy; the feeder's thread does it off the critical path) and
+    `train` (the steps, and the drain's wait for their metrics)."""
     times: Dict[str, float] = field(default_factory=dict)
     steps: int = 0
 
@@ -108,17 +124,6 @@ def _index(batch, i: int):
     return batch[i]
 
 
-def _stack(batches):
-    """Host batches (nested dicts of numpy arrays or tensors) → one batch
-    whose leaves carry a leading step axis."""
-    first = batches[0]
-    if isinstance(first, dict):
-        return {k: _stack([b[k] for b in batches]) for k in first}
-    if isinstance(first, torch.Tensor):
-        return torch.stack(batches)
-    return np.stack(batches)
-
-
 class Trainer:
     """Single-device training loop.  Runs on CUDA unless `device` says
     otherwise (see `singa_tpu_torch.device`)."""
@@ -127,9 +132,15 @@ class Trainer:
                  input_shapes: Dict[str, Dict[str, tuple]],
                  log_fn: Optional[Callable[[str], None]] = None,
                  device: DeviceLike = None, seed: int = 0,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, health=None):
         """`seed` seeds the per-step generators of the layers that draw
         (see `Context.layer_rng`); params come from `init(seed)`.
+
+        `health` (a `utils.health.HealthMonitor`) arms the numeric-health
+        sentinel: the train step also returns the health probes (in the
+        graph too), the drain classifies each step, a fatal verdict
+        raises `NumericDivergence`, and saves carry (and are gated on)
+        the window's verdict.  None runs exactly the step without them.
 
         `graphs` picks how the steps run.  None: as CUDA-graph replays
         on CUDA when no layer of the train net draws, else eagerly (the
@@ -138,6 +149,7 @@ class Trainer:
         eagerly.  `self.graphs` holds the choice."""
         self.cfg = model_cfg
         self.seed = seed
+        self.health = health
         self.log = log_fn if log_fn is not None \
             else (lambda msg: print(f"[trainer] {msg}", flush=True))
         self.device = resolve_device(device)
@@ -160,6 +172,10 @@ class Trainer:
         self.val_step = self._eval_step(self.val_net)
         self.perf = Performance()
         self.timer = TimerInfo()
+        # post-save publication hook (step, verdict): runs after a
+        # snapshot and its verdict are on disk; a raising hook is logged
+        self.on_checkpoint: Optional[Callable[[int, Optional[str]],
+                                              None]] = None
         for nm, freq, steps in (
                 ("test", model_cfg.test_frequency, model_cfg.test_steps),
                 ("validation", model_cfg.validation_frequency,
@@ -253,22 +269,38 @@ class Trainer:
         return ({k: v.detach() for k, v in metrics.items()},
                 dict(zip(names, grads)))
 
-    def _step(self, params, opt_state, batch, step: Optional[int]):
+    def _step(self, params, opt_state, batch, step: Optional[int],
+              poison: Optional[float] = None):
         """Forward, backward and the update of the step last written by
         `Updater.set_step`: the device work of one train step, eager or
-        captured."""
+        captured.  `poison` (a `step.grad` fault's scale) multiplies the
+        gradients first.  With a health monitor the metrics gain the
+        probes, over a copy of the params taken before the update (the
+        updater writes them in place)."""
         metrics, grads = self.gradients(params, batch, step)
         grads = {k: g if g is not None else torch.zeros_like(params[k])
                  for k, g in grads.items()}
+        if poison is not None:
+            grads = {k: g * poison for k, g in grads.items()}
+        old = None
+        if self.health is not None:
+            # one multi-tensor copy (x * 1.0 is exact)
+            names = list(params)
+            old = dict(zip(names, torch._foreach_mul(
+                [params[k] for k in names], 1.0)))
         self.updater.apply(grads, params, opt_state,
                            multipliers=self.multipliers)
+        if old is not None:
+            from ..utils.health import health_probes
+            metrics = {**metrics, **health_probes(grads, old, params)}
         return metrics
 
     def _train_body(self, state, batch):
         # no layer draws under graphs, so the step number is not needed
         return self._step(state["params"], state["opt"], batch, None)
 
-    def train_step(self, params, opt_state, batch, step: int):
+    def train_step(self, params, opt_state, batch, step: int,
+                   poison: Optional[float] = None):
         """Forward, backward and update at `step`: params and opt_state
         are updated in place and returned with the step's metrics (0-d
         device tensors).  Gradients come from `torch.autograd.grad`, so
@@ -281,27 +313,36 @@ class Trainer:
         in place; a call with others (after `resume` or
         `params_from_numpy`, say) copies them in first.  Either way the
         call returns the graphs' dicts, and the metrics are the graph's
-        outputs, which the next replay overwrites."""
+        outputs, which the next replay overwrites.
+
+        `poison` (None normally) is a `step.grad` fault's gradient scale;
+        under `graphs` such a step runs eagerly on the graphs' own
+        tensors (replays and eager steps are bit-equal), so no graph
+        branches and a step without a fault replays as always."""
         if not self.graphs:
             self.updater.set_step(step, params, self.multipliers)
             return params, opt_state, self._step(params, opt_state, batch,
-                                                 step)
+                                                 step, poison)
         state = _own(self._state, params, opt_state)
         self.updater.set_step(step, state["params"], self.multipliers)
+        if poison is not None:
+            return state["params"], state["opt"], self._step(
+                state["params"], state["opt"], batch, None, poison)
         metrics = self._train_graph(self._train_body,
                                     {"params": state["params"],
                                      "opt": state["opt"]}, batch)
         return state["params"], state["opt"], metrics
 
     def train_steps(self, params, opt_state, batches, start_step: int,
-                    nsteps: int, stacked: bool = False):
+                    nsteps: int, stacked: bool = False, poison=None):
         """`nsteps` steps from `start_step` with no host sync between
         them, the reference's `lax.scan` (`:376-433`): with `stacked`,
         every leaf of `batches` carries a leading `nsteps` axis (a fresh
         batch per step), else one batch is reused.  Each step's metrics
         are copied into an (nsteps,) slot per key on the device before
         the next step can overwrite them; returns (params, opt_state,
-        those stacked metrics)."""
+        those stacked metrics).  `poison` (None normally) holds a
+        gradient scale per step, 1.0 where no `step.grad` fault fired."""
         if stacked:
             bad = [tuple(x.shape) for x in leaves(batches)
                    if x.ndim < 1 or x.shape[0] != nsteps]
@@ -311,8 +352,9 @@ class Trainer:
         out = None
         for i in range(nsteps):
             batch = _index(batches, i) if stacked else batches
+            pz = None if poison is None or poison[i] == 1.0 else poison[i]
             params, opt_state, m = self.train_step(params, opt_state, batch,
-                                                   start_step + i)
+                                                   start_step + i, pz)
             if out is None:
                 out = {k: v.new_empty((nsteps,) + tuple(v.shape))
                        for k, v in m.items()}
@@ -401,81 +443,236 @@ class Trainer:
         return max(n, 1)
 
     # -- the loop ----------------------------------------------------------
+    @staticmethod
+    def _feeder_on(feeder: Optional[bool]) -> bool:
+        """The overlapped feed is on by default for chunked loops; an
+        explicit argument wins, then SINGA_TPU_FEEDER=0/1."""
+        if feeder is not None:
+            return bool(feeder)
+        return os.environ.get("SINGA_TPU_FEEDER", "1") != "0"
+
+    @staticmethod
+    def _feeder_depth(depth: int = 0) -> int:
+        """Staged chunks ahead: the argument, then SINGA_TPU_FEEDER_DEPTH,
+        default 2."""
+        if depth and depth > 0:
+            return int(depth)
+        try:
+            return max(1, int(os.environ.get("SINGA_TPU_FEEDER_DEPTH",
+                                             "2")))
+        except ValueError:
+            return 2
+
+    def _chunk_plan(self, start_step: int, scan_chunk: int):
+        """The (start, length) chunks covering [start_step, train_steps)
+        with the loop's own cadence cuts, so a `DeviceFeeder` stages
+        exactly the batches the loop trains on."""
+        step = start_step
+        while step < self.cfg.train_steps:
+            n = self._next_chunk_len(step, scan_chunk)
+            yield step, n
+            step += n
+
     def run(self, params, opt_state, train_iter: Iterator,
             test_iter_factory: Optional[Callable[[], Iterator]] = None,
             val_iter_factory: Optional[Callable[[], Iterator]] = None,
-            start_step: int = 0,
+            start_step: int = 0, seed: Optional[int] = None,
             hooks: Optional[List[Callable[[int, Dict], None]]] = None,
-            workspace: Optional[str] = None, scan_chunk: int = 0):
+            workspace: Optional[str] = None, scan_chunk: int = 0,
+            feeder: Optional[bool] = None, feeder_depth: int = 0):
         """The Worker::Run loop (worker.cc:98-106).  With `workspace` and
         checkpoint_frequency > 0, saves {params, opt_state, step} after
         each step s >= checkpoint_after_steps with (s+1) %
         checkpoint_frequency == 0, and at the end.  Returns (params,
-        opt_state, history of test averages).
+        opt_state, history of test averages).  `seed`, when given,
+        replaces the trainer's seed for the layers that draw.
 
         `scan_chunk > 1` runs chunks of up to that many steps through
         `train_steps`, cut at every test, validation and checkpoint
-        boundary (`_next_chunk_len`); a chunk's metrics stay on the
-        device until it ends, then one fetch drains them and the hooks,
-        `Performance` and the display lines run per step, in step order.
-        `scan_chunk` 0 (or 1) runs one step and one fetch per
-        iteration.  The TimerInfo "train" phase takes the steps and the
-        drain's wait, as in the reference (`:824-826`)."""
+        boundary (`_next_chunk_len`).  A chunk is staged through
+        `data.feed`: by a `DeviceFeeder` thread that runs `feeder_depth`
+        chunks ahead (`feeder` None or True; SINGA_TPU_FEEDER=0 turns
+        the default off), or inline (`feeder=False`); both give the same
+        trajectory bit for bit.  A chunk's metrics stay on the device
+        until it is drained: one fetch per chunk, deferred by up to
+        `feeder_depth` chunks under the feeder and drained before every
+        display, evaluation and save; then the health monitor, the
+        hooks, `Performance` and the display lines run per step, in step
+        order.  `scan_chunk` 0 (or 1) runs one step and one fetch per
+        iteration.
+
+        While a checkpoint manager is active, SIGTERM/SIGINT (on the
+        main thread) save at the current step and return; the handlers
+        are restored on every exit."""
         cfg = self.cfg
-        ckpt = (CheckpointManager(workspace, log_fn=self.log)
-                if workspace and cfg.checkpoint_frequency > 0 else None)
+        if seed is not None:
+            self.seed = seed
+        ckpt, interrupted, old_handlers = self._ckpt_guard(workspace)
         history: List[Dict[str, float]] = []
-        saved = None
         chunked = scan_chunk > 1
         step = start_step
-        while step < cfg.train_steps:
-            if self.val_step and self.validate_now(step) \
-                    and val_iter_factory:
-                avg = self.evaluate(params, val_iter_factory(),
-                                    cfg.validation_steps, self.val_step)
-                self.log(f"step-{step} validation: " + ", ".join(
-                    f"{k} : {v:.6f}" for k, v in sorted(avg.items())))
-            if self.test_step and self.test_now(step) and test_iter_factory:
-                avg = self.evaluate(params, test_iter_factory(),
-                                    cfg.test_steps, self.test_step)
-                self.log(f"step-{step} test: " + ", ".join(
-                    f"{k} : {v:.6f}" for k, v in sorted(avg.items())))
-                history.append({"step": step, **avg})
-            n = self._next_chunk_len(step, scan_chunk) if chunked else 1
-            t0 = time.perf_counter()
-            batches = [next(train_iter) for _ in range(n)]
-            t1 = time.perf_counter()
-            if chunked:
-                params, opt_state, stacked = self.train_steps(
-                    params, opt_state,
-                    _to_device(_stack(batches), self.device), step, n,
-                    stacked=True)
-            else:
-                params, opt_state, m = self.train_step(
-                    params, opt_state, batches[0], step)
-                stacked = {k: v.reshape(1) for k, v in m.items()}
-            per_step = self.drain_metrics(stacked)
-            self.timer.add("wait", t1 - t0)
-            self.timer.add("train", time.perf_counter() - t1)
-            self.timer.steps += n
-            for s, metrics in enumerate(per_step, start=step):
-                self.perf.update(metrics)
-                for hook in hooks or ():
-                    self._call_hook(hook, s, metrics)
-                if self.display_now(s):
-                    self.log(f"step-{s}: {self.perf.to_string()}")
-                    self.log(self.timer.to_string())
-                    self.perf.reset()
-            last = step + n - 1
-            if (ckpt is not None and last >= cfg.checkpoint_after_steps
-                    and (last + 1) % cfg.checkpoint_frequency == 0):
-                ckpt.save(last + 1, params, opt_state)
-                saved = last + 1
-            step += n
-        if (ckpt is not None and cfg.train_steps > start_step
+        fd = stager = None
+        if chunked and self._feeder_on(feeder):
+            from ..data.feed import DeviceFeeder
+            fd = DeviceFeeder(train_iter,
+                              self._chunk_plan(start_step, scan_chunk),
+                              self.device,
+                              depth=self._feeder_depth(feeder_depth),
+                              capacity=scan_chunk)
+        elif chunked:
+            from ..data.feed import ChunkStager
+            stager = ChunkStager(self.device, capacity=scan_chunk)
+        # chunks whose metrics are still on the device; under the feeder
+        # up to depth+1, else 1 (a fetch per iteration)
+        ring = self._feeder_depth(feeder_depth) + 1 if fd is not None else 1
+        pending: List[tuple] = []
+        staged_credit = [0.0]
+        saved = None
+
+        def drain():
+            if pending:
+                with obs.span("trainer.drain", chunks=len(pending)):
+                    drain_chunks()
+
+        def drain_chunks():
+            while pending:
+                s0, stacked = pending.pop(0)
+                t = time.perf_counter()
+                per_step = self.drain_metrics(stacked)
+                self.timer.add("train", time.perf_counter() - t)
+                for s, metrics in enumerate(per_step, start=s0):
+                    if self.health is not None:
+                        self._observe(s, metrics)
+                    self.perf.update(metrics)
+                    for hook in hooks or ():
+                        self._call_hook(hook, s, metrics)
+                    if self.display_now(s):
+                        self.log(f"step-{s}: {self.perf.to_string()}")
+                        self.log(self.timer.to_string())
+                        self.perf.reset()
+
+        try:
+            while step < cfg.train_steps:
+                faults.maybe_fault("step.train")
+                if interrupted:
+                    drain()   # hooks and logs of every trained step first
+                    self.log(f"signal {interrupted[0]} received: "
+                             f"checkpointing at step {step} and stopping")
+                    self._save_checkpoint(ckpt, step, params, opt_state)
+                    break
+                if self.val_step and self.validate_now(step) \
+                        and val_iter_factory:
+                    drain()
+                    avg = self.evaluate(params, val_iter_factory(),
+                                        cfg.validation_steps, self.val_step)
+                    self.log(f"step-{step} validation: " + ", ".join(
+                        f"{k} : {v:.6f}" for k, v in sorted(avg.items())))
+                if self.test_step and self.test_now(step) \
+                        and test_iter_factory:
+                    drain()
+                    avg = self.evaluate(params, test_iter_factory(),
+                                        cfg.test_steps, self.test_step)
+                    self.log(f"step-{step} test: " + ", ".join(
+                        f"{k} : {v:.6f}" for k, v in sorted(avg.items())))
+                    history.append({"step": step, **avg})
+                n = self._next_chunk_len(step, scan_chunk) if chunked else 1
+                poison = self._grad_poison(n)
+                t0 = time.perf_counter()
+                if not chunked:
+                    batch = next(train_iter)
+                    t1 = time.perf_counter()
+                    with obs.span("trainer.chunk", start=step, steps=1):
+                        params, opt_state, m = self.train_step(
+                            params, opt_state, batch, step,
+                            poison[0] if poison is not None else None)
+                    # drained before the next replay overwrites them
+                    # (the ring is 1 without the feeder)
+                    stacked = {k: v.reshape(1) for k, v in m.items()}
+                else:
+                    if fd is not None:
+                        with obs.span("feeder.wait", start=step):
+                            chunk = fd.get()
+                        if chunk.start != step or chunk.length != n:
+                            from ..data.feed import FeedError
+                            raise FeedError(
+                                f"feed plan diverged: staged chunk "
+                                f"[{chunk.start}, +{chunk.length}) vs "
+                                f"loop [{step}, +{n})")
+                        self.timer.add("stage",
+                                       fd.stage_seconds - staged_credit[0])
+                        staged_credit[0] = fd.stage_seconds
+                    else:
+                        batches = [next(train_iter) for _ in range(n)]
+                        with obs.span("feeder.stage", start=step, steps=n):
+                            chunk = stager.stage(batches)
+                    t1 = time.perf_counter()
+                    with obs.span("trainer.chunk", start=step, steps=n):
+                        params, opt_state, stacked = self.train_steps(
+                            params, opt_state, chunk.take(), step, n,
+                            stacked=True, poison=poison)
+                t2 = time.perf_counter()
+                pending.append((step, stacked))
+                self.timer.add("wait", t1 - t0)
+                self.timer.add("train", t2 - t1)
+                self.timer.steps += n
+                # the first train dispatch latches the cold start
+                perf.mark_training_ready()
+                perf.observe_step("train_step", (t2 - t1) / n)
+                if (len(pending) >= ring
+                        or any(self.display_now(step + i)
+                               for i in range(n))):
+                    drain()
+                last = step + n - 1
+                if (ckpt is not None and last >= cfg.checkpoint_after_steps
+                        and (last + 1) % cfg.checkpoint_frequency == 0):
+                    # drain first: every step the snapshot holds has been
+                    # classified and seen by the hooks, and a poisoned
+                    # state never reaches the save
+                    drain()
+                    self._save_checkpoint(ckpt, last + 1, params, opt_state)
+                    saved = last + 1
+                step += n
+            drain()
+        finally:
+            # an exception mid-loop (an injected fault, a data failure)
+            # must leave neither our signal handlers nor the feed thread
+            if fd is not None:
+                fd.close()
+            self._ckpt_unguard(old_handlers)
+        # the final snapshot, unless the cadence just wrote it: a second
+        # save of that step would record the verdict of an empty window
+        # ("ok") over the one it holds
+        if (ckpt is not None and not interrupted
+                and cfg.train_steps > start_step
                 and saved != cfg.train_steps):
-            ckpt.save(cfg.train_steps, params, opt_state)
+            self._save_checkpoint(ckpt, cfg.train_steps, params, opt_state)
         return params, opt_state, history
+
+    def _observe(self, step: int, metrics: Dict[str, float]) -> None:
+        """Classify one drained step; raise on a fatal verdict, before
+        the step reaches a hook or a save."""
+        verdict = self.health.observe(step, metrics)
+        if verdict.status != "ok":
+            obs.emit_event("health.verdict", step=step,
+                           status=verdict.status, metric=verdict.metric,
+                           value=(float(verdict.value)
+                                  if verdict.value is not None else None),
+                           fatal=verdict.fatal)
+        if verdict.fatal:
+            raise verdict.to_error()
+
+    def _grad_poison(self, n: int):
+        """Visit the `step.grad` fault site once per step about to run;
+        a list of n gradient scales when any fires, else None (the
+        common case: every step replays its graph)."""
+        if faults.active() is None:
+            return None
+        from ..utils.health import SPIKE_SCALE
+        codes = [faults.maybe_fault("step.grad") for _ in range(n)]
+        if not any(codes):
+            return None
+        scale = {"nan": float("nan"), "spike": SPIKE_SCALE}
+        return [scale.get(c, 1.0) for c in codes]
 
     def _call_hook(self, hook, step, metrics) -> None:
         """User hooks are observers, not training logic: one that raises
@@ -487,13 +684,97 @@ class Trainer:
             self.log(f"warning: user hook {name} raised at step {step} "
                      f"({type(e).__name__}: {e}); continuing")
 
-    def resume(self, params, opt_state, workspace: str):
+    def _save_checkpoint(self, ckpt, step, params, opt_state) -> bool:
+        """A cadence, final or signal snapshot, gated on the health
+        verdict: a window the monitor classified as fatal is refused
+        (restoring it would resume the divergence); a suspect (spike)
+        window saves, with its verdict in MANIFEST.json, so a
+        `skip_unhealthy` restore walks past it."""
+        if ckpt is None:
+            return False
+        if self.health is None:
+            ckpt.save(step, params, opt_state)
+            self._publish(step, None)
+            return True
+        if not self.health.ok_to_save():
+            rec = self.health.snapshot_health()
+            self.log(f"health: refusing checkpoint at step {step} "
+                     f"(verdict {rec['verdict']!r} — restoring this "
+                     f"snapshot would resume the divergence)")
+            obs.emit_event("ckpt.refused", step=step,
+                           verdict=rec["verdict"])
+            return False
+        rec = self.health.snapshot_health()
+        ckpt.save(step, params, opt_state, health=rec)
+        self.health.mark_snapshot()
+        self._publish(step, rec.get("verdict"))
+        return True
+
+    def _publish(self, step: int, verdict) -> None:
+        """Run `on_checkpoint(step, verdict)` after the snapshot and its
+        manifest record are on disk; a raising hook is logged, as a user
+        hook is."""
+        hook = self.on_checkpoint
+        if hook is None:
+            return
+        try:
+            hook(step, verdict)
+        except Exception as e:  # noqa: BLE001 — observer, not logic
+            self.log(f"warning: checkpoint publish hook raised at "
+                     f"step {step} ({type(e).__name__}: {e}); "
+                     f"continuing")
+
+    def apply_lr_backoff(self, factor: float) -> float:
+        """Scale the effective learning rate by `factor` (the
+        Supervisor's divergence rescue).  The rate is a device scalar
+        that `Updater.set_step` writes before every step, so captured
+        graphs pick the scale up with no new capture.  Returns the
+        cumulative scale."""
+        self.updater.lr_scale *= float(factor)
+        self.log(f"health: learning-rate backoff x{factor:g} applied "
+                 f"(cumulative scale {self.updater.lr_scale:g})")
+        return self.updater.lr_scale
+
+    def _ckpt_guard(self, workspace):
+        """(ckpt_manager, interrupted, old_handlers): the checkpoint
+        manager of `run`, and SIGTERM/SIGINT handlers that note the
+        signal, installed only on the main thread.  Pair with
+        `_ckpt_unguard(old_handlers)`."""
+        ckpt = (CheckpointManager(workspace, log_fn=self.log)
+                if workspace and self.cfg.checkpoint_frequency > 0 else None)
+        interrupted: List[int] = []
+        old_handlers: Dict[Any, Any] = {}
+        if ckpt is not None:
+            import signal
+
+            def on_signal(signum, frame):
+                interrupted.append(signum)
+
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    old_handlers[sig] = signal.signal(sig, on_signal)
+                except ValueError:   # not the main thread: no handlers
+                    break
+        return ckpt, interrupted, old_handlers
+
+    @staticmethod
+    def _ckpt_unguard(old_handlers) -> None:
+        if old_handlers:
+            import signal
+            for sig, h in old_handlers.items():
+                signal.signal(sig, h)
+
+    def resume(self, params, opt_state, workspace: str,
+               skip_unhealthy: bool = False):
         """Restore the latest restorable snapshot of `workspace`
         (Worker::Resume).  Returns (params, opt_state, start_step); the
         arguments come back unchanged with step 0 when there is none.  The
         snapshot's params and optimizer slots must match the net's and
-        the updater's."""
-        restored = CheckpointManager(workspace, log_fn=self.log).restore()
+        the updater's.  `skip_unhealthy` walks back past snapshots whose
+        recorded health verdict is not "ok" (the Supervisor's divergence
+        rescue)."""
+        restored = CheckpointManager(workspace, log_fn=self.log).restore(
+            skip_unhealthy=skip_unhealthy)
         if restored is None:
             return params, opt_state, 0
         rp, ro, step = restored

@@ -10,9 +10,7 @@ path), infer the geometry the parser expects from the net itself —
 kMnistImage parses 28x28 grayscale records, kRGBImage parses (3, S, S)
 records whose S the crop geometry implies.
 
-The port's own copy of `singa_tpu/data/discovery.py`.  Without record
-readers (ROADMAP.md A7) it infers every geometry from the net; a live
-local source raises (`serve` calls it with `force_synthetic=True`).
+The port's own copy of `singa_tpu/data/discovery.py`.
 """
 
 from __future__ import annotations
@@ -33,14 +31,35 @@ def lmdb_source_exists(path: Optional[str]) -> bool:
         os.path.join(path, "data.mdb")))
 
 
-def _peek_record_shape(path: str) -> Tuple[int, ...]:
-    """The JAX package peeks the first usable image record of a live
-    shard folder or LMDB environment here; the port has no record
-    readers yet (`data/records.py`, `shard.py`, `lmdb_reader.py`:
-    ROADMAP.md A7), so a live source raises rather than guessing."""
-    raise NotImplementedError(
-        f"reading the record geometry of {path!r} needs the port's "
-        f"record readers (ROADMAP.md A7); pass force_synthetic=True")
+def _peek_shard(path: str) -> Optional[Tuple[int, ...]]:
+    """Shape of the first usable image record in a shard folder."""
+    from .records import Record, record_has_image
+    from .shard import Shard
+
+    shard = Shard(path, Shard.KREAD)
+    try:
+        for _, val in shard:
+            if not record_has_image(val):
+                continue
+            rec = Record.decode(val)
+            if rec.image and rec.image.shape:
+                return tuple(rec.image.shape)
+    finally:
+        shard.close()
+    return None
+
+
+def _peek_lmdb(path: str) -> Optional[Tuple[int, ...]]:
+    """Shape of the first usable Datum in an LMDB environment."""
+    from .lmdb_reader import iter_lmdb
+    from .records import Datum, record_from_datum
+
+    for _, raw in iter_lmdb(path):
+        rec = record_from_datum(Datum.decode(raw))
+        if rec.image and rec.image.shape and (rec.image.pixel
+                                              or rec.image.data):
+            return tuple(rec.image.shape)
+    return None
 
 
 def _infer_from_parsers(layers, data_name: str) -> Tuple[int, ...]:
@@ -85,15 +104,27 @@ def discover_input_shapes(model_cfg, force_synthetic: bool = False
     layers = model_cfg.neuralnet.layer if model_cfg.neuralnet else []
     for layer in layers:
         if layer.type in ("kShardData", "kLMDBData"):
+            pix = None
             path = layer.data_param.path if layer.data_param else None
             live = (not force_synthetic and
                     (shard_source_exists(path)
                      if layer.type == "kShardData"
                      else lmdb_source_exists(path)))
             if live:
-                # a live source would be SERVED: fail loudly rather
-                # than guess a geometry its records may not match
-                pix = _peek_record_shape(path)
+                # a live source will be SERVED (resolve_data_source
+                # uses the same predicates) — a peek failure must fail
+                # loudly here, not guess a geometry the real records
+                # won't match at an opaque jit shape error later.
+                # Reader errors (LMDBFormatError, ShardError, corrupt
+                # Record ValueError) propagate unchanged: they carry
+                # the fail-loud contract's specific diagnosis.
+                pix = (_peek_shard(path)
+                       if layer.type == "kShardData"
+                       else _peek_lmdb(path))
+                if pix is None:
+                    raise ValueError(
+                        f"data layer {layer.name!r}: source {path!r} "
+                        f"contains no usable image records")
             else:
                 pix = _infer_from_parsers(layers, layer.name)
             shapes.setdefault(layer.name, {"pixel": tuple(pix),

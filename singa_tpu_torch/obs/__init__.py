@@ -38,9 +38,9 @@ device traces), a JSONL event log, and flight-recorder dumps
 fleet trace.  See docs/OBSERVABILITY.md.
 
 The port's own copy of `singa_tpu/obs/__init__.py`.  The port has no
-Supervisor, pipeline or fleet yet (ROADMAP.md A8, A10, A11); its
-serving tier (engine, scheduler, batcher, server, wire) and its
-checkpoint restore report through this layer.
+pipeline or fleet yet (ROADMAP.md A10, A11); its Supervisor, trainer,
+feeder, checkpoints and serving tier (engine, scheduler, batcher,
+server, wire) report through this layer.
 """
 
 from __future__ import annotations

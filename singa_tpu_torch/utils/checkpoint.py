@@ -15,12 +15,13 @@ here.
 the previous good one past any corrupt, partial or unreadable snapshot;
 with `skip_unhealthy` it also walks back past any snapshot whose health
 verdict in the manifest is not "ok" (a snapshot without one counts as
-ok).  `save(..., health=)` records a verdict; the serving engine reads
-them (`serve/engine.py`).  Restores run inside the `ckpt.restore` span
-and consult its fault site.  What the JAX module adds on top — orbax,
-the `ckpt.save` fault site and span, and the Trainer's health probes
-that write verdicts while training — waits for the robustness slice
-(ROADMAP.md §A8).
+ok).  `save(..., health=)` records a verdict: the Trainer writes the
+health monitor's (`core/trainer.py`) and the serving engine reads them
+(`serve/engine.py`).  Saves and restores run inside the `ckpt.save` and
+`ckpt.restore` spans and consult their fault sites; the `torn` kind at
+`ckpt.save` truncates the renamed snapshot to half and records no
+manifest entry, a save that "succeeded" with garbage on disk.  Orbax,
+which needs JAX, is the one part of the JAX module not here.
 
 Snapshots hold numpy arrays: `save` takes tensors or arrays (moved to
 the host; bf16 tensors are stored as f32) and `restore` returns numpy,
@@ -68,6 +69,14 @@ def _atomic_write(path: str, data: bytes) -> None:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+def _tear(path: str) -> None:
+    """Simulate a torn write (fault kind "torn"): truncate the snapshot
+    to half — a save that returned success but left garbage on disk."""
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.truncate(size // 2)
 
 
 def _to_numpy(v) -> np.ndarray:
@@ -181,10 +190,18 @@ class CheckpointManager:
         is recorded in MANIFEST.json, so `restore(skip_unhealthy=True)`
         can walk back past a snapshot taken in a numerically suspect
         window."""
+        with obs.span("ckpt.save", step=step,
+                      verdict=(health or {}).get("verdict")):
+            self._save(step, params, opt_state, health)
+
+    def _save(self, step: int, params: Dict[str, Any],
+              opt_state: Dict[str, Any],
+              health: Optional[Dict[str, Any]]) -> None:
         if self.latest_step() is not None:
             # never mix layouts in one directory (the marker is
             # per-directory)
             self._check_version()
+        act = faults.maybe_fault("ckpt.save")
         state = {"params": params, "opt_state": opt_state,
                  "step": np.asarray(step)}
         arrays = {k: _to_numpy(v) for k, v in _flatten("", state).items()}
@@ -197,6 +214,11 @@ class CheckpointManager:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
+        if act == "torn":
+            # the rename "succeeded" but the data never reached the
+            # disk; no manifest entry either (a crash before it)
+            _tear(path)
+            return
         self._manifest_record(step, path, health=health)
         # stamp only after a successful save
         self._write_version()
@@ -244,15 +266,24 @@ class CheckpointManager:
 
     def save_in_flight(self) -> bool:
         """True while the newest snapshot on disk has no manifest entry
-        but the manifest holds others: a save between renaming its
-        snapshot into place and recording its size, checksum and health
-        verdict.  A serving poll waits for the record rather than take
-        the snapshot for an unverified, healthy one."""
+        but the manifest holds others, and is a whole zip: a save
+        between renaming its snapshot into place (whole, since it was
+        written and synced before the rename) and recording its size,
+        checksum and health verdict.  A serving poll waits for the
+        record rather than take the snapshot for an unverified, healthy
+        one.  A torn snapshot (truncated, no record to come) is not in
+        flight: the poll goes on, and restore walks past it."""
         steps = self.available_steps()
         if not steps:
             return False
+        name = f"step_{steps[-1]}.npz"
         man = self._read_manifest()
-        return bool(man) and f"step_{steps[-1]}.npz" not in man
+        if not man or name in man:
+            return False
+        try:
+            return zipfile.is_zipfile(os.path.join(self.dir, name))
+        except OSError:
+            return False
 
     # -- restore -----------------------------------------------------------
     def restore(self, step: Optional[int] = None,

@@ -46,7 +46,10 @@ def test_importing_every_module_loads_no_jax():
               "serve.scheduler", "serve.stats", "serve.tenancy",
               "utils.faults", "ops.moe", "ops.topk", "serve.server",
               "serve.wire", "serve.router", "obs", "obs.perf",
-              "obs.trace", "obs.flightrec", "data.discovery", "main"):
+              "obs.trace", "obs.flightrec", "data.discovery", "main",
+              "utils.health", "core.supervisor", "data.records",
+              "data.shard", "data.native", "data.lmdb_reader",
+              "data.pipeline", "data.feed"):
         assert f"singa_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
