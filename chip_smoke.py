@@ -89,17 +89,22 @@ non-zero before the last line is printed:
    C=8, C=16 with L=9, C=2056, a runtime window and beta, pixel counts
    that are not a multiple of the tile, and a view one element into its
    storage (the general route at C=64).
-9. AlexNet-CIFAR10, slice 3's main path: `examples/cifar10/
+9. AlexNet-CIFAR10, slices 3 and 12's main path: `examples/cifar10/
    alexnet.conf` through the port's config parser at full width, its own
    batch 1024, bf16 compute, numpy-seeded weights, synthetic CIFAR-shaped
-   batches: the Trainer must pick eager steps (`graphs=None`; dropout
-   and the mirror draw per step), then 20 kSGD steps through
-   `Trainer.train_step` and two more
-   through `Trainer.train_steps`, each step launching K5 and K6 twice and
-   K1-K4 never; images/s, the step's split, a profile and peak memory;
-   the eval step through `Trainer.evaluate` (K5 twice per step); then
-   the same weights at batch 4 in f32 on the card and on the CPU, whose
-   loss and every gradient must agree.
+   batches: the Trainer must capture its steps (`graphs=None`; the
+   mirror and dropout draw from the trainer's own generators, registered
+   with the graph and seeded per step), then 20 kSGD steps through
+   `Trainer.train_step` and two more through `Trainer.train_steps`, each
+   replay launching K5 and K6 twice and K1-K4 never; the same 22 steps
+   eagerly from the same start must leave params and momentum equal
+   under `torch.equal`, and a captured forward's draws (mirrors, dropout
+   masks) must equal an eager forward's after the same seeding; replayed
+   and eager steps in turns (images/s) and a profile of each (busy and
+   idle share); an eager step's split, peak memory; the eval step
+   through `Trainer.evaluate` (K5 twice per step); then the same weights
+   at batch 4 in f32 on the card and on the CPU, whose loss and every
+   gradient must agree.
 
 10. `examples/transformer/lm.conf` uncut (B=8, S=512, V=4096, E=256,
    2 blocks, block 1 a kMoE of 4 experts top-2; its attention takes
@@ -150,6 +155,27 @@ non-zero before the last line is printed:
    "diverged" must be refused: /healthz 503 with the stale reason,
    still serving step 10.  The serving path launches none of K1-K6
    (counts set to 0 before the server starts, read after it stops).
+
+12. Training as users run it (`[cli]` lines): the supervised CLI on
+   lm.conf with a torn save and a preemption, resume, a NaN rescue, a
+   spike verdict, the feeder, AlexNet from a shard folder (captured,
+   one capture, 2 + 2 K5/K6 a step) and the health tier's costs.
+13. The vision steps as the reference compiles them (`[vision]` lines).
+   (a) A copy of alexnet.conf with a random crop of 28 at batch 1024,
+   captured: 8 steps saving every 4, and another captured trainer that
+   restores step 4 and trains on, must end equal under `torch.equal`;
+   its crops, mirrors and masks replay as eager forwards draw them.
+   (b) A copy of examples/mnist/conv.conf with the elastic distortion
+   (kernel 5, sigma 6, alpha 8, beta 15, gamma 15) every 4th step,
+   batch 64: 12 replayed steps over two graphs (distorting and plain)
+   equal 12 eager ones; the capture cost of each; `elastic_warp` on the
+   card against the CPU.  (c) `python -m singa_tpu_torch.main
+   -model_conf examples/mnist/rbm.conf --synthetic --steps 200` as a
+   subprocess exits 0; in process, with rbm1 persistent (PCD), 200
+   captured CD steps (one graph per RBM) equal eager ones and recon
+   falls in each phase.  (d) 12f's shard folder with a mean record
+   written by the port's record writer as the copy's meanfile:
+   captured, one capture, 8 + 8 K5/K6 launches over 4 steps.
 
 Every result line ends with the card's `nvidia-smi` name and power
 limit.  The last lines are one JSON object listing each kernel with its
@@ -1665,13 +1691,57 @@ ALEX_LOSS_RTOL = 1e-5
 ALEX_MARGIN = 0.1
 
 
-def alexnet_trainer(dev, precision, test_steps=0, logs=None):
+ALEX_ROUNDS, ALEX_ROUND_STEPS = 3, 10    # eager against replayed, in turns
+
+
+def alexnet_trainer(dev, precision, test_steps=0, logs=None, graphs=None):
     from singa_tpu_torch import Trainer, load_model_config
     cfg = load_model_config(ALEX_CONF)
     cfg.precision = precision
     cfg.test_steps = test_steps
-    return Trainer(cfg, RGB_SHAPES, device=dev,
+    return Trainer(cfg, RGB_SHAPES, device=dev, graphs=graphs,
                    log_fn=(logs if logs is not None else []).append)
+
+
+def clone_state(params, opt):
+    return ({k: v.clone() for k, v in params.items()},
+            {s: {k: v.clone() for k, v in d.items()} for s, d in opt.items()})
+
+
+def alexnet_draws(tr, batch, steps=(3, 4)):
+    """The train forward's draws (the RGB crops and mirrors, drop6's and
+    drop7's masks) replayed against eager: a CUDA graph of the forward
+    over the trainer's own generators, replayed after seeding them for
+    a step, must give the outputs an eager forward seeded alike gives,
+    under torch.equal; another step must draw otherwise."""
+    from singa_tpu_torch.core.step_graph import StepGraph
+    net = tr.train_net
+    names = [net.topo[i] for i in sorted(tr._gens)]
+    params = tr._state["params"]
+
+    def forward(state, b):
+        with torch.no_grad():
+            _, _, out = net.apply(state["params"], b, train=True,
+                                  compute_dtype=tr.compute_dtype,
+                                  rng=tr.seed, generators=tr._gens)
+        return {n: out[n] for n in names}
+    graph = StepGraph("alexnet_draws", torch.cuda.graph_pool_handle(),
+                      generators=tuple(tr._gens.values()))
+    graph.capture(forward, {"params": params}, batch)
+    got = {}
+    for step in steps:
+        tr._seed_layers(step)
+        rep = {k: v.clone() for k, v in
+               graph(forward, {"params": params}, batch).items()}
+        tr._seed_layers(step)
+        eag = forward({"params": params}, batch)
+        got[step] = rep
+        same = {n: torch.equal(rep[n], eag[n]) for n in names}
+        log(f"[alexnet] step {step}: replayed draws equal eager ones "
+            f"under torch.equal: {same}")
+        assert all(same.values()), same
+    a, b = steps
+    assert not any(torch.equal(got[a][n], got[b][n]) for n in names)
 
 
 def phase_alexnet(dev):
@@ -1680,16 +1750,19 @@ def phase_alexnet(dev):
     from singa_tpu_torch.ops import _kernels
     logs = []
     tr = alexnet_trainer(dev, "bfloat16", test_steps=1, logs=logs)
-    # dropout and the RGB mirror draw per step from host-seeded
-    # generators: graphs=None must pick eager steps, and say why
-    why = [m for m in logs if "eagerly" in m]
-    log(f"[alexnet] graphs=None: graphs {tr.graphs}; {why}")
-    assert tr.graphs is False and len(why) == 1, (tr.graphs, logs)
+    # dropout and the RGB crop and mirror draw from the trainer's own
+    # generators, registered with the graphs: graphs=None captures
+    drawing = [tr.train_net.topo[i] for i in sorted(tr._gens)]
+    log(f"[alexnet] graphs=None: graphs {tr.graphs}; generators of "
+        f"{drawing}")
+    assert tr.graphs is True and drawing == ["rgb", "drop6", "drop7"], \
+        (tr.graphs, drawing, logs)
     b = tr.train_net.layers["data"].batchsize
     assert b == ALEX_BATCH, b
     arrays = numpy_params(tr.train_net, seed=0)
     params = params_from_numpy(tr.train_net, arrays, device=dev)
     opt = tr.updater.init(params)
+    start = clone_state(params, opt)
     data = synthetic_image_batches(b, (3, 32, 32), seed=0, stream_seed=1)
     batches = [next(data) for _ in range(ALEX_STEPS + 2)]
     losses, step_ms = [], []
@@ -1714,16 +1787,65 @@ def phase_alexnet(dev):
     n_all = ALEX_STEPS + 2
     assert launches == {k: v * n_all for k, v in ALEX_PER_STEP.items()}, \
         launches
+    ncap = len(tr._train_graph._graphs)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     ms = sum(step_ms[2:]) / len(step_ms[2:])
-    log(f"[alexnet] alexnet.conf b={b} bf16 kSGD: {n_all} steps "
-        f"({ALEX_STEPS} train_step + 2 train_steps), launches {launches}; "
-        f"losses " + " ".join(f"{x:.4f}" for x in losses))
+    log(f"[alexnet] alexnet.conf b={b} bf16 kSGD: {n_all} replayed steps "
+        f"({ALEX_STEPS} train_step + 2 train_steps) of {ncap} CUDA graph, "
+        f"launches {launches} (lrn_fwd/lrn_bwd {launches['lrn_fwd']}/"
+        f"{launches['lrn_bwd']}, 2 + 2 a replay); losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    assert ncap == 1, ncap
     check_alexnet_loss(losses)
     log(f"[alexnet] step {ms:.3f} ms (mean of steps 2..{ALEX_STEPS - 1}, "
-        f"host clock, synchronised; steps 0-1 {step_ms[0]:.1f}, "
-        f"{step_ms[1]:.1f} ms), {b / ms * 1e3:.1f} images/s; peak device "
-        f"memory {peak_gib:.2f} GiB")
+        f"host clock, synchronised; steps 0-1 {step_ms[0]:.1f} (warm-up "
+        f"and capture), {step_ms[1]:.1f} ms), {b / ms * 1e3:.1f} images/s; "
+        f"peak device memory {peak_gib:.2f} GiB")
+
+    # the same steps eagerly from the same start: equal to the bit
+    etr = alexnet_trainer(dev, "bfloat16", graphs=False)
+    ep, eo = start
+    for step in range(ALEX_STEPS):
+        ep, eo, _ = etr.train_step(ep, eo, batches[step], step)
+    ep, eo, _ = etr.train_steps(ep, eo, stacked, ALEX_STEPS, 2, stacked=True)
+    equal = state_equal((params, opt), (ep, eo))
+    log(f"[alexnet] {n_all} eager steps and {n_all} replays from one copied "
+        f"start (dropout masks, crops and mirrors drawn each step): params "
+        f"and momentum equal under torch.equal: {equal}")
+    if not equal:
+        for k in sorted(params):
+            gap = (params[k].float() - ep[k].float()).abs().max().item()
+            if gap:
+                log(f"[alexnet]   {k}: max|replay - eager| {gap:.3g}")
+    assert equal
+    alexnet_draws(tr, batches[0])
+
+    # replayed against eager steps, in turns; a profiled step of each
+    state = {"graph": [tr, params, opt], "eager": [etr, ep, eo]}
+    nxt = [n_all]
+
+    def steps(mode):
+        run = state[mode]
+        for i in range(ALEX_ROUND_STEPS):
+            run[1], run[2], m = run[0].train_step(
+                run[1], run[2], batches[i % len(batches)], nxt[0] + i)
+        float(m["loss"])
+    turns = in_turns({"graph": lambda: steps("graph"),
+                      "eager": lambda: steps("eager")}, ALEX_ROUNDS)
+    per = {k: [t / ALEX_ROUND_STEPS for t in v] for k, v in turns.items()}
+    log(f"[alexnet] {ALEX_ROUNDS} rounds of {ALEX_ROUND_STEPS} steps in "
+        f"turns, ms a step (host clock, one fetch a round): replayed "
+        f"{[round(x, 4) for x in per['graph']]}, eager "
+        f"{[round(x, 4) for x in per['eager']]}; images/s replayed "
+        f"{b / min(per['graph']) * 1e3:.1f}, eager "
+        f"{b / min(per['eager']) * 1e3:.1f}")
+    for mode in ("graph", "eager"):
+        run = state[mode]
+        wall = min(per[mode])
+        profile(f"alexnet_train_step_{mode}", lambda: run[0].train_step(
+            run[1], run[2], batches[0], nxt[0]), wall, top=12)
+    params, opt = state["graph"][1], state["graph"][2]
+    del etr, ep, eo, state, start
 
     # the step's split on the card's clock, as phase 7
     batch = batches[-1]
@@ -1746,10 +1868,9 @@ def phase_alexnet(dev):
     torch.cuda.synchronize()
     fwd_ms, bwd_ms, upd_ms = (ev[i].elapsed_time(ev[i + 1])
                               for i in range(3))
-    log(f"[alexnet] split (CUDA events): forward {fwd_ms:.3f} ms, backward "
-        f"{bwd_ms:.3f} ms, update {upd_ms:.3f} ms")
-    profile("alexnet_train_step", lambda: tr.train_step(
-        params, opt, batch, n_all + 1), ms, top=12)
+    log(f"[alexnet] split (CUDA events, an eager step on the graph's "
+        f"tensors): forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, "
+        f"update {upd_ms:.3f} ms")
 
     # the eval step (scoring forward) through Trainer.evaluate
     _kernels.reset_launches()
@@ -3014,10 +3135,12 @@ def train_g_health(dev, conf):
         f"{100 * share['off']:.2f}% off ({np.mean(drains['off']):.3f} ms)")
 
 
-def alexnet_shard(tmp, n=ALEX_RECORDS, shape=(3, 32, 32)):
+def alexnet_shard(tmp, n=ALEX_RECORDS, shape=(3, 32, 32), meanfile=False):
     """A shard folder of `n` CIFAR-shaped records (uint8 images and
     labels, numpy seed 0) written with the port's Shard, and a copy of
-    examples/cifar10/alexnet.conf that reads it."""
+    examples/cifar10/alexnet.conf that reads it; with `meanfile`, the
+    records' mean image as a mean record (the port's record writer)
+    that the copy's kRGBImage subtracts."""
     from singa_tpu_torch.data.records import Record, SingleLabelImageRecord
     from singa_tpu_torch.data.shard import Shard
     folder = os.path.join(tmp, "cifar_shard")
@@ -3035,22 +3158,56 @@ def alexnet_shard(tmp, n=ALEX_RECORDS, shape=(3, 32, 32)):
     assert text.count("batchsize: 1024") == 1
     text = text.replace("batchsize: 1024",
                         f'batchsize: 1024\n      path: "{folder}"')
+    if meanfile:
+        mean = imgs.astype(np.float64).mean(0).astype(np.float32)
+        mpath = os.path.join(tmp, "cifar_mean.rec")
+        with open(mpath, "wb") as f:
+            f.write(Record(image=SingleLabelImageRecord(
+                shape=list(shape),
+                data=[float(x) for x in mean.ravel()])).encode())
+        assert text.count("rgbimage_param {") == 1
+        text = text.replace("rgbimage_param {",
+                            f'rgbimage_param {{\n      meanfile: "{mpath}"')
     conf = os.path.join(tmp, "alexnet_shard.conf")
     with open(conf, "w") as f:
         f.write(text)
     return folder, conf
 
 
-def train_f(dev, tmp, expect_launches, n=ALEX_RECORDS, batch=None):
+def count_captures():
+    """A context in which every StepGraph capture is counted, by name."""
+    import contextlib
+    from singa_tpu_torch.core import step_graph
+
+    @contextlib.contextmanager
+    def ctx():
+        counts: dict = {}
+        real = step_graph.StepGraph._capture
+
+        def capture(self, fn, state, batch):
+            counts[self.name] = counts.get(self.name, 0) + 1
+            return real(self, fn, state, batch)
+        step_graph.StepGraph._capture = capture
+        try:
+            yield counts
+        finally:
+            step_graph.StepGraph._capture = real
+    return ctx()
+
+
+def train_f(dev, tmp, expect_launches, n=ALEX_RECORDS, batch=None,
+            meanfile=False, tag="12f"):
     """12f: AlexNet-CIFAR10 from a shard folder through the CLI: the
-    discovered geometry is the shard's, K5 and K6 launch 2 + 2 a step,
-    and the loss is finite."""
+    discovered geometry is the shard's, K5 and K6 launch 2 + 2 a step
+    from the replays of one captured train step, and the loss is
+    finite.  With `meanfile` (13d), its kRGBImage subtracts a mean
+    record."""
     from singa_tpu_torch import load_model_config
     from singa_tpu_torch.data import discover_input_shapes
     from singa_tpu_torch.data.discovery import _peek_shard
     from singa_tpu_torch.ops import _kernels
     t0 = time.perf_counter()
-    folder, conf = alexnet_shard(tmp, n)
+    folder, conf = alexnet_shard(tmp, n, meanfile=meanfile)
     t_write = time.perf_counter() - t0
     assert _peek_shard(folder) == (3, 32, 32)
     shapes = discover_input_shapes(load_model_config(conf))
@@ -3061,7 +3218,8 @@ def train_f(dev, tmp, expect_launches, n=ALEX_RECORDS, batch=None):
     torch.cuda.synchronize() if dev == "cuda" else None
     _kernels.reset_launches()
     t0 = time.perf_counter()
-    code, text = run_main(argv, dev)
+    with count_captures() as caps:
+        code, text = run_main(argv, dev)
     torch.cuda.synchronize() if dev == "cuda" else None
     wall = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
@@ -3073,11 +3231,13 @@ def train_f(dev, tmp, expect_launches, n=ALEX_RECORDS, batch=None):
         want = {k: 0 for k in launches}
         want.update(lrn_fwd=2 * ALEX_CLI_STEPS, lrn_bwd=2 * ALEX_CLI_STEPS)
         assert launches == want, launches
-    log(f"[cli] 12f AlexNet-CIFAR10 (examples/cifar10/alexnet.conf, batch "
-        f"{batch or 1024}) from a shard folder of {n} records written in "
-        f"{t_write:.3f} s: discovery peeked {shapes['data']['pixel']}; "
-        f"{ALEX_CLI_STEPS} CLI steps in {wall:.3f} s wall (net build, "
-        f"data, eager steps); launches {launches}; mean loss {loss:.6f}")
+        assert caps == {"train_step": 1}, caps
+    log(f"[cli] {tag} AlexNet-CIFAR10 (examples/cifar10/alexnet.conf, batch "
+        f"{batch or 1024}{', a meanfile' if meanfile else ''}) from a "
+        f"shard folder of {n} records written in {t_write:.3f} s: "
+        f"discovery peeked {shapes['data']['pixel']}; {ALEX_CLI_STEPS} CLI "
+        f"steps in {wall:.3f} s wall (net build, data, capture, replays); "
+        f"captures {caps}; launches {launches}; mean loss {loss:.6f}")
     return launches
 
 
@@ -3115,6 +3275,299 @@ def phase_cli(dev, conf=None, expect_launches=True, alex=None):
         took("f")
         train_g_health(dev, conf)
         took("g")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache() if dev == "cuda" else None
+
+
+# -- phase 13: the vision steps as the reference compiles them ------------
+VR_STEPS, VR_CADENCE = 8, 4     # 13a: the run, its checkpoint cadence
+VR_CROP = 28                    # 13a: the copy's cropsize (records of 32)
+MNIST_CONF = os.path.join(REPO, "examples", "mnist", "conv.conf")
+MNIST_SHAPES = {"data": {"pixel": (28, 28), "label": ()}}
+DISTORT = ("norm_a: 255.0 kernel: 5 sigma: 6.0 alpha: 8.0 beta: 15.0 "
+           "gamma: 15.0 elastic_freq: 4")
+DISTORT_STEPS = 12
+# 13b: the warp on the card against the CPU, on images in [0, 1): f32
+# formulas alike, sin, cos and the blur's sums rounded by other libraries
+WARP_ATOL = 1e-5
+RBM_CONF = os.path.join(REPO, "examples", "mnist", "rbm.conf")
+RBM_STEPS = 200
+
+
+def conf_copy(tmp, src, name, subs):
+    """A copy of config `src` with each (old, new) of `subs` replaced
+    once."""
+    with open(src) as f:
+        text = f.read()
+    for old, new in subs:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def vision_resume(dev, tmp, batch):
+    """13a: AlexNet-CIFAR10 with a random crop of VR_CROP (a copy of
+    alexnet.conf), captured: a run of VR_STEPS steps saving every
+    VR_CADENCE, and another captured trainer that restores the middle
+    snapshot and trains the rest, must end equal under torch.equal; the
+    crop's gather and the mirror replay as eager forwards draw them."""
+    from singa_tpu_torch import (CheckpointManager, Trainer,
+                                 load_model_config, numpy_params,
+                                 params_from_numpy, synthetic_image_batches)
+    from singa_tpu_torch.weights import opt_state_from_numpy
+    conf = conf_copy(tmp, ALEX_CONF, "alexnet_crop.conf", [
+        ("rgbimage_param {", f"rgbimage_param {{\n      cropsize: {VR_CROP}"),
+        ("batchsize: 1024", f"batchsize: {batch}")])
+
+    def trainer():
+        cfg = load_model_config(conf)
+        cfg.precision = "bfloat16"
+        cfg.train_steps = VR_STEPS
+        cfg.checkpoint_frequency = VR_CADENCE
+        return Trainer(cfg, RGB_SHAPES, device=dev, log_fn=lambda m: None)
+    tr = trainer()
+    data = synthetic_image_batches(batch, (3, 32, 32), seed=5,
+                                   stream_seed=6)
+    batches = [next(data) for _ in range(VR_STEPS)]
+    ws = os.path.join(tmp, "alex_ws")
+    p = params_from_numpy(tr.train_net, numpy_params(tr.train_net, 1),
+                          device=dev)
+    t0 = time.perf_counter()
+    p, o, _ = tr.run(p, tr.updater.init(p), iter(batches), workspace=ws)
+    torch.cuda.synchronize() if dev == "cuda" else None
+    wall = time.perf_counter() - t0
+    mgr = CheckpointManager(ws, log_fn=lambda m: None)
+    assert mgr.available_steps() == list(range(VR_CADENCE, VR_STEPS + 1,
+                                               VR_CADENCE)), \
+        mgr.available_steps()
+    rp, ro, step = mgr.restore(VR_CADENCE)
+    tr2 = trainer()
+    p2 = params_from_numpy(tr2.train_net, rp, device=dev)
+    o2 = opt_state_from_numpy(tr2.train_net, ro, device=dev)
+    p2, o2, _ = tr2.run(p2, o2, iter(batches[step:]), start_step=step)
+    equal = state_equal((p, o), (p2, o2))
+    log(f"[vision] 13a AlexNet-CIFAR10 crop {VR_CROP} + mirror + dropout, "
+        f"b={batch} bf16, graphs {tr.graphs}/{tr2.graphs}: {VR_STEPS} steps "
+        f"saving every {VR_CADENCE} in {wall:.3f} s, resumed from step "
+        f"{step} in another captured trainer: params and momentum equal "
+        f"the uninterrupted run's under torch.equal: {equal}")
+    assert equal
+    if dev == "cuda":
+        alexnet_draws(tr2, batches[0])
+
+
+def distort_warp_card(dev):
+    """13b: elastic_warp on the card against the CPU on the same images
+    and draws (batch 64, the k5 field, rotation and scale)."""
+    from singa_tpu_torch.ops import augment
+    x = torch.from_numpy(np.random.default_rng(4).random((64, 28, 28))
+                         .astype(np.float32))
+    draws = augment.elastic_draws(64, 28, 28,
+                                  torch.Generator().manual_seed(4), x.device,
+                                  kernel=5, alpha=8.0, beta=15.0, gamma=15.0)
+    kw = dict(kernel=5, sigma=6.0, alpha=8.0)
+    cpu = augment.elastic_warp(x, *draws, **kw)
+    card = augment.elastic_warp(x.to(dev), *(d.to(dev) for d in draws),
+                                **kw).cpu()
+    gap = (card - cpu).abs().max().item()
+    moved = (cpu - x).abs().max().item()
+    log(f"[vision] 13b elastic_warp card against CPU (64x28x28 in [0, 1), "
+        f"k5 sigma 6 alpha 8, beta 15, gamma 15): max gap {gap:.3g} (atol "
+        f"{WARP_ATOL}); the warp moves pixels by up to {moved:.3f}")
+    assert gap <= WARP_ATOL and moved > 0.1, (gap, moved)
+
+
+def distort_runs(dev, conf, deterministic):
+    """DISTORT_STEPS steps of the distorting LeNet, captured and eager,
+    from one start, with cuDNN's `deterministic` flag as given: {mode:
+    (trainer, params, opt, ms per step, MiB allocated after each)}."""
+    from singa_tpu_torch import (Trainer, load_model_config, numpy_params,
+                                 params_from_numpy, synthetic_image_batches)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    runs = {}
+    try:
+        for mode, graphs in (("graph", None), ("eager", False)):
+            tr = Trainer(load_model_config(conf), MNIST_SHAPES, device=dev,
+                         graphs=graphs, log_fn=lambda m: None)
+            p = params_from_numpy(tr.train_net,
+                                  numpy_params(tr.train_net, 2), device=dev)
+            o = tr.updater.init(p)
+            data = synthetic_image_batches(64, (28, 28), seed=7,
+                                           stream_seed=8)
+            ms, mem = [], []
+            for step in range(DISTORT_STEPS):
+                torch.cuda.synchronize() if dev == "cuda" else None
+                t0 = time.perf_counter()
+                p, o, m = tr.train_step(p, o, next(data), step)
+                float(m["loss"])
+                ms.append((time.perf_counter() - t0) * 1e3)
+                mem.append(torch.cuda.memory_allocated() / 2 ** 20
+                           if dev == "cuda" else 0.0)
+            runs[mode] = (tr, p, o, ms, mem)
+    finally:
+        torch.cuda.synchronize() if dev == "cuda" else None
+        torch.backends.cudnn.deterministic = prev
+    return runs
+
+
+def vision_distort(dev, tmp):
+    """13b: LeNet (a copy of examples/mnist/conv.conf) with the elastic
+    distortion every 4th step, batch 64, captured (two graphs: the
+    distorting and the plain steps) and eager from one start.  With
+    cuDNN's deterministic algorithms the DISTORT_STEPS steps must leave
+    params and momentum equal under torch.equal; with its defaults
+    (what the trainer runs) the gap, the first call of each graph
+    (warm-up and capture) against a replay, and the kernels a replayed
+    and an eager distorting step run are printed."""
+    conf = conf_copy(tmp, MNIST_CONF, "conv_distort.conf",
+                     [("norm_a: 255.0", DISTORT)])
+    det = distort_runs(dev, conf, True)
+    equal = state_equal(det["graph"][1:3], det["eager"][1:3])
+    log(f"[vision] 13b LeNet + distortion (elastic_freq 4), b=64, cuDNN "
+        f"deterministic: {DISTORT_STEPS} replayed steps equal "
+        f"{DISTORT_STEPS} eager ones under torch.equal: {equal}")
+    assert equal
+    runs = distort_runs(dev, conf, False)
+    tr, p, o, ms, mem = runs["graph"]
+    etr, ep, eo, ems, _ = runs["eager"]
+    gap = max((p[k].float() - ep[k].float()).abs().max().item() for k in p)
+    ncap = len(tr._train_graph._graphs) if tr.graphs else 0
+    steady = [ms[i] for i in range(2, DISTORT_STEPS)]
+    log(f"[vision] 13b cuDNN defaults: {DISTORT_STEPS} replayed steps over "
+        f"{ncap} graphs against eager ones: largest param gap {gap:.3g} "
+        f"(equal: {gap == 0}); step 0 (distorting: warm-up and capture) "
+        f"{ms[0]:.1f} ms, step 1 (plain: the second capture) {ms[1]:.1f} "
+        f"ms, replays {min(steady):.3f}-{max(steady):.3f} ms (distorting "
+        f"steps {[round(ms[i], 3) for i in (4, 8)]}); eager steps "
+        f"{min(ems[2:]):.3f}-{max(ems[2:]):.3f} ms; allocated after step 0 "
+        f"{mem[0]:.1f} MiB, after step 1 {mem[1]:.1f} MiB")
+    if dev == "cuda":
+        assert ncap == 2, ncap
+        from singa_tpu_torch import synthetic_image_batches
+        batch = next(synthetic_image_batches(64, (28, 28), seed=9))
+        names = {}
+        for mode, t, pp, oo, wall in (("graph", tr, p, o, min(steady)),
+                                      ("eager", etr, ep, eo, min(ems[2:]))):
+            # step DISTORT_STEPS (a multiple of 4) distorts
+            prof = profile(f"lenet_distort_step_{mode}", lambda: t.train_step(
+                pp, oo, batch, DISTORT_STEPS), wall, top=6)
+            names[mode] = set(prof["counts"])
+        only = {m: sorted(n[:80] for n in names[m] - names[o_])
+                for m, o_ in (("graph", "eager"), ("eager", "graph"))}
+        log(f"[vision] 13b kernels only in the replayed distorting step: "
+            f"{only['graph']}; only in the eager one: {only['eager']}")
+        distort_warp_card(dev)
+
+
+def rbm_cli(dev, tmp):
+    """13c: `python -m singa_tpu_torch.main -model_conf
+    examples/mnist/rbm.conf --synthetic --steps RBM_STEPS` as a
+    subprocess exits 0; then in process, rbm.conf with rbm1 persistent
+    (PCD): the captured CD steps (one graph per RBM) must equal eager
+    ones under torch.equal, and recon must fall in each phase."""
+    from singa_tpu_torch import Trainer, load_model_config
+    from singa_tpu_torch.data import discover_input_shapes, resolve_data_source
+    out = os.path.join(tmp, "rbm_launches.json")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", CLI_WRAPPER, out,
+                          "" if dev == "cuda" else dev, "-model_conf",
+                          RBM_CONF, "--synthetic", "--steps", str(RBM_STEPS)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    text = res.stdout + res.stderr
+    assert res.returncode == 0, text[-3000:]
+    with open(out) as f:
+        got = json.load(f)
+    lines = [ln.split("] ", 1)[-1] for ln in text.splitlines()
+             if " cd[" in ln or "training done" in ln]
+    log(f"[vision] 13c rbm.conf CLI subprocess, {RBM_STEPS} steps: exit "
+        f"{res.returncode} in {wall:.3f} s wall; {lines}; launches "
+        f"{got['launches']}")
+    assert any("cd[rbm0]" in ln for ln in lines) and \
+        any("cd[rbm1]" in ln for ln in lines), lines
+    runs = {}
+    for mode, graphs in (("graph", None), ("eager", False)):
+        cfg = load_model_config(RBM_CONF)
+        cfg.train_steps = RBM_STEPS
+        cfg.neuralnet.layer[3].rbm_param.persistent = True
+        shapes = discover_input_shapes(cfg, force_synthetic=True)
+        tr = Trainer(cfg, shapes, device=dev, graphs=graphs,
+                     log_fn=lambda m: None)
+        p, o = tr.init(seed=0)
+        it, _ = resolve_data_source(cfg, 64, seed=0, force_synthetic=True,
+                                    sample_shapes=shapes)
+        recon, stamps = [], []
+
+        def hook(step, m):
+            recon.append(m["recon"])
+            stamps.append(time.perf_counter())
+        torch.cuda.synchronize() if dev == "cuda" else None
+        t0 = time.perf_counter()
+        try:
+            p, o, _ = tr.run(p, o, it, seed=0, hooks=[hook])
+        finally:
+            it.close()
+        # a step's host time between hooks (each after the step's fetch),
+        # the median over the steady steps of each phase
+        gaps = np.diff(stamps) * 1e3
+        runs[mode] = (tr, p, o, recon, time.perf_counter() - t0,
+                      float(np.median(np.concatenate(
+                          [gaps[5:RBM_STEPS // 2 - 1],
+                           gaps[RBM_STEPS // 2 + 5:]]))))
+    tr, p, o, recon, wall, step_ms = runs["graph"]
+    _, ep, eo, erecon, ewall, estep_ms = runs["eager"]
+    equal = state_equal((p, o), (ep, eo)) and recon == erecon
+    ncap = len(tr._cd_graph._graphs) if tr.graphs else 0
+    half = RBM_STEPS // 2
+    phases = [(float(np.mean(recon[a:a + 10])),
+               float(np.mean(recon[b - 10:b])))
+              for a, b in ((0, half), (half, RBM_STEPS))]
+    log(f"[vision] 13c rbm.conf (rbm1 persistent), b=64: {RBM_STEPS} CD "
+        f"steps replayed over {ncap} graphs in {wall:.3f} s (captures "
+        f"included), eager {ewall:.3f} s; a steady step (median, a fetch "
+        f"each) {step_ms:.4f} ms replayed, {estep_ms:.4f} ms eager; "
+        f"params, momentum and every "
+        f"recon equal under torch.equal: {equal}; recon (mean of the "
+        f"first and last 10 steps) rbm0 {phases[0][0]:.5f} -> "
+        f"{phases[0][1]:.5f}, rbm1 {phases[1][0]:.5f} -> "
+        f"{phases[1][1]:.5f}")
+    assert equal
+    assert all(last < first for first, last in phases), phases
+    if dev == "cuda":
+        assert ncap == 2, ncap
+
+
+def phase_vision(dev, alex_batch=ALEX_BATCH, records=ALEX_RECORDS,
+                 cli_batch=None):
+    """Phase 13: the vision steps as the reference compiles them.  The
+    arguments cut it down for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="vision-", dir=os.path.join(REPO, "build"))
+    clock = [time.perf_counter()]
+
+    def took(what):
+        now = time.perf_counter()
+        log(f"[time] phase 13{what}: {now - clock[0]:.1f} s")
+        clock[0] = now
+    try:
+        vision_resume(dev, tmp, alex_batch)
+        took("a")
+        vision_distort(dev, tmp)
+        took("b")
+        rbm_cli(dev, tmp)
+        took("c")
+        launches = train_f(dev, tmp, dev == "cuda", records, cli_batch,
+                           meanfile=True, tag="13d")
+        took("d")
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3194,6 +3647,9 @@ def main() -> int:
     cli = phase_cli(dev)
     log(f"[cli] phase 12's launches on the CLI paths: {cli}")
     took("phase 12")
+    vis = phase_vision(dev)
+    log(f"[vision] phase 13's launches on the meanfile CLI path: {vis}")
+    took("phase 13")
 
     kernels = []
     for name, res, replaces in (

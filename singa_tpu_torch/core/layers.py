@@ -15,12 +15,8 @@ kLMDBData, kMnistImage, kRGBImage, kLabel, kConvolution, kPooling, kLRN,
 kInnerProduct, kReLU, kTanh, kSigmoid, kDropout, kSoftmaxLoss, kConcate,
 kSlice, kSplit, kBridgeSrc, kBridgeDst.  Vision activations are NHWC at
 every layer boundary, as in the JAX zoo.  The sequence family lives in
-core/seq_layers.py and registers on import.
-
-Not ported yet (ROADMAP.md A6): kMnistImage's elastic distortion
-(`ops/augment.py`) and kRGBImage's `meanfile` (a mean record read with
-`data/records.py`); a config that asks for either raises instead of
-skipping it.
+core/seq_layers.py and kRBM in models/rbm.py; `create_layer` imports
+each on its first unknown type, and they register on import.
 """
 
 from __future__ import annotations
@@ -29,6 +25,7 @@ import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -74,7 +71,9 @@ class Context:
     """Per-call state threaded through Layer.apply.  `rng` is the seed of
     the call (the trainer's), `step` the global step and `layer_index`
     the layer's place in the topological order; `device` is the params'
-    device."""
+    device.  `generators` (layer index → generator) are the caller's
+    own, already seeded for this step (the trainer's, which a CUDA graph
+    replays)."""
     batch: Dict[str, Any]
     train: bool
     compute_dtype: Optional[torch.dtype] = None
@@ -82,17 +81,27 @@ class Context:
     layer_index: int = 0
     step: Optional[int] = None
     device: Optional[torch.device] = None
+    generators: Optional[Dict[int, torch.Generator]] = None
 
     def layer_rng(self) -> torch.Generator:
         """This layer's generator at this step, seeded from (rng, step,
         layer index) — `fold_in(fold_in(rng, step), layer_index)` in the
         JAX package (`:64-67`, `core/trainer.py:396`) — so a resumed run
-        draws what an uninterrupted one draws without stored state."""
+        draws what an uninterrupted one draws without stored state.  The
+        caller's generator when `generators` holds one (seeded by the
+        caller with `layer_seed`), else a new one seeded here."""
+        if self.generators and self.layer_index in self.generators:
+            return self.generators[self.layer_index]
         if self.rng is None:
             raise LayerError("layer needs an rng but none was provided")
         gen = torch.Generator(device=self.device or "cpu")
-        gen.manual_seed(fold_in(self.rng, self.step or 0, self.layer_index))
+        gen.manual_seed(layer_seed(self.rng, self.step, self.layer_index))
         return gen
+
+
+def layer_seed(rng: int, step: Optional[int], layer_index: int) -> int:
+    """The seed of a drawing layer's generator at `step`."""
+    return fold_in(rng, step or 0, layer_index)
 
 
 LAYER_REGISTRY: Dict[str, type] = {}
@@ -125,6 +134,12 @@ class Layer:
     def apply(self, params: Dict[str, torch.Tensor], srcs: List[Any],
               ctx: Context) -> Any:
         raise NotImplementedError
+
+    def step_variant(self, step: int) -> Any:
+        """What this layer's training forward decides on the host from
+        the step number (None: nothing).  A captured step keys its graphs
+        by it, so no graph bakes in another step's decision."""
+        return None
 
     def _param_cfg(self, i: int, default_name: str) -> ParamConfig:
         if i < len(self.cfg.param):
@@ -180,31 +195,45 @@ class LMDBDataLayer(ShardDataLayer):
 class MnistImageLayer(Layer):
     """Parser (layer.cc:380-473): uint8 pixels → x/norm_a − norm_b, output
     (B, s, s); `resize` rescales bilinearly (with antialiasing, as
-    `jax.image.resize`).  The elastic distortion (MnistProto kernel,
-    sigma, alpha, beta, gamma) is not ported yet: a config that turns it
-    on raises in training rather than train without it."""
+    `jax.image.resize`).  In training, when any strength of MnistProto's
+    elastic distortion (kernel, sigma, alpha, beta, gamma) is set, the
+    resized images are deformed (`ops/augment.py`) before the scaling;
+    `elastic_freq > 1` distorts only every elastic_freq-th step
+    (layer.cc:462), decided on the host from the step (`step_variant`),
+    so a captured step keeps one graph for distorting steps and one for
+    the others, where the JAX package branches with `lax.cond`."""
 
     def setup(self, src_shapes):
         p = self.cfg.mnist_param
         self.norm_a = p.norm_a if p else 1.0
         self.norm_b = p.norm_b if p else 0.0
+        self.distort = dict(
+            kernel=p.kernel, sigma=p.sigma, alpha=p.alpha,
+            beta=p.beta, gamma=p.gamma) if p else {}
         self.distort_on = bool(p and (
             (p.alpha > 0 and p.kernel > 0) or p.beta > 0 or p.gamma > 0))
+        self.draws = self.distort_on
+        self.elastic_freq = p.elastic_freq if p else 0
         self.resize = p.resize if p else 0
         pix = tuple(src_shapes[0]["pixel"])
         if self.resize:
             pix = pix[:1] + (self.resize, self.resize) + pix[3:]
         self.out_shape = pix
 
+    def step_variant(self, step):
+        if self.distort_on and self.elastic_freq > 1:
+            return step % self.elastic_freq == 0
+        return None
+
     def apply(self, params, srcs, ctx):
-        if self.distort_on and ctx.train:
-            raise LayerError(
-                f"{self.name}: mnist_param asks for elastic distortion, "
-                f"which the port does not run yet (ops/augment.py, "
-                f"ROADMAP.md A6)")
         x = srcs[0]["pixel"].float()
         if self.resize and tuple(x.shape[1:3]) != (self.resize,) * 2:
             x = _resize_bilinear(x, self.resize)
+        if (self.distort_on and ctx.train
+                and (ctx.step is None or self.step_variant(ctx.step)
+                     is not False)):
+            from ..ops.augment import elastic_deform
+            x = elastic_deform(x, ctx.layer_rng(), **self.distort)
         x = x / self.norm_a - self.norm_b
         return _cast(x, ctx.compute_dtype)
 
@@ -226,20 +255,18 @@ class RGBImageLayer(Layer):
     Crop offsets and mirror coins are drawn per image from the layer's
     generator, as the reference draws them per record; mirroring is
     train-only (the JAX package's two deviations, `:265-275`).  The mean
-    comes with the batch (`mean`); a configured `meanfile` is not
-    loaded yet (ROADMAP.md A6) and raises."""
+    is the batch's `mean` field, else the configured `meanfile` (a mean
+    record, read once at setup and kept on the device after its first
+    use)."""
 
     def setup(self, src_shapes):
         p = self.cfg.rgbimage_param
         self.scale = p.scale if p else 1.0
         self.cropsize = p.cropsize if p else 0
         self.mirror = bool(p.mirror) if p else False
-        if p and p.meanfile:
-            raise LayerError(
-                f"{self.name}: rgbimage_param.meanfile {p.meanfile!r}: "
-                f"the port does not load a mean record (data/records.py) "
-                f"yet (ROADMAP.md A6); "
-                f"supply the mean with the batch as its 'mean' field")
+        self.mean = (self._load_mean(p.meanfile)
+                     if p and p.meanfile else None)
+        self._mean_on: Dict[torch.device, torch.Tensor] = {}
         b, c, h, w = src_shapes[0]["pixel"]   # (B, C, H, W) host layout
         cs = self.cropsize
         self.draws = self.mirror or bool(cs and (h > cs or w > cs))
@@ -247,9 +274,43 @@ class RGBImageLayer(Layer):
             h = w = self.cropsize
         self.out_shape = (b, h, w, c)
 
+    @staticmethod
+    def _load_mean(path: str) -> np.ndarray:
+        """The per-pixel mean record (the mean.binaryproto role,
+        layer.cc:579-583), as `singa_tpu/core/layers.py:227-252` reads
+        it: a `Record` whose image holds the mean in `data`.  A missing
+        or malformed file raises, naming it."""
+        from ..data.records import Record
+        try:
+            with open(path, "rb") as f:
+                rec = Record.decode(f.read())
+            return np.asarray(rec.image.data, np.float32).reshape(
+                tuple(rec.image.shape))
+        except FileNotFoundError:
+            raise LayerError(
+                f"rgbimage_param.meanfile {path!r} does not exist — write "
+                f"the mean as a Record (data/records.py) whose image "
+                f"holds it in `data`") from None
+        except Exception as e:  # noqa: BLE001 — any decode failure
+            raise LayerError(
+                f"rgbimage_param.meanfile {path!r} is not a mean "
+                f"record: {type(e).__name__}: {e}") from e
+
+    def _file_mean(self, device: torch.device) -> Optional[torch.Tensor]:
+        """The meanfile's mean on `device`, copied there once."""
+        if self.mean is None:
+            return None
+        t = self._mean_on.get(device)
+        if t is None:
+            t = self._mean_on[device] = torch.from_numpy(self.mean).to(device)
+        return t
+
     def apply(self, params, srcs, ctx):
         x = srcs[0]["pixel"].float()
+        # a batch's mean (the pipeline's) wins over the configured file
         mean = srcs[0].get("mean")
+        if mean is None:
+            mean = self._file_mean(x.device)
         if mean is not None:
             x = x - mean
         x = x.permute(0, 2, 3, 1)   # → NHWC
@@ -561,7 +622,9 @@ class BridgeDstLayer(BridgeSrcLayer):
 
 def create_layer(cfg: LayerConfig) -> Layer:
     if cfg.type not in LAYER_REGISTRY:
-        from . import seq_layers  # noqa: F401  (registers on import)
+        # the sequence family and kRBM register on import
+        from . import seq_layers  # noqa: F401
+        from ..models import rbm  # noqa: F401
     if cfg.type not in LAYER_REGISTRY:
         raise LayerError(f"unknown layer type {cfg.type!r} "
                          f"(registered: {sorted(LAYER_REGISTRY)})")

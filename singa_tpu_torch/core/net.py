@@ -9,7 +9,9 @@ lookups (`:112-121`, `:346-351`) and the layers' auxiliary losses
 (`:333-338`), which join the total loss and the metrics as
 "<layer>/aux".  `apply` takes the call's seed and
 step (`rng`, `step`), from which each layer that draws (dropout, the RGB
-crop and mirror) seeds its own generator (`Context.layer_rng`).  Mesh
+crop and mirror, the MNIST distortion) seeds its own generator
+(`Context.layer_rng`), or the caller's generators, seeded by the caller
+(`generators`, keyed by topological index: the trainer's).  Mesh
 constraints, partition padding and remat wait for the parallel slice.
 """
 
@@ -161,6 +163,22 @@ class NeuralNet:
                                   spec.cfg.weight_decay_multiplier)
                 for name, spec in self.param_specs.items()}
 
+    def drawing_layers(self) -> Dict[int, str]:
+        """Topological index → name of each layer whose training forward
+        draws."""
+        return {i: n for i, n in enumerate(self.topo)
+                if self.layers[n].draws}
+
+    def step_variant(self, step: int) -> Tuple:
+        """What the training forward decides on the host from `step`, per
+        layer that decides anything (`Layer.step_variant`)."""
+        out = []
+        for name in self.topo:
+            v = self.layers[name].step_variant(step)
+            if v is not None:
+                out.append((name, v))
+        return tuple(out)
+
     def _resolve_params(self, params: Dict[str, torch.Tensor]):
         full = dict(params)
         for alias, owner in self.param_aliases.items():
@@ -173,7 +191,9 @@ class NeuralNet:
     def apply(self, params: Dict[str, torch.Tensor], batch: Dict[str, Any],
               train: Optional[bool] = None,
               compute_dtype: Optional[torch.dtype] = None,
-              rng: Optional[int] = None, step: Optional[int] = None
+              rng: Optional[int] = None, step: Optional[int] = None,
+              generators: Optional[Dict[int, torch.Generator]] = None,
+              layer_subset: Optional[List[str]] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                          Dict[str, Any]]:
         """Run the net on the params' device.  Returns (total_loss,
@@ -181,7 +201,11 @@ class NeuralNet:
         outputs maps layer name → activation.  `batch` may hold numpy
         arrays; they are moved to the params' device.  `rng` (a seed) and
         `step` seed the generators of layers that draw; such a layer
-        raises in training when `rng` is None.  A layer that leaves an
+        raises in training when `rng` is None.  `generators` (topological
+        index → generator) replaces a drawing layer's own with the
+        caller's, which the caller has seeded.  `layer_subset` runs only
+        the named layers (in topological order; a prefix of the net, as
+        the CD trainer's).  A layer that leaves an
         auxiliary loss in `_aux` (kMoE) adds it to total_loss and to
         metrics as "<layer>/aux"."""
         if train is None:
@@ -193,7 +217,10 @@ class NeuralNet:
         metrics: Dict[str, torch.Tensor] = {}
         total_loss = torch.zeros((), dtype=torch.float32, device=dev)
         n_loss = len(self._loss_layers())
+        subset = None if layer_subset is None else set(layer_subset)
         for idx, name in enumerate(self.topo):
+            if subset is not None and name not in subset:
+                continue
             layer = self.layers[name]
             fuse_from = getattr(layer, "fuse_from", "")
             if fuse_from:
@@ -203,7 +230,8 @@ class NeuralNet:
                         for src in layer.cfg.srclayers]
             ctx = Context(batch=batch, train=train,
                           compute_dtype=compute_dtype, rng=rng,
-                          layer_index=idx, step=step, device=dev)
+                          layer_index=idx, step=step, device=dev,
+                          generators=generators)
             out = layer.apply(full, srcs, ctx)
             outputs[name] = out
             aux = getattr(layer, "_aux", None)

@@ -7,7 +7,10 @@ trainer.py:338-472`) and caches one program per batch geometry
 graph: `StepGraph` warms a step function up on a side stream, captures
 one call of it into a `torch.cuda.CUDAGraph` over static batch buffers
 and the caller's params and state, and replays it.  It keeps one graph
-per batch geometry (the path, shape and dtype of every batch leaf).
+per batch geometry (the path, shape and dtype of every batch leaf) and
+caller's `key`: what the step decides on the host (the trainer's
+distorting and plain steps, the CD trainer's RBM), where the JAX
+package traces a branch or a static argument.
 
 - The step function `fn(state, batch)` works on `state`, a dict of
   (nested dicts of) tensors that every replay reads, and writes in
@@ -26,7 +29,9 @@ per batch geometry (the path, shape and dtype of every batch leaf).
   (`CUDAGraph.register_generator_state`): a replay then reads the
   generator's seed and offset when it runs and advances the offset as
   an eager call does, so a replay after `manual_seed(n)` draws what an
-  eager call seeded with n draws.
+  eager call seeded with n draws.  Warm-up draws from them too, so an
+  owner that seeds them per step captures first (`capture`), then
+  seeds, then replays.
 - A capture that fails raises `CaptureError`, naming the op that broke
   it.  Nothing falls back to running eagerly.  Captures are
   thread-local, so a thread that copies the next batches to the card
@@ -139,26 +144,27 @@ class StepGraph:
         self.clone_bytes = 0
         self._graphs: Dict[Tuple, _Captured] = {}
 
-    def has(self, batch) -> bool:
-        """Whether a graph of `batch`'s geometry was captured."""
-        return geometry(batch) in self._graphs
+    def has(self, batch, key: Any = None) -> bool:
+        """Whether a graph of `batch`'s geometry and `key` was captured."""
+        return (geometry(batch), key) in self._graphs
 
-    def capture(self, fn: Callable, state, batch) -> bool:
-        """Capture `fn` for the geometry of `batch` unless a graph of it
-        exists; True when this call captured."""
-        key = geometry(batch)
-        if key in self._graphs:
+    def capture(self, fn: Callable, state, batch, key: Any = None) -> bool:
+        """Capture `fn` for the geometry of `batch` and `key` unless a
+        graph of them exists; True when this call captured."""
+        k = (geometry(batch), key)
+        if k in self._graphs:
             return False
-        self._graphs[key] = self._capture(fn, state, batch)
+        self._graphs[k] = self._capture(fn, state, batch)
         return True
 
-    def __call__(self, fn: Callable, state, batch):
-        """Copy `batch` into the graph of its geometry (capturing `fn` on
-        first sight) and replay it on the current stream.  `state` must
-        be the tensors the graph was captured over.  (`fn` comes with
-        each call, not at construction, so an owner that holds this
-        object and whose method `fn` is forms no reference cycle.)"""
-        key = geometry(batch)
+    def __call__(self, fn: Callable, state, batch, key: Any = None):
+        """Copy `batch` into the graph of its geometry and `key`
+        (capturing `fn` on first sight) and replay it on the current
+        stream.  `state` must be the tensors the graph was captured
+        over.  (`fn` comes with each call, not at construction, so an
+        owner that holds this object and whose method `fn` is forms no
+        reference cycle.)"""
+        key = (geometry(batch), key)
         got = self._graphs.get(key)
         if got is None:
             got = self._graphs[key] = self._capture(fn, state, batch)
@@ -184,7 +190,7 @@ class StepGraph:
                     else v for k, v in state.items()}
             self.clone_bytes = sum(
                 t.numel() * t.element_size()
-                for k in self.writes for t in leaves(warm[k]))
+                for k in self.writes if k in warm for t in leaves(warm[k]))
             for _ in range(WARMUP):
                 fn(warm, static)
             del warm

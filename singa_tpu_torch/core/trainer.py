@@ -16,11 +16,18 @@ The JAX package compiles each step into one program (`_build_steps`,
 per batch geometry (`core/step_graph.py`), and replays them; the step's
 host values (the learning rate, Adam's bias corrections) are device
 scalars the updater writes before each replay.  The CPU runs the same
-code eagerly.  Layers that draw (dropout, the RGB crop and mirror) seed
-their generators on the host from the trainer's `seed`, the step and
-their place in the net, as `train_scan` folds the step and the layer
-index into its key (`:396`), so a resumed run draws what an
-uninterrupted one draws; a net with such a layer runs eagerly.
+code eagerly.  Layers that draw (dropout, the RGB crop and mirror, the
+MNIST distortion) draw from generators the trainer owns, one per layer
+on the params' device, registered with the train graphs and seeded
+before every step, eager or replayed, from the trainer's `seed`, the
+step and the layer's place in the net, as `train_scan` folds the step
+and the layer index into its key (`:396`); so a replay draws what an
+eager step draws, and a resumed run what an uninterrupted one draws.
+What a step decides on the host (the MNIST distortion's `elastic_freq`)
+keys its graph, where the JAX package branches with `lax.cond`.
+
+`alg: kContrastiveDivergence` nets train through `run_cd` (greedy CD-k
+over the kRBM layers, `:1125-1247`), one captured step per RBM on CUDA.
 
 Cadence semantics from ModelProto: train_steps, test_steps,
 test_frequency/test_after_steps, validation_*, display_*,
@@ -41,12 +48,13 @@ is checkpointed, SIGTERM/SIGINT save at the current step and return.
 `run(scan_chunk=k)` stages chunks through `data.feed` (a `DeviceFeeder`
 thread by default).
 
-Not ported yet (ROADMAP.md): elastic/async sync, pipeline nets,
-contrastive-divergence (RBM) training and `profile_phases`.
+Not ported yet (ROADMAP.md): elastic/async sync, pipeline nets and
+`profile_phases`.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from dataclasses import dataclass, field
@@ -62,7 +70,7 @@ from ..utils import faults
 from ..utils.checkpoint import CheckpointManager
 from ..weights import opt_state_from_numpy, params_from_numpy
 from . import seq_layers  # noqa: F401  (registers the layer types)
-from .layers import LAYER_REGISTRY
+from .layers import LAYER_REGISTRY, fold_in, layer_seed
 from .net import NeuralNet, build_net
 from .step_graph import StepGraph, leaves
 from .updater import make_updater
@@ -143,10 +151,10 @@ class Trainer:
         the window's verdict.  None runs exactly the step without them.
 
         `graphs` picks how the steps run.  None: as CUDA-graph replays
-        on CUDA when no layer of the train net draws, else eagerly (the
-        log says why, once).  True: as replays, or raise (on the CPU, or
-        for a net that draws).  False: eagerly.  The CPU always runs
-        eagerly.  `self.graphs` holds the choice."""
+        on CUDA, eagerly on the CPU.  True: as replays, or raise (on the
+        CPU).  False: eagerly.  A capture that fails raises
+        `CaptureError`; nothing falls back to eager steps.  `self.graphs`
+        holds the choice."""
         self.cfg = model_cfg
         self.seed = seed
         self.health = health
@@ -161,13 +169,27 @@ class Trainer:
         self.updater = make_updater(model_cfg.updater)
         self.multipliers = self.train_net.multipliers()
         self.graphs = self._pick_graphs(graphs)
+        # one generator per drawing layer of the train net, keyed by its
+        # topological index, seeded before every step (`_seed_layers`)
+        self._gens = {i: torch.Generator(device=self.device)
+                      for i in self.train_net.drawing_layers()}
         # the params ("params") and optimizer state ("opt") that every
         # graph of this trainer was captured over
         self._state: Dict[str, Any] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self._train_graph = (StepGraph("train_step", self._pool,
-                                       writes=("params", "opt"))
+                                       writes=("params", "opt"),
+                                       generators=tuple(self._gens.values()))
                              if self.graphs else None)
+        # contrastive divergence: the chain's generator, one graph per
+        # RBM (keyed by its index) and the PCD chains (`cd_step`)
+        cd = model_cfg.alg == "kContrastiveDivergence"
+        self._cd_gen = torch.Generator(device=self.device) if cd else None
+        self._cd_graph = (StepGraph("cd_step", self._pool,
+                                    writes=("params", "opt", "chain"),
+                                    generators=(self._cd_gen,))
+                          if cd and self.graphs else None)
+        self._chains: Dict[int, torch.Tensor] = {}
         self.test_step = self._eval_step(self.test_net)
         self.val_step = self._eval_step(self.val_net)
         self.perf = Performance()
@@ -186,16 +208,6 @@ class Trainer:
                          f"evaluation will not run (worker.cc:16-27)")
 
     def _pick_graphs(self, graphs: Optional[bool]) -> bool:
-        draws = [name for name, layer in self.train_net.layers.items()
-                 if layer.draws]
-        if draws and graphs is not False:
-            why = (f"layers {draws} draw from generators that the host "
-                   f"seeds per step and layer, which a CUDA graph would "
-                   f"replay unchanged")
-            if graphs:
-                raise ValueError(f"graphs=True: {why}")
-            self.log(f"the steps run eagerly: {why}")
-            return False
         if graphs and self.device.type != "cuda":
             raise ValueError(f"graphs=True needs a CUDA device, not "
                              f"{self.device}")
@@ -249,11 +261,22 @@ class Trainer:
         return params, self.updater.init(params)
 
     # -- steps -------------------------------------------------------------
+    def _seed_layers(self, step: Optional[int]) -> None:
+        """Seed each drawing layer's generator for `step`: host state that
+        the next eager draw or replay reads (never inside a capture)."""
+        for i, gen in self._gens.items():
+            gen.manual_seed(layer_seed(self.seed, step, i))
+
     def gradients(self, params: Dict[str, torch.Tensor], batch,
                   step: Optional[int] = 0) -> tuple:
         """(metrics, grads) of one forward and backward at `step`: `grads`
         maps every param to its gradient, or to None where none reached
         it."""
+        self._seed_layers(step)
+        return self._grads(params, batch, step)
+
+    def _grads(self, params, batch, step: Optional[int]) -> tuple:
+        """`gradients` with the generators as they stand."""
         names = sorted(params)
         tensors = [params[k] for k in names]
         for p in tensors:
@@ -261,7 +284,7 @@ class Trainer:
         try:
             loss, metrics, _ = self.train_net.apply(
                 params, batch, train=True, compute_dtype=self.compute_dtype,
-                rng=self.seed, step=step)
+                rng=self.seed, step=step, generators=self._gens)
             grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         finally:
             for p in tensors:
@@ -272,12 +295,13 @@ class Trainer:
     def _step(self, params, opt_state, batch, step: Optional[int],
               poison: Optional[float] = None):
         """Forward, backward and the update of the step last written by
-        `Updater.set_step`: the device work of one train step, eager or
-        captured.  `poison` (a `step.grad` fault's scale) multiplies the
-        gradients first.  With a health monitor the metrics gain the
-        probes, over a copy of the params taken before the update (the
-        updater writes them in place)."""
-        metrics, grads = self.gradients(params, batch, step)
+        `Updater.set_step`, drawing from the generators as seeded: the
+        device work of one train step, eager or captured.  `poison` (a
+        `step.grad` fault's scale) multiplies the gradients first.  With a
+        health monitor the metrics gain the probes, over a copy of the
+        params taken before the update (the updater writes them in
+        place)."""
+        metrics, grads = self._grads(params, batch, step)
         grads = {k: g if g is not None else torch.zeros_like(params[k])
                  for k, g in grads.items()}
         if poison is not None:
@@ -295,9 +319,10 @@ class Trainer:
             metrics = {**metrics, **health_probes(grads, old, params)}
         return metrics
 
-    def _train_body(self, state, batch):
-        # no layer draws under graphs, so the step number is not needed
-        return self._step(state["params"], state["opt"], batch, None)
+    def _train_body(self, state, batch, step: int):
+        # `step` reaches only the host decisions of `step_variant`, which
+        # key the graph; the draws come from the seeded generators
+        return self._step(state["params"], state["opt"], batch, step)
 
     def train_step(self, params, opt_state, batch, step: int,
                    poison: Optional[float] = None):
@@ -317,20 +342,27 @@ class Trainer:
 
         `poison` (None normally) is a `step.grad` fault's gradient scale;
         under `graphs` such a step runs eagerly on the graphs' own
-        tensors (replays and eager steps are bit-equal), so no graph
-        branches and a step without a fault replays as always."""
+        tensors (replays and eager steps are bit-equal, draws included),
+        so no graph branches and a step without a fault replays as
+        always."""
         if not self.graphs:
             self.updater.set_step(step, params, self.multipliers)
+            self._seed_layers(step)
             return params, opt_state, self._step(params, opt_state, batch,
                                                  step, poison)
         state = _own(self._state, params, opt_state)
         self.updater.set_step(step, state["params"], self.multipliers)
         if poison is not None:
+            self._seed_layers(step)
             return state["params"], state["opt"], self._step(
-                state["params"], state["opt"], batch, None, poison)
-        metrics = self._train_graph(self._train_body,
-                                    {"params": state["params"],
-                                     "opt": state["opt"]}, batch)
+                state["params"], state["opt"], batch, step, poison)
+        both = {"params": state["params"], "opt": state["opt"]}
+        body = functools.partial(self._train_body, step=step)
+        key = self.train_net.step_variant(step)
+        # warm-up draws from the generators: capture before seeding
+        self._train_graph.capture(body, both, batch, key)
+        self._seed_layers(step)
+        metrics = self._train_graph(body, both, batch, key)
         return state["params"], state["opt"], metrics
 
     def train_steps(self, params, opt_state, batches, start_step: int,
@@ -503,8 +535,18 @@ class Trainer:
 
         While a checkpoint manager is active, SIGTERM/SIGINT (on the
         main thread) save at the current step and return; the handlers
-        are restored on every exit."""
+        are restored on every exit.
+
+        An `alg: kContrastiveDivergence` config trains through `run_cd`
+        (the feeder arguments do not apply)."""
         cfg = self.cfg
+        if cfg.alg == "kContrastiveDivergence":
+            return self.run_cd(params, opt_state, train_iter,
+                               test_iter_factory=test_iter_factory,
+                               val_iter_factory=val_iter_factory,
+                               hooks=hooks, scan_chunk=scan_chunk,
+                               start_step=start_step, seed=seed,
+                               workspace=workspace)
         if seed is not None:
             self.seed = seed
         ckpt, interrupted, old_handlers = self._ckpt_guard(workspace)
@@ -646,6 +688,184 @@ class Trainer:
                 and cfg.train_steps > start_step
                 and saved != cfg.train_steps):
             self._save_checkpoint(ckpt, cfg.train_steps, params, opt_state)
+        return params, opt_state, history
+
+    # -- contrastive divergence (`:1125-1247`) ------------------------------
+    def rbm_names(self) -> List[str]:
+        """The train net's kRBM layers, in topological order."""
+        net = self.train_net
+        names = [n for n in net.topo
+                 if getattr(net.layers[n], "is_rbm", False)]
+        if not names:
+            raise ValueError("alg kContrastiveDivergence needs at least "
+                             "one kRBM layer in the net")
+        return names
+
+    def _cd_input(self, params, batch, name: str) -> torch.Tensor:
+        """RBM `name`'s visible batch: the net's prefix before it, run
+        with train=False, flattened to (B, nvis) in f32."""
+        net = self.train_net
+        with torch.no_grad():
+            _, _, outputs = net.apply(
+                params, batch, train=False, compute_dtype=self.compute_dtype,
+                layer_subset=net.topo[:net.topo.index(name)])
+        v = outputs[net.layers[name].cfg.srclayers[0]]
+        return v.reshape(v.shape[0], -1).float()
+
+    @torch.no_grad()
+    def _cd_body(self, state, batch, name: str):
+        """One CD step of RBM `name`, eager or captured: its input, CD-k
+        from the chain's generator (from `state["chain"]`, the PCD
+        buffer, when there is one; it receives the chain's end), and the
+        update of its params only, at the step `Updater.set_step` last
+        wrote."""
+        layer = self.train_net.layers[name]
+        params, opt = state["params"], state["opt"]
+        from ..models.rbm import cd_grads
+        v = self._cd_input(params, batch, name)
+        chain = state.get("chain")
+        grads, recon, end = cd_grads(layer.cd_view(params), v, self._cd_gen,
+                                     k=layer.cd_k, persistent=chain)
+        named = layer.named_grads(grads)
+        self.updater.apply(
+            named, {k: params[k] for k in named},
+            {slot: {k: d[k] for k in named} for slot, d in opt.items()},
+            {k: self.multipliers[k] for k in named})
+        if chain is not None:
+            chain.copy_(end)
+        return {"recon": recon}
+
+    def cd_step(self, params, opt_state, batch, step: int, idx: int,
+                fresh: bool = False):
+        """One CD-k step of the `idx`-th RBM at `step`, updating its params
+        and their optimizer state in place; returns (params, opt_state,
+        {"recon": 0-d tensor}).  The chain's generator is seeded from
+        (seed ^ 0xCD, step), as `fold_in(PRNGKey(seed ^ 0xCD), step)` in
+        the JAX package.  A persistent (PCD) RBM carries its chain in a
+        buffer of this trainer; `fresh` restarts it from this batch's
+        data (the first step of its phase in a run).  Under `graphs` the
+        step replays the RBM's own graph, and the graphs own params and
+        state as `train_step`'s do."""
+        name = self.rbm_names()[idx]
+        layer = self.train_net.layers[name]
+        if self.graphs:
+            own = _own(self._state, params, opt_state)
+            params, opt_state = own["params"], own["opt"]
+        keys = [spec.name for spec in layer.param_specs]
+        self.updater.set_step(step, {k: params[k] for k in keys},
+                              self.multipliers)
+        state = {"params": params, "opt": opt_state}
+        if layer.persistent:
+            buf = self._chains.get(idx)
+            if buf is None:
+                b = self.train_net.shapes[name][0]
+                buf = self._chains[idx] = torch.zeros(
+                    (b, layer.nvis), device=self.device)
+            if fresh:
+                buf.copy_(self._cd_input(params, batch, name))
+            state["chain"] = buf
+        body = functools.partial(self._cd_body, name=name)
+        seed = fold_in(self.seed ^ 0xCD, step)
+        if not self.graphs:
+            self._cd_gen.manual_seed(seed)
+            return params, opt_state, body(state, batch)
+        # warm-up draws from the generator: capture before seeding
+        self._cd_graph.capture(body, state, batch, idx)
+        self._cd_gen.manual_seed(seed)
+        return params, opt_state, self._cd_graph(body, state, batch, idx)
+
+    def run_cd(self, params, opt_state, train_iter: Iterator,
+               test_iter_factory=None, val_iter_factory=None,
+               hooks: Optional[List[Callable[[int, Dict], None]]] = None,
+               scan_chunk: int = 0, start_step: int = 0,
+               seed: Optional[int] = None, workspace: Optional[str] = None):
+        """kContrastiveDivergence training (ModelProto.alg,
+        model.proto:40-44): greedy layer-wise CD-k over the net's kRBM
+        layers.  The budget splits evenly across the RBMs: step s trains
+        RBM min(s·n // train_steps, n-1), on the hidden probabilities of
+        the ones before it, one `cd_step` a step.
+        RBMProto.persistent runs PCD: the chain continues from the last
+        step's end; it starts from the data at the first step of its
+        phase in a run (so from the data again on resume).  Each step's
+        reconstruction error is fetched (one sync a step), feeds the
+        display lines (`step-N cd[rbmI]: recon : ...`, also appended to
+        the returned history) and reaches the hooks as {"recon", "rbm"}.
+        The `step.train` fault site, the checkpoint cadence and the
+        SIGTERM/SIGINT snapshot behave as in `run`; the last step is
+        saved once.  Returns (params, opt_state, history)."""
+        cfg = self.cfg
+        if seed is not None:
+            self.seed = seed
+        names = self.rbm_names()
+        if scan_chunk and scan_chunk > 1:
+            self.log("warning: scan_chunk is not supported for CD "
+                     "training (host-side greedy phase switching); "
+                     "running per-step")
+        for nm, it, step_fn in (("test", test_iter_factory, self.test_step),
+                                ("validation", val_iter_factory,
+                                 self.val_step)):
+            if it is not None and step_fn is None:
+                self.log(f"warning: {nm} iterator supplied but this CD "
+                         f"net built no {nm} eval step (no loss layer "
+                         f"in that phase); skipping {nm} evaluation "
+                         "(reconstruction error is the training metric)")
+        total, n = cfg.train_steps, len(names)
+        history: List[Dict[str, float]] = []
+        started = set()
+        saved = None
+        ckpt, interrupted, old_handlers = self._ckpt_guard(workspace)
+        try:
+            for step in range(start_step, total):
+                faults.maybe_fault("step.train")
+                if interrupted:
+                    self.log(f"signal {interrupted[0]} received: "
+                             f"checkpointing at step {step} and stopping")
+                    self._save_checkpoint(ckpt, step, params, opt_state)
+                    break
+                if (self.test_step and self.test_now(step)
+                        and test_iter_factory):
+                    avg = self.evaluate(params, test_iter_factory(),
+                                        cfg.test_steps, self.test_step)
+                    self.log(f"step-{step} test: " + ", ".join(
+                        f"{k} : {v:.6f}" for k, v in sorted(avg.items())))
+                if (self.val_step and self.validate_now(step)
+                        and val_iter_factory):
+                    avg = self.evaluate(params, val_iter_factory(),
+                                        cfg.validation_steps, self.val_step)
+                    self.log(f"step-{step} validation: " + ", ".join(
+                        f"{k} : {v:.6f}" for k, v in sorted(avg.items())))
+                idx = min(step * n // max(total, 1), n - 1)
+                batch = next(train_iter)
+                t0 = time.perf_counter()
+                with obs.span("trainer.cd_step", step=step, rbm=idx):
+                    params, opt_state, m = self.cd_step(
+                        params, opt_state, batch, step, idx,
+                        fresh=idx not in started)
+                    recon = float(m["recon"])
+                started.add(idx)
+                self.timer.add("train", time.perf_counter() - t0)
+                self.timer.steps += 1
+                perf.mark_training_ready()
+                self.perf.update({"recon": recon})
+                for hook in hooks or ():
+                    self._call_hook(hook, step, {"recon": recon, "rbm": idx})
+                if self.display_now(step):
+                    self.log(f"step-{step} cd[{names[idx]}]: "
+                             f"{self.perf.to_string()}")
+                    history.append({"step": step, "rbm": idx,
+                                    **self.perf.averages()})
+                    self.perf.reset()
+                if (ckpt is not None and step >= cfg.checkpoint_after_steps
+                        and (step + 1) % cfg.checkpoint_frequency == 0):
+                    self._save_checkpoint(ckpt, step + 1, params, opt_state)
+                    saved = step + 1
+        finally:
+            self._ckpt_unguard(old_handlers)
+        # the final snapshot, unless the cadence just wrote it (the JAX
+        # run_cd saves that step twice)
+        if (ckpt is not None and not interrupted and total > start_step
+                and saved != total):
+            self._save_checkpoint(ckpt, total, params, opt_state)
         return params, opt_state, history
 
     def _observe(self, step: int, metrics: Dict[str, float]) -> None:

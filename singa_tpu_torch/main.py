@@ -14,7 +14,9 @@ healthy snapshot, replay the data, retry within budgets); with the
 numeric-health sentinel (`--health`, `--health_spec`), deterministic
 fault injection (`--fault_spec`), checkpoints with verdicts in the
 workspace, chunked steps (`--scan_chunk`) fed by a `DeviceFeeder`
-(`--feeder`, `--feeder_depth`), and telemetry (`--obs`).
+(`--feeder`, `--feeder_depth`), and telemetry (`--obs`).  An
+`alg: kContrastiveDivergence` config (`examples/mnist/rbm.conf`) trains
+its kRBM layers greedily with CD-k (`Trainer.run_cd`).
 
 Serving (the `serve` subcommand, `:163-371`, with `_obs_enable`
 `:138-160` and `_serve_vocab` `:470`):
@@ -37,10 +39,10 @@ device="cpu")` is the Python entry that runs it on the CPU.  What the
 port does not have yet exits 2, naming its ROADMAP.md item: `-procsID`,
 `-hostfile`, a cluster config with more than one async group, and an
 elastic/RandomSync run that reaches its first center exchange (A9);
-`--phase_profile` (A8); `alg: kContrastiveDivergence` (A6); the
-`pipeline` subcommand (A10); serve's fleet flags (`--fleet`,
-`--fleet_hostfile`, `--standby`, `--autoscale_spec`, `--fleet_spec`,
-`--rollout_spec`, `--transport`: A11).
+`--phase_profile` (A8); the `pipeline` subcommand (A10); serve's
+fleet flags (`--fleet`, `--fleet_hostfile`, `--standby`,
+`--autoscale_spec`, `--fleet_spec`, `--rollout_spec`, `--transport`:
+A11).
 """
 
 from __future__ import annotations
@@ -367,8 +369,6 @@ def _run(args, device: DeviceLike) -> int:
     model = load_model_config(args.model_conf)
     cluster = (load_cluster_config(args.cluster_conf)
                if args.cluster_conf else None)
-    if model.alg == "kContrastiveDivergence":
-        return _lacking("alg kContrastiveDivergence (RBM training)", "A6")
     # worker-group topology (cluster.h:49-60): async groups are replicas
     # against a shared center
     if cluster is not None and not cluster.synchronous and \

@@ -102,11 +102,23 @@ neuralnet {
 """
 
 
+IMAGENET_WIDTHS = {"conv1": 8, "conv2": 8, "conv3": 8, "conv4": 8,
+                   "conv5": 8, "fc6": 16, "fc7": 16}
+IMAGENET = {"data": {"pixel": (3, 256, 256), "label": ()}}
+# batch per net where it is not B: ImageNet-sized images at batch 2
+BATCH = {"imagenet": 2}
+
+
 def _configs(name):
     """(JAX config, port config, input shapes) of one test net."""
-    if name == "lenet":
-        path = f"{REPO}/examples/mnist/conv.conf"
+    if name in ("lenet", "mlp", "rbm"):
+        conf = {"lenet": "conv", "mlp": "mlp", "rbm": "rbm"}[name]
+        path = f"{REPO}/examples/mnist/{conf}.conf"
         return jload(path), tload(path), MNIST
+    if name == "imagenet":
+        path = f"{REPO}/examples/imagenet/alexnet.conf"
+        return (_narrow(jload(path), IMAGENET_WIDTHS),
+                _narrow(tload(path), IMAGENET_WIDTHS), IMAGENET)
     if name == "alexnet":
         return (_narrow(jvision.alexnet_cifar10_full(B), ALEX_WIDTHS),
                 _narrow(tvision.alexnet_cifar10_full(B), ALEX_WIDTHS), RGB)
@@ -116,9 +128,9 @@ def _configs(name):
     return jfrom_text(SLICE_NET), tfrom_text(SLICE_NET), MNIST
 
 
-def _batch(shapes, seed):
+def _batch(shapes, seed, b=B):
     sample = shapes["data"]["pixel"]
-    return next(synthetic_image_batches(B, sample, seed=seed))
+    return next(synthetic_image_batches(b, sample, seed=seed))
 
 
 def _jax_params(jnet, seed=0):
@@ -137,7 +149,8 @@ def _jax_params(jnet, seed=0):
     return out
 
 
-@pytest.mark.parametrize("name", ["lenet", "alexnet", "quick", "slice"])
+@pytest.mark.parametrize("name", ["lenet", "alexnet", "quick", "slice",
+                                  "mlp", "imagenet"])
 def test_net_loss_and_every_gradient_match_jax(name):
     jcfg, tcfg, shapes = _configs(name)
     jnet = jbuild_net(jcfg, "kTrain", shapes)
@@ -150,7 +163,7 @@ def test_net_loss_and_every_gradient_match_jax(name):
         assert tnet.layers["norm1"].fuse_from == "pool1"
         assert tnet.layers["norm2"].fuse_from == ""
     arrays = _jax_params(jnet)
-    batch = _batch(shapes, seed=5)
+    batch = _batch(shapes, seed=5, b=BATCH.get(name, B))
 
     def loss_fn(p):
         loss, metrics, _ = jnet.apply(
@@ -172,6 +185,34 @@ def test_net_loss_and_every_gradient_match_jax(name):
         top = max(float(np.abs(want).max()), 1e-30)
         np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=1e-4 * top,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["mlp", "imagenet", "rbm"])
+def test_net_forward_matches_jax(name):
+    """Every layer's output at train=False, the JAX net's against the
+    port's on the same weights and batch: within 1e-5 of each output's
+    largest magnitude (f32 sums in another order).  For rbm.conf this is
+    its whole forward: the stacked kRBM hidden probabilities."""
+    jcfg, tcfg, shapes = _configs(name)
+    jnet = jbuild_net(jcfg, "kTrain", shapes)
+    tnet = tbuild_net(tcfg, "kTrain", shapes)
+    assert jnet.topo == tnet.topo
+    arrays = _jax_params(jnet)
+    batch = _batch(shapes, seed=6, b=BATCH.get(name, B))
+    _, _, jout = jax.jit(lambda p, b: jnet.apply(p, b, train=False))(
+        {k: jnp.asarray(v) for k, v in arrays.items()},
+        jax.tree_util.tree_map(jnp.asarray, batch))
+    params = params_from_numpy(tnet, arrays, device="cpu")
+    with torch.no_grad():
+        _, _, tout = tnet.apply(params, batch, train=False)
+    for layer in tnet.topo:
+        want, got = jout[layer], tout[layer]
+        if isinstance(want, dict):      # data layers and the loss
+            continue
+        want = np.asarray(want, np.float32)
+        top = max(float(np.abs(want).max()), 1e-30)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=1e-5 * top, err_msg=layer)
 
 
 def test_alexnet_sgd_trajectory_matches_jax():
@@ -296,6 +337,10 @@ def test_dropout_keeps_pkeep_scaled_and_is_identity_in_eval():
 
 
 def test_mnist_resize_matches_jax_and_distortion_raises():
+    """Resize matches JAX.  The distortion no longer raises (the name is
+    older than the port of ops/augment.py): in training it deforms the
+    resized images, the same for the same seed and step, and eval takes
+    the plain path (tests/test_torch_augment.py holds it against JAX)."""
     text = """
     neuralnet {
       layer { name: "data" type: "kShardData" data_param { batchsize: 2 } }
@@ -315,19 +360,25 @@ def test_mnist_resize_matches_jax_and_distortion_raises():
                                np.asarray(jout["mnist"]), atol=1e-5)
     tnet = tbuild_net(tfrom_text(text % "kernel: 5 sigma: 2.0 alpha: 4.0"),
                       "kTrain", shapes)
-    with pytest.raises(LayerError, match="augment"):
-        tnet.apply({"unused": torch.zeros(1)}, {"data": {"pixel": pix}},
-                   train=True, rng=0, step=0)
+    runs = [tnet.apply({"unused": torch.zeros(1)}, {"data": {"pixel": pix}},
+                       train=train, rng=0, step=0)[2]["mnist"]
+            for train in (True, True, False)]
+    assert runs[0].shape == (2, 20, 20) and torch.equal(runs[0], runs[1])
+    assert (runs[0] - tout["mnist"]).abs().max() > 1e-3
+    assert torch.equal(runs[2], tout["mnist"])
 
 
 def test_rgb_meanfile_raises():
+    """A configured meanfile that does not exist fails the build, naming
+    the file (tests/test_torch_augment.py holds the loaded mean)."""
     text = """
     neuralnet {
       layer { name: "data" type: "kShardData" data_param { batchsize: 2 } }
       layer { name: "rgb" type: "kRGBImage" srclayers: "data"
-              rgbimage_param { meanfile: "mean.bin" } }
+              rgbimage_param { meanfile: "no-such-mean.bin" } }
     }"""
-    with pytest.raises(LayerError, match="records"):
+    with pytest.raises(LayerError,
+                       match="'no-such-mean.bin' does not exist"):
         tbuild_net(tfrom_text(text), "kTrain",
                    {"data": {"pixel": (3, 8, 8)}})
 
