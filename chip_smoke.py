@@ -176,6 +176,26 @@ non-zero before the last line is printed:
    falls in each phase.  (d) 12f's shard folder with a mean record
    written by the port's record writer as the copy's meanfile:
    captured, one capture, 8 + 8 K5/K6 launches over 4 steps.
+14. Measuring the card as the reference measures the TPU (`[measure]`
+   lines).  (a) Analytic train-step FLOPs (`utils/flops.py`) of the
+   bench stack, lm.conf and AlexNet-CIFAR10 at 1024, and the MFU of
+   phases 7, 9 and 10's replayed steps on the bf16 peak that
+   `peak_flops` must find for the card.  (b) `Trainer.profile_phases`
+   on the bench stack and on AlexNet: shares that sum to 1, one eager
+   step launching K1/K2/K3/K4 12/1/12/12 (K5/K6 2/2), K1 and K2 (K5)
+   under fwd, K3 and K4 (K6) under bwd, beside phases 7 and 9's
+   CUDA-event splits; the next replayed step equals that of a twin
+   never profiled (`torch.equal`).  (c) `python -m singa_tpu_torch.main
+   -model_conf examples/transformer/lm.conf --synthetic --steps 16
+   --phase_profile` exits 0 with `[device: fwd ...]` on its Time per
+   step lines.  (d) `tools.convergence_run` trains conv.conf to 99% on
+   the card (steps, time to 99, train time to 99).  (e) A cb=on engine
+   on lm.conf in f32: `harvest_costs()` adds no capture, and `obs.perf`
+   reports `singa_program_flops` and `singa_program_mfu` for the cb
+   prefill and decode, the predict bucket and the train step.  (f) A
+   copy of conv.conf with `debug: true`: 4 steps on the card and on the
+   CPU log debug lines that name every layer and param and agree
+   within 1e-4 relative.
 
 Every result line ends with the card's `nvidia-smi` name and power
 limit.  The last lines are one JSON object listing each kernel with its
@@ -199,7 +219,8 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data sheet, dense: bf16 tensor cores, f32 outside them, HBM3
+# H100 SXM data sheet, dense: bf16 tensor cores (main() reads the port's
+# `utils.flops.peak_flops` for the card), f32 outside them, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
@@ -217,6 +238,8 @@ EVAL_BATCHES = 10       # phase 3's Trainer.evaluate, captured and eager
 
 
 CARD = ""               # nvidia-smi's name and power limit, set by main()
+# step times and splits that phases 7, 9 and 10 measured, for phase 14
+MEASURED: dict = {}
 
 
 def log(msg: str) -> None:
@@ -1350,6 +1373,7 @@ def phase_train(dev, arrays):
     log(f"[train] split of an eager step (CUDA events): forward "
         f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, update (foreach) "
         f"{upd_ms:.3f} ms; the head's backward alone {head_ms:.3f} ms")
+    MEASURED["bench"] = {"ms": ms, "split": (fwd_ms, bwd_ms, upd_ms)}
     # the kernels inside one replay, by name
     prof = profile("train_step (replay)", lambda: tr.train_step(
         params, opt, batch, TRAIN_STEPS + 2), ms, top=16)
@@ -1871,6 +1895,7 @@ def phase_alexnet(dev):
     log(f"[alexnet] split (CUDA events, an eager step on the graph's "
         f"tensors): forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, "
         f"update {upd_ms:.3f} ms")
+    MEASURED["alexnet"] = {"ms": ms, "split": (fwd_ms, bwd_ms, upd_ms)}
 
     # the eval step (scoring forward) through Trainer.evaluate
     _kernels.reset_launches()
@@ -2190,6 +2215,7 @@ def lm_train(dev, arrays):
         + " ".join(f"{x:.4f}" for x in losses))
     assert all(math.isfinite(x) for x in losses + aux)
     assert tail < losses[0] - LOSS_MARGIN, losses
+    MEASURED["lmconf"] = {"ms": min(g["ms"])}
     moe_share(dev, arrays, g)
     return launches
 
@@ -3574,6 +3600,380 @@ def phase_vision(dev, alex_batch=ALEX_BATCH, records=ALEX_RECORDS,
         torch.cuda.empty_cache() if dev == "cuda" else None
 
 
+# ---------------------------------------------------------------------------
+# phase 14: measuring the card as the reference measures the TPU
+
+# the phase each kernel library's device time must fall under in a
+# profiled step (K2's merge kernel is part of K2)
+KERNEL_PHASE = {"flash_fwd": "fwd", "head_fwd": "fwd", "flash_dq": "bwd",
+                "flash_dkv": "bwd", "lrn_fwd": "fwd", "lrn_bwd": "bwd"}
+MEASURE_STEPS = 2       # steps of each twin before the profile
+CLI_PROFILE_STEPS = 16
+DEBUG_STEPS = 4
+# debug norms card against CPU: relative, and the .6f print's resolution
+DEBUG_RTOL, DEBUG_ATOL = 1e-4, 1e-6
+MEASURED_PROGRAMS = ("cb_prefill", "cb_decode", "predict", "train_step")
+
+
+def kernel_lib(name: str):
+    """The kernel library (K1-K6) that a device kernel's name belongs
+    to, or None for any other kernel."""
+    m = re.search(r"\b(flash_fwd|flash_dq|flash_dkv|head_fwd|head_merge|"
+                  r"lrn_fwd|lrn_bwd)\w*_kernel\b", name)
+    if m is None:
+        return None
+    return "head_fwd" if m.group(1) == "head_merge" else m.group(1)
+
+
+def lm_shapes(lm_kw):
+    return {"data": {"input": (lm_kw["seq_len"],),
+                     "target": (lm_kw["seq_len"],)}}
+
+
+def alex_config(batch):
+    from singa_tpu_torch import load_model_config
+    cfg = load_model_config(ALEX_CONF)
+    cfg.test_steps = 0
+    for layer in cfg.neuralnet.layer:
+        if layer.data_param:
+            layer.data_param.batchsize = batch
+    return cfg
+
+
+def measure_flops(lm_kw, alex_batch):
+    """(a) Analytic train-step FLOPs of the bench stack, lm.conf and
+    AlexNet-CIFAR10, and the MFU of phases 7, 9 and 10's replayed steps
+    on the card's bf16 peak."""
+    from singa_tpu_torch import build_net, load_model_config, transformer_lm
+    from singa_tpu_torch.utils.flops import (mfu, net_forward_flops,
+                                             net_train_flops, peak_flops)
+    peak = peak_flops(0) if torch.cuda.is_available() else None
+    nets = {
+        "bench": build_net(transformer_lm(**lm_kw, precision="bfloat16"),
+                           "kTrain", lm_shapes(lm_kw)),
+        "lmconf": build_net(load_model_config(LM_CONF), "kTrain",
+                            LM_SHAPES),
+        "alexnet": build_net(alex_config(alex_batch), "kTrain", RGB_SHAPES),
+    }
+    where = {"bench": "phase 7", "lmconf": "phase 10 (b)",
+             "alexnet": "phase 9"}
+    out = {}
+    for name, net in nets.items():
+        fwd, train = net_forward_flops(net), net_train_flops(net)
+        got = MEASURED.get(name)
+        if got is None or peak is None:
+            log(f"[measure] (a) {name}: forward {fwd} FLOPs, train step "
+                f"{train} FLOPs (analytic); MFU not measured in this run")
+            continue
+        ms = got["ms"]
+        out[name] = mfu(train, ms / 1e3, 0)
+        log(f"[measure] (a) {name}: forward {fwd} FLOPs, train step "
+            f"{train} FLOPs (analytic, 2·MACs, 3x the forward); "
+            f"{where[name]}'s replayed step {ms:.4f} ms -> "
+            f"{train / ms / 1e9:.1f} TFLOP/s, MFU {out[name]:.4f} of the "
+            f"{peak / 1e12:.0f} TFLOP/s bf16 peak")
+    return out
+
+
+def profiled_twins(tag, make, batches, want, dev):
+    """(b) Two trainers from one start take MEASURE_STEPS steps each
+    (replays on the card); `Trainer.profile_phases` traces one eager step
+    of the first on clones; then one more step of each must leave the two
+    equal under torch.equal.  On the card the profile must launch `want`
+    and put each of K1-K6's device time under its phase."""
+    from singa_tpu_torch.ops import _kernels
+    (tr, p, o), (tw, q, r) = make(), make()
+    for i in range(MEASURE_STEPS):
+        p, o, _ = tr.train_step(p, o, batches[i], i)
+        q, r, _ = tw.train_step(q, r, batches[i], i)
+    n = MEASURE_STEPS
+    before = dict(_kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    shares = tr.profile_phases(p, o, batches[n], step=n)
+    prof_s = time.perf_counter() - t0
+    delta = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
+    by_lib: dict = {}
+    for (ph, name), us in tr.phase_kernels.items():
+        lib = kernel_lib(name)
+        if lib is not None:
+            by_lib.setdefault(lib, {})
+            by_lib[lib][ph] = by_lib[lib].get(ph, 0.0) + us / 1e3
+    attributed = sum(us for (ph, _), us in tr.phase_kernels.items()
+                     if ph is not None) / 1e3
+    p, o, _ = tr.train_step(p, o, batches[n], n)
+    q, r, _ = tw.train_step(q, r, batches[n], n)
+    equal = state_equal((p, o), (q, r))
+    log(f"[measure] (b) {tag}: profile_phases (one eager step on clones, "
+        f"traced, {prof_s:.3f} s with the trace's export): fwd "
+        f"{shares['fwd']:.4f}, bwd {shares['bwd']:.4f}, update "
+        f"{shares['update']:.4f} of {attributed:.3f} ms attributed, "
+        f"coverage {shares['coverage']:.4f}; launches {delta}; K1-K6 device "
+        f"ms by phase "
+        + json.dumps({k: {str(ph): round(v, 4) for ph, v in d.items()}
+                      for k, d in sorted(by_lib.items())})
+        + f"; the next step of the profiled trainer equals an unprofiled "
+        f"twin's under torch.equal: {equal}")
+    split = MEASURED.get(tag, {}).get("split")
+    if split is not None:
+        tot = sum(split)
+        log(f"[measure] (b) {tag}: beside it, the CUDA-event split of an "
+            f"eager step from its phase: forward {split[0]:.3f} ms "
+            f"({split[0] / tot:.4f}), backward {split[1]:.3f} ms "
+            f"({split[1] / tot:.4f}), update {split[2]:.3f} ms "
+            f"({split[2] / tot:.4f})")
+    assert equal, tag
+    assert abs(shares["fwd"] + shares["bwd"] + shares["update"] - 1) < 1e-9
+    assert 0 < shares["fwd"] < 1 and 0 < shares["bwd"] < 1, shares
+    assert "[device: fwd" in tr.timer.to_string()
+    if dev == "cuda":
+        assert delta == want, (tag, delta, want)
+        for lib, launched in want.items():
+            got = by_lib.get(lib, {})
+            if launched:
+                assert set(got) == {KERNEL_PHASE[lib]}, (tag, lib, got)
+            else:
+                assert not got, (tag, lib, got)
+    return shares
+
+
+def measure_split(dev, arrays, lm_kw, alex_batch):
+    """(b) the bench stack and AlexNet-CIFAR10, profiled twins, with
+    cuDNN's deterministic algorithms: with its defaults two captured
+    AlexNet trainers from one start part by ~1e-8 after one step, as
+    13b's LeNet does (an atomics-summed weight gradient)."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        twins(dev, arrays, lm_kw, alex_batch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def twins(dev, arrays, lm_kw, alex_batch):
+    from singa_tpu_torch import (Trainer, numpy_params, params_from_numpy,
+                                 synthetic_image_batches,
+                                 synthetic_token_batches, transformer_lm)
+    none = {k: 0 for k in KERNEL_PHASE}
+    layers = lm_kw["num_layers"]
+
+    def make_lm():
+        cfg = transformer_lm(**lm_kw, precision="bfloat16")
+        cfg.test_steps = 0
+        tr = Trainer(cfg, lm_shapes(lm_kw), device=dev, log_fn=trainer_log)
+        return (tr, *start(tr, arrays, dev))
+    data = synthetic_token_batches(lm_kw["batchsize"], lm_kw["seq_len"],
+                                   lm_kw["vocab_size"], seed=29)
+    profiled_twins("bench", make_lm,
+                   [next(data) for _ in range(MEASURE_STEPS + 1)],
+                   {**none, "flash_fwd": layers, "head_fwd": 1,
+                    "flash_dq": layers, "flash_dkv": layers}, dev)
+
+    def make_alex():
+        tr = Trainer(alex_config(alex_batch), RGB_SHAPES, device=dev,
+                     log_fn=trainer_log)
+        p = params_from_numpy(tr.train_net, numpy_params(tr.train_net, 0),
+                              device=dev)
+        return tr, p, tr.updater.init(p)
+    data = synthetic_image_batches(alex_batch, (3, 32, 32), seed=0,
+                                   stream_seed=31)
+    profiled_twins("alexnet", make_alex,
+                   [next(data) for _ in range(MEASURE_STEPS + 1)],
+                   {**none, "lrn_fwd": 2, "lrn_bwd": 2}, dev)
+
+
+def measure_cli(dev, conf):
+    """(c) `python -m singa_tpu_torch.main ... --phase_profile` as a
+    subprocess: exit 0, and its Time per step lines carry the split."""
+    argv = ["-model_conf", conf, "--synthetic", "--steps",
+            str(CLI_PROFILE_STEPS), "--phase_profile"]
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        res = subprocess.run([sys.executable, "-m", "singa_tpu_torch.main",
+                              *argv], cwd=REPO, capture_output=True,
+                             text=True, timeout=600)
+        code, text = res.returncode, res.stdout + res.stderr
+    else:
+        code, text = run_main(argv, dev)
+    wall = time.perf_counter() - t0
+    if code != 0:
+        print(text[-8000:], file=sys.stderr)
+    assert code == 0, code
+    lines = [line for line in text.splitlines() if "Time per step" in line]
+    assert lines and all("[device: fwd" in line for line in lines), lines
+    log(f"[measure] (c) python -m singa_tpu_torch.main -model_conf "
+        f"{os.path.relpath(conf, REPO)} --synthetic --steps "
+        f"{CLI_PROFILE_STEPS} --phase_profile: exit 0 in {wall:.3f} s wall; "
+        f"{lines[0].split('] ', 1)[-1]}")
+
+
+def measure_convergence(dev, tmp, **kw):
+    """(d) convergence_run on conv.conf: 99% on the card, its
+    time-to-99 written to a temporary file."""
+    from singa_tpu_torch.tools import convergence_run
+    out = os.path.join(tmp, "CONVERGENCE.json")
+    res = convergence_run.run(MNIST_CONF, out=out, device=dev,
+                              log=lambda s: None, **kw)
+    with open(out) as f:
+        assert json.load(f) == res
+    log(f"[measure] (d) tools.convergence_run on examples/mnist/conv.conf: "
+        + json.dumps(res))
+    if dev == "cuda":
+        assert res["reached"], res
+        assert res["device"] == torch.cuda.get_device_name(0), res
+    return res
+
+
+def measure_costs(dev, lm_steps=4):
+    """(e) CostWatch: a cb=on engine's warm-up on lm.conf in f32 counts
+    each program; `harvest_costs()` captures nothing; after traffic and
+    `Trainer.run` steps, `obs.perf` reports FLOPs and MFU for every warm
+    program and the train step."""
+    from singa_tpu_torch import (InferenceEngine, ServeSpec, build_net,
+                                 load_model_config, numpy_params,
+                                 params_from_numpy)
+    from singa_tpu_torch.obs import perf
+    from singa_tpu_torch.serve import ContinuousScheduler
+    watch = perf.reset()
+    net = build_net(load_model_config(LM_CONF), "kTest", LM_SHAPES)
+    params = params_from_numpy(net, numpy_params(net, seed=0), device=dev)
+    spec = ServeSpec(**{**CB_SPEC, **LM_CB}, buckets=((8, 128),))
+    eng = InferenceEngine(net, spec, params, device=dev, log_fn=log)
+    n = eng.warmup(("generate", "predict"))
+    compiles = eng.stats.compiles
+    harvested = eng.harvest_costs()
+    assert eng.stats.compiles == compiles, (compiles, eng.stats.compiles)
+    rng = np.random.default_rng(23)
+    sched = ContinuousScheduler(eng, log_fn=log)
+    tickets = [sched.submit(rng.integers(0, 4096, k).astype(np.int32),
+                            max_new=16) for k in (40, 100, 200, 17)]
+    sched.start()
+    try:
+        outs = [t.wait(300.0) for t in tickets]
+    finally:
+        sched.stop()
+    assert all(len(o["tokens"]) == 16 for o in outs), outs
+    eng.answer("predict", [list(rng.integers(0, 4096, 128))
+                           for _ in range(8)])
+    assert eng.harvest_costs() == harvested
+    assert eng.stats.compiles == compiles, (compiles, eng.stats.compiles)
+    tr = lm_trainer(dev, None)
+    tr.cfg.train_steps = lm_steps
+    p, o = tr.init(0)
+    tr.run(p, o, iter(lm_batches(lm_steps, seed=5)))
+    got = {}
+    for smp in watch.collect():
+        if smp.name in ("singa_program_flops", "singa_program_mfu"):
+            got.setdefault(dict(smp.labels)["program"], {})[smp.name] = \
+                smp.value
+    cost = watch.snapshot()["cost"]
+    log(f"[measure] (e) cb=on engine on lm.conf (f32): warm-up captured "
+        f"{n}, harvest_costs() re-recorded {harvested} programs, captures "
+        f"{compiles} before and after; obs.perf: "
+        + json.dumps({k: {**{m.replace('singa_program_', ''): v
+                             for m, v in d.items()},
+                          "step_ms": round(cost[k]["step_seconds"] * 1e3, 4)}
+                      for k, d in sorted(got.items())}))
+    want = ("singa_program_flops", "singa_program_mfu") if dev == "cuda" \
+        else ("singa_program_flops",)
+    for program in MEASURED_PROGRAMS:
+        assert all(m in got.get(program, {}) for m in want), (program, got)
+    perf.reset()
+
+
+def debug_blocks(logs):
+    """step -> {name: [values]} from a run's `step-N debug:` log
+    entries."""
+    out = {}
+    for entry in logs:
+        m = re.match(r"step-(\d+) debug:\n", entry)
+        if not m:
+            continue
+        rows = {}
+        for line in entry.splitlines()[1:]:
+            name, rest = line.split(": ", 1)
+            rows[name] = [float(x) for x in rest.split()[1::2]]
+        out[int(m.group(1))] = rows
+    return out
+
+
+def measure_debug(dev, tmp):
+    """(f) conv.conf with `debug: true` trains DEBUG_STEPS steps on the
+    card: its debug lines name every layer and param and agree with the
+    same steps on the CPU."""
+    from singa_tpu_torch import (Trainer, load_model_config, numpy_params,
+                                 params_from_numpy, synthetic_image_batches)
+    conf = conf_copy(tmp, MNIST_CONF, "conv_debug.conf",
+                     [("display_frequency: 100",
+                       "display_frequency: 2\ndebug: true")])
+    blocks = {}
+    for d in (dev, "cpu"):
+        logs = []
+        cfg = load_model_config(conf)
+        cfg.train_steps = DEBUG_STEPS
+        tr = Trainer(cfg, MNIST_SHAPES, device=d, log_fn=logs.append)
+        p = params_from_numpy(tr.train_net, numpy_params(tr.train_net, 0),
+                              device=d)
+        tr.run(p, tr.updater.init(p),
+               synthetic_image_batches(64, seed=2, stream_seed=3))
+        blocks[d] = debug_blocks(logs)
+    net = tr.train_net
+    names = set(net.param_specs) | {
+        n for n in net.topo
+        if net.layers[n].cfg.type not in ("kShardData", "kLabel",
+                                          "kSoftmaxLoss")}
+    card, cpu = blocks[dev], blocks["cpu"]
+    assert sorted(card) == sorted(cpu) == [0, 2], (sorted(card), sorted(cpu))
+    worst = 0.0
+    for step in card:
+        assert set(card[step]) == set(cpu[step]) == names, \
+            (step, set(card[step]) ^ names)
+        for name, vals in card[step].items():
+            for a, b in zip(vals, cpu[step][name]):
+                assert abs(a - b) <= DEBUG_RTOL * abs(b) + DEBUG_ATOL, \
+                    (step, name, a, b)
+                if b:
+                    worst = max(worst, abs(a - b) / abs(b))
+    log(f"[measure] (f) conv.conf with debug: true, {DEBUG_STEPS} steps on "
+        f"{dev} and on the CPU: debug lines at steps {sorted(card)} name "
+        f"all {len(names)} layers and params; largest relative gap "
+        f"{worst:.3g} (within {DEBUG_RTOL} relative + {DEBUG_ATOL}); e.g. "
+        f"step 2 ip2/weight {card[2]['ip2/weight']}")
+
+
+def phase_measure(dev, arrays, lm_kw=BENCH, alex_batch=ALEX_BATCH,
+                  cli_conf=LM_CONF, convergence=None):
+    """Phase 14: FLOPs and MFU, the phase split on the card, the CLI's
+    --phase_profile, time-to-99, CostWatch and ModelProto.debug.  The
+    arguments cut it down for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="measure-",
+                           dir=os.path.join(REPO, "build"))
+    clock = [time.perf_counter()]
+
+    def took(what):
+        now = time.perf_counter()
+        log(f"[time] phase 14{what}: {now - clock[0]:.1f} s")
+        clock[0] = now
+    try:
+        mfus = measure_flops(lm_kw, alex_batch)
+        took("a")
+        measure_split(dev, arrays, lm_kw, alex_batch)
+        took("b")
+        measure_cli(dev, cli_conf)
+        took("c")
+        measure_convergence(dev, tmp, **(convergence or {}))
+        took("d")
+        measure_costs(dev)
+        took("e")
+        measure_debug(dev, tmp)
+        took("f")
+        return mfus
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache() if dev == "cuda" else None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3581,6 +3981,12 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from singa_tpu_torch import build_net, numpy_params, transformer_lm
     from singa_tpu_torch.ops import _kernels
+    from singa_tpu_torch.utils.flops import peak_flops
+
+    # the bounds' bf16 peak is the port's own (utils/flops.py)
+    peak = peak_flops(0)
+    assert peak is not None, torch.cuda.get_device_name(0)
+    PEAK_FLOPS[torch.bfloat16] = peak
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3650,6 +4056,9 @@ def main() -> int:
     vis = phase_vision(dev)
     log(f"[vision] phase 13's launches on the meanfile CLI path: {vis}")
     took("phase 13")
+    mfus = phase_measure(dev, arrays)
+    assert set(mfus) == {"bench", "lmconf", "alexnet"}, mfus
+    took("phase 14")
 
     kernels = []
     for name, res, replaces in (

@@ -5,14 +5,15 @@ graph from `srclayers` edges, the topological sort, per-phase layer
 filtering by `exclude`, shape setup in topo order, the param index with
 `share_param` aliases, `init_params`, `multipliers` (`:165-168`) and
 `apply`, the relu+LRN fusion (`:122-140`), the Slice-aware source
-lookups (`:112-121`, `:346-351`) and the layers' auxiliary losses
+lookups (`:112-121`, `:346-351`), the layers' auxiliary losses
 (`:333-338`), which join the total loss and the metrics as
-"<layer>/aux".  `apply` takes the call's seed and
-step (`rng`, `step`), from which each layer that draws (dropout, the RGB
-crop and mirror, the MNIST distortion) seeds its own generator
-(`Context.layer_rng`), or the caller's generators, seeded by the caller
-(`generators`, keyed by topological index: the trainer's).  Mesh
-constraints, partition padding and remat wait for the parallel slice.
+"<layer>/aux", and `to_json` / `debug_info` (`:357-378`).  `apply`
+takes the call's seed and step (`rng`, `step`), from which each layer
+that draws (dropout, the RGB crop and mirror, the MNIST distortion)
+seeds its own generator (`Context.layer_rng`), or the caller's
+generators, seeded by the caller (`generators`, keyed by topological
+index: the trainer's).  Mesh constraints, partition padding and remat
+wait for the parallel slice.
 """
 
 from __future__ import annotations
@@ -248,6 +249,39 @@ class NeuralNet:
 
     def _loss_layers(self) -> List[str]:
         return [n for n in self.topo if self.layers[n].is_loss]
+
+    # -- introspection -----------------------------------------------------
+    def to_json(self) -> str:
+        """Net-structure dump for visualization (graph.cc:4-59)."""
+        return self.graph.to_json()
+
+    def debug_info(self, params: Dict[str, torch.Tensor],
+                   outputs: Dict[str, Any],
+                   grads: Optional[Dict[str, torch.Tensor]] = None) -> str:
+        """Per-layer mean-absolute norms, the reference's DebugInfo
+        printout (neuralnet.cc:350-378) under ModelProto.debug: each
+        layer's output (but integer ones: token ids, labels), then each
+        param, with its gradient's where `grads` has one.  Each mean is
+        taken in its tensor's dtype, as the JAX package's `jnp.mean`."""
+        lines = []
+        for name in self.topo:
+            out = outputs.get(name)
+            if (isinstance(out, torch.Tensor)
+                    and out.dtype not in (torch.int32, torch.int64)):
+                lines.append(f"{name}: data {_mean_abs(out):.6f}")
+        for pname, p in sorted(params.items()):
+            line = f"{pname}: param {_mean_abs(p):.6f}"
+            if grads is not None and pname in grads:
+                line += f" grad {_mean_abs(grads[pname]):.6f}"
+            lines.append(line)
+        return "\n".join(lines)
+
+
+def _mean_abs(t: torch.Tensor) -> float:
+    t = t.detach()
+    if not t.is_floating_point():
+        t = t.float()
+    return float(t.abs().mean())
 
 
 def build_net(model_cfg: ModelConfig, phase: str = "kTrain",

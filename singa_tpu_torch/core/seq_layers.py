@@ -365,6 +365,7 @@ class LMHeadLossLayer(Layer, _HeadProjection):
         self.tied = bool(self.cfg.share_param)
         self.w_key = _declare_with_default(
             self, 0, "w", (e, p.vocab_size), 1.0 / math.sqrt(e))
+        self.flops_shape = (b, s, e, p.vocab_size)   # for utils.flops
         self.out_shape = (2,)
 
     def _use_fused(self, h2, w, is_vE) -> bool:

@@ -48,8 +48,18 @@ is checkpointed, SIGTERM/SIGINT save at the current step and return.
 `run(scan_chunk=k)` stages chunks through `data.feed` (a `DeviceFeeder`
 thread by default).
 
-Not ported yet (ROADMAP.md): elastic/async sync, pipeline nets and
-`profile_phases`.
+How the trainer measures itself (`:62-99`, `:474-556`, `:853-972`):
+the train and eval steps harvest their analytic FLOPs into CostWatch
+(`obs.perf`, `utils/flops.py`) at first use, so /metrics carries
+`singa_program_flops` and, with `run`'s step times, `singa_program_mfu`.
+`profile_phases` traces one eager step on clones of the state and pins
+its device fwd/bwd/update split on `TimerInfo` (`run` calls it at the
+first display step under `phase_profile` or SINGA_TPU_PHASE_PROFILE=1);
+with `ModelProto.debug`, `run` logs `NeuralNet.debug_info` of an eager
+forward and backward at each display step.  Neither moves the params,
+the optimizer state, the generators or the data stream.
+
+Not ported yet (ROADMAP.md): elastic/async sync and pipeline nets.
 """
 
 from __future__ import annotations
@@ -66,8 +76,9 @@ from .. import obs
 from ..config.schema import ModelConfig
 from ..device import DeviceLike, resolve_device
 from ..obs import perf
-from ..utils import faults
+from ..utils import faults, profiler
 from ..utils.checkpoint import CheckpointManager
+from ..utils.flops import net_forward_flops, net_train_flops
 from ..weights import opt_state_from_numpy, params_from_numpy
 from . import seq_layers  # noqa: F401  (registers the layer types)
 from .layers import LAYER_REGISTRY, fold_in, layer_seed
@@ -106,9 +117,13 @@ class TimerInfo:
     """Per-phase wall-time accumulator (worker.h:91-114): `wait` (the
     batch source, or the feeder), `stage` (stacking and issuing a
     chunk's copy; the feeder's thread does it off the critical path) and
-    `train` (the steps, and the drain's wait for their metrics)."""
+    `train` (the steps, and the drain's wait for their metrics).  The
+    device's fwd/bwd/update split, which the reference timed around each
+    phase call, comes from a one-shot trace of an eager step
+    (`Trainer.profile_phases`) and rides along as `phase_shares`."""
     times: Dict[str, float] = field(default_factory=dict)
     steps: int = 0
+    phase_shares: Optional[Dict[str, float]] = None
 
     def add(self, phase: str, seconds: float) -> None:
         self.times[phase] = self.times.get(phase, 0.0) + seconds
@@ -118,7 +133,17 @@ class TimerInfo:
         parts = [f"{k}: {v / max(self.steps, 1) * 1e3:.2f}ms "
                  f"({100 * v / total:.0f}%)"
                  for k, v in self.times.items()]
-        return "Time per step — " + ", ".join(parts)
+        out = "Time per step — " + ", ".join(parts)
+        if self.phase_shares:
+            shares = dict(self.phase_shares)
+            cov = shares.pop("coverage", None)
+            out += " [device: " + ", ".join(
+                f"{k} {100 * v:.0f}%" for k, v in shares.items())
+            if cov is not None:
+                # work outside every phase is left out of the shares
+                out += f" — {100 * cov:.0f}% of device time attributed"
+            out += "]"
+        return out
 
     def reset(self) -> None:
         self.times.clear()
@@ -130,6 +155,13 @@ def _index(batch, i: int):
     if isinstance(batch, dict):
         return {k: _index(v, i) for k, v in batch.items()}
     return batch[i]
+
+
+def _clone(tree):
+    """A copy of a (nested) dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
 
 
 class Trainer:
@@ -194,6 +226,12 @@ class Trainer:
         self.val_step = self._eval_step(self.val_net)
         self.perf = Performance()
         self.timer = TimerInfo()
+        # `run` profiles the phases at its first display step when set
+        # (or SINGA_TPU_PHASE_PROFILE=1); the last profile's device time
+        # by (phase, kernel), phase None for unattributed work
+        self.phase_profile = False
+        self.phase_kernels: Dict[tuple, float] = {}
+        self._train_harvested = False
         # post-save publication hook (step, verdict): runs after a
         # snapshot and its verdict are on disk; a raising hook is logged
         self.on_checkpoint: Optional[Callable[[int, Optional[str]],
@@ -240,8 +278,13 @@ class Trainer:
         # the trainer holds these closures: they must not hold it
         compute_dtype, seed, state = self.compute_dtype, self.seed, \
             self._state
+        program = f"eval_step[{net.phase}]"
+        harvested = []
 
         def forward(params, batch):
+            if not harvested:   # at the capture, or the first eager call
+                perf.harvest(program, flops=net_forward_flops(net))
+                harvested.append(program)
             with torch.no_grad():
                 _, metrics, _ = net.apply(params, batch, train=False,
                                           compute_dtype=compute_dtype,
@@ -249,7 +292,7 @@ class Trainer:
             return metrics
         if not self.graphs:
             return forward
-        graph = StepGraph(f"eval_step[{net.phase}]", self._pool)
+        graph = StepGraph(program, self._pool)
 
         def eval_step(params, batch):
             return graph(forward, _own(state, params)["params"], batch)
@@ -273,24 +316,27 @@ class Trainer:
         maps every param to its gradient, or to None where none reached
         it."""
         self._seed_layers(step)
-        return self._grads(params, batch, step)
+        return self._grads(params, batch, step)[:2]
 
     def _grads(self, params, batch, step: Optional[int]) -> tuple:
-        """`gradients` with the generators as they stand."""
+        """`gradients` with the generators as they stand, and the layer
+        outputs: (metrics, grads, outputs)."""
         names = sorted(params)
         tensors = [params[k] for k in names]
         for p in tensors:
             p.requires_grad_(True)
         try:
-            loss, metrics, _ = self.train_net.apply(
-                params, batch, train=True, compute_dtype=self.compute_dtype,
-                rng=self.seed, step=step, generators=self._gens)
+            with profiler.phase("fwd"):
+                loss, metrics, outputs = self.train_net.apply(
+                    params, batch, train=True,
+                    compute_dtype=self.compute_dtype, rng=self.seed,
+                    step=step, generators=self._gens)
             grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         finally:
             for p in tensors:
                 p.requires_grad_(False)
         return ({k: v.detach() for k, v in metrics.items()},
-                dict(zip(names, grads)))
+                dict(zip(names, grads)), outputs)
 
     def _step(self, params, opt_state, batch, step: Optional[int],
               poison: Optional[float] = None):
@@ -301,7 +347,7 @@ class Trainer:
         health monitor the metrics gain the probes, over a copy of the
         params taken before the update (the updater writes them in
         place)."""
-        metrics, grads = self._grads(params, batch, step)
+        metrics, grads, _ = self._grads(params, batch, step)
         grads = {k: g if g is not None else torch.zeros_like(params[k])
                  for k, g in grads.items()}
         if poison is not None:
@@ -312,8 +358,9 @@ class Trainer:
             names = list(params)
             old = dict(zip(names, torch._foreach_mul(
                 [params[k] for k in names], 1.0)))
-        self.updater.apply(grads, params, opt_state,
-                           multipliers=self.multipliers)
+        with profiler.phase("update"):
+            self.updater.apply(grads, params, opt_state,
+                               multipliers=self.multipliers)
         if old is not None:
             from ..utils.health import health_probes
             metrics = {**metrics, **health_probes(grads, old, params)}
@@ -345,6 +392,9 @@ class Trainer:
         tensors (replays and eager steps are bit-equal, draws included),
         so no graph branches and a step without a fault replays as
         always."""
+        if not self._train_harvested:   # at the capture, or the first step
+            perf.harvest("train_step", flops=net_train_flops(self.train_net))
+            self._train_harvested = True
         if not self.graphs:
             self.updater.set_step(step, params, self.multipliers)
             self._seed_layers(step)
@@ -425,6 +475,67 @@ class Trainer:
         for m in self.drain_metrics(slots):
             perf.update(m)
         return perf.averages()
+
+    # -- measuring the step (`:474-487`, `:519-556`) -------------------------
+    def _gen_states(self) -> Dict[int, torch.Tensor]:
+        return {i: g.get_state() for i, g in self._gens.items()}
+
+    def _set_gen_states(self, states: Dict[int, torch.Tensor]) -> None:
+        for i, st in states.items():
+            self._gens[i].set_state(st)
+
+    def profile_phases(self, params, opt_state, batch, step: int = 0,
+                       outdir: Optional[str] = None) -> Dict[str, float]:
+        """Measure the device's fwd/bwd/update split of the train step
+        (worker.h:91-114's tForward_/tBackward_/tSyncParam_ report) and
+        pin it on `self.timer` for every later TimerInfo line.
+
+        One EAGER step at `step` on clones of `params` and `opt_state` is
+        traced with `torch.profiler` into `outdir` (a temporary directory
+        by default) and attributed by `utils.profiler.phase_shares`: a
+        replayed graph is one launch, which no trace splits into phases.
+        (`run` profiles after its first step, which paid the first-call
+        setup.)  The run's params, optimizer state and generators are
+        left as they were, and no batch is drawn.  Returns the shares;
+        the time by (phase, kernel) lands in `self.phase_kernels`."""
+        import tempfile
+        outdir = outdir or tempfile.mkdtemp(prefix="singa_phase_prof_")
+        cp, co = _clone(params), _clone(opt_state)
+        saved = self._gen_states()
+        try:
+            self.updater.set_step(step, cp, self.multipliers)
+            self._seed_layers(step)
+            profiler.hard_sync(cp)
+            with profiler.trace(outdir) as prof:
+                self._step(cp, co, batch, step)
+                profiler.hard_sync(cp)
+        finally:
+            self._set_gen_states(saved)
+        events = prof.events()
+        self.phase_kernels = profiler.attribute(events)[0]
+        shares = profiler.phase_shares(events)
+        self.timer.phase_shares = shares
+        return shares
+
+    def debug_step(self, params, batch, step: int) -> tuple:
+        """(outputs, grads) of one eager forward and backward at `step`
+        for `NeuralNet.debug_info` (neuralnet.cc:350-378 prints data and
+        gradient norms): every layer's output and every param's gradient
+        (zeros where none reaches it), drawing what step `step` draws.
+        Nothing is updated, and the generators are left as they were."""
+        saved = self._gen_states()
+        try:
+            self._seed_layers(step)
+            _, grads, outputs = self._grads(params, batch, step)
+        finally:
+            self._set_gen_states(saved)
+        grads = {k: g if g is not None else torch.zeros_like(params[k])
+                 for k, g in grads.items()}
+        return outputs, grads
+
+    def _phase_profile_on(self) -> bool:
+        return bool(self.phase_profile) or \
+            os.environ.get("SINGA_TPU_PHASE_PROFILE") == "1"
 
     # -- cadence helpers (worker.h:127-160 semantics) ----------------------
     def _now(self, step, freq, after) -> bool:
@@ -570,6 +681,10 @@ class Trainer:
         pending: List[tuple] = []
         staged_credit = [0.0]
         saved = None
+        # the newest chunk's last batch, for the debug step and the
+        # phase profile; the end of the last drained chunk's fetch
+        last_batch = [None]
+        fetched = [0.0]
 
         def drain():
             if pending:
@@ -578,10 +693,18 @@ class Trainer:
 
         def drain_chunks():
             while pending:
-                s0, stacked = pending.pop(0)
+                s0, stacked, t_start = pending.pop(0)
                 t = time.perf_counter()
                 per_step = self.drain_metrics(stacked)
-                self.timer.add("train", time.perf_counter() - t)
+                now = time.perf_counter()
+                self.timer.add("train", now - t)
+                # a step's time for MFU: from its chunk's dispatch (or the
+                # end of the chunk before, whose work it queued behind) to
+                # the fetch of its metrics, never the enqueue alone
+                perf.observe_step("train_step",
+                                  (now - max(t_start, fetched[0]))
+                                  / len(per_step))
+                fetched[0] = now
                 for s, metrics in enumerate(per_step, start=s0):
                     if self.health is not None:
                         self._observe(s, metrics)
@@ -589,6 +712,17 @@ class Trainer:
                     for hook in hooks or ():
                         self._call_hook(hook, s, metrics)
                     if self.display_now(s):
+                        if (self.timer.phase_shares is None
+                                and self._phase_profile_on()):
+                            # one-shot; a profiler failure is logged and
+                            # never stops training
+                            try:
+                                self.profile_phases(params, opt_state,
+                                                    last_batch[0], step=s)
+                            except Exception as e:  # noqa: BLE001
+                                self.timer.phase_shares = {}
+                                self.log(f"warning: phase profile failed: "
+                                         f"{type(e).__name__}: {e}")
                         self.log(f"step-{s}: {self.perf.to_string()}")
                         self.log(self.timer.to_string())
                         self.perf.reset()
@@ -630,6 +764,7 @@ class Trainer:
                     # drained before the next replay overwrites them
                     # (the ring is 1 without the feeder)
                     stacked = {k: v.reshape(1) for k, v in m.items()}
+                    last_batch[0] = batch
                 else:
                     if fd is not None:
                         with obs.span("feeder.wait", start=step):
@@ -648,22 +783,30 @@ class Trainer:
                         with obs.span("feeder.stage", start=step, steps=n):
                             chunk = stager.stage(batches)
                     t1 = time.perf_counter()
+                    batches = chunk.take()
                     with obs.span("trainer.chunk", start=step, steps=n):
                         params, opt_state, stacked = self.train_steps(
-                            params, opt_state, chunk.take(), step, n,
+                            params, opt_state, batches, step, n,
                             stacked=True, poison=poison)
+                    last_batch[0] = _index(batches, n - 1)
                 t2 = time.perf_counter()
-                pending.append((step, stacked))
+                pending.append((step, stacked, t1))
                 self.timer.add("wait", t1 - t0)
                 self.timer.add("train", t2 - t1)
                 self.timer.steps += n
                 # the first train dispatch latches the cold start
                 perf.mark_training_ready()
-                perf.observe_step("train_step", (t2 - t1) / n)
-                if (len(pending) >= ring
-                        or any(self.display_now(step + i)
-                               for i in range(n))):
+                shown = any(self.display_now(step + i) for i in range(n))
+                if len(pending) >= ring or shown:
                     drain()
+                if self.cfg.debug and shown:
+                    # the norms are of the post-chunk params, so they are
+                    # labelled with the chunk's last step
+                    s_dbg = step + n - 1
+                    outs, grads = self.debug_step(params, last_batch[0],
+                                                  s_dbg)
+                    self.log(f"step-{s_dbg} debug:\n" +
+                             self.train_net.debug_info(params, outs, grads))
                 last = step + n - 1
                 if (ckpt is not None and last >= cfg.checkpoint_after_steps
                         and (last + 1) % cfg.checkpoint_frequency == 0):

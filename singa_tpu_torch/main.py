@@ -14,7 +14,9 @@ healthy snapshot, replay the data, retry within budgets); with the
 numeric-health sentinel (`--health`, `--health_spec`), deterministic
 fault injection (`--fault_spec`), checkpoints with verdicts in the
 workspace, chunked steps (`--scan_chunk`) fed by a `DeviceFeeder`
-(`--feeder`, `--feeder_depth`), and telemetry (`--obs`).  An
+(`--feeder`, `--feeder_depth`), the device's fwd/bwd/update split on
+every `Time per step` line (`--phase_profile`, one traced eager step:
+`Trainer.profile_phases`), and telemetry (`--obs`).  An
 `alg: kContrastiveDivergence` config (`examples/mnist/rbm.conf`) trains
 its kRBM layers greedily with CD-k (`Trainer.run_cd`).
 
@@ -39,7 +41,7 @@ device="cpu")` is the Python entry that runs it on the CPU.  What the
 port does not have yet exits 2, naming its ROADMAP.md item: `-procsID`,
 `-hostfile`, a cluster config with more than one async group, and an
 elastic/RandomSync run that reaches its first center exchange (A9);
-`--phase_profile` (A8); the `pipeline` subcommand (A10); serve's
+the `pipeline` subcommand (A10); serve's
 fleet flags (`--fleet`, `--fleet_hostfile`, `--standby`,
 `--autoscale_spec`, `--fleet_spec`, `--rollout_spec`, `--transport`:
 A11).
@@ -132,8 +134,10 @@ def make_argparser() -> argparse.ArgumentParser:
                     help="staged chunks the feeder may run ahead "
                          "(0 = SINGA_TPU_FEEDER_DEPTH or 2)")
     ap.add_argument("--phase_profile", action="store_true",
-                    help="the device fwd/bwd/update split: not in the "
-                         "port yet (ROADMAP.md A8)")
+                    help="measure the device fwd/bwd/update split once "
+                         "(a profiler trace of one eager step) and report "
+                         "it at every display interval (worker.h:91-114 "
+                         "parity)")
     _add_obs_flags(ap)
     return ap
 
@@ -339,9 +343,6 @@ def main(argv=None, device: DeviceLike = None) -> int:
     args = make_argparser().parse_args(argv)
     if args.hostfile or args.procsID:
         return _lacking("-procsID/-hostfile (multi-process runs)", "A9")
-    if args.phase_profile:
-        return _lacking("--phase_profile (the device fwd/bwd/update "
-                        "split, utils/profiler.py)", "A8")
     from .utils.faults import FaultSchedule, inject
     schedule = (FaultSchedule.parse(args.fault_spec, seed=args.seed)
                 if args.fault_spec else None)
@@ -412,6 +413,7 @@ def _run(args, device: DeviceLike) -> int:
             "supervisor's divergence policy")
     trainer = Trainer(model, input_shapes, log_fn=obs.get_logger("trainer"),
                       device=dev, seed=args.seed, health=health)
+    trainer.phase_profile = args.phase_profile
     reg = obs.registry()
     if reg is not None and health is not None:
         health.register_into(reg)

@@ -22,11 +22,17 @@ folded into one process-global `PerfWatch`.
     PagedKVCache pool bytes from block geometry).  A high-watermark
     gauge tracks the worst total ever observed and is surfaced both in
     /metrics and in flight-recorder dumps.
-  * **CostWatch** — the JAX package harvests XLA `cost_analysis()`
-    FLOPs/bytes off compiled executables (`utils/flops.py`).  A CUDA
-    graph carries no cost analysis and the port has no `utils/flops.py`
-    yet (ROADMAP.md A8), so `harvest` records nothing; `observe_step`
-    keeps each program's latest wall time.
+  * **CostWatch** — each program's FLOPs, harvested by its owner
+    (`harvest(program, flops=...)`): the trainer records the analytic
+    count of its train and eval steps (`utils/flops.py`; their K1-K6
+    launches are invisible to a FLOP counter), the engine what
+    `counted_flops` counted on each program's eager warm-up call.  A
+    CUDA graph carries no cost analysis, so nothing is read off a
+    captured program; nothing counts the bytes a program moves either,
+    so the JAX package's `singa_program_bytes` and arithmetic intensity
+    have no counterpart.  `observe_step` keeps each program's latest
+    wall time, and `collect()` derives `singa_program_mfu` from the two
+    and the card's peak.
 
 Cold-start readiness rides along: `mark_serving_ready()` /
 `mark_training_ready()` are first-call-wins latches measuring process
@@ -54,6 +60,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.flops import peak_flops
 from .metrics import Histogram, Sample
 
 #: capture durations run 100ms..minutes, not the request-latency
@@ -141,7 +148,7 @@ class PerfWatch:
         # total ever observed across set_memory calls and scrapes
         self._memory: Dict[Tuple[str, str], int] = {}
         self._watermark = 0
-        # CostWatch: program -> {"flops":…, "bytes":…, "step_seconds":…}
+        # CostWatch: program -> {"flops":…, "step_seconds":…}
         self._cost: Dict[str, Dict[str, float]] = {}
 
     # -- CompileWatch -------------------------------------------------------
@@ -282,18 +289,22 @@ class PerfWatch:
         return out
 
     # -- CostWatch ----------------------------------------------------------
-    def harvest(self, program: str, compiled=None) -> Dict[str, float]:
-        """The JAX package pulls FLOPs/bytes off a compiled executable
-        here.  A CUDA graph carries no cost analysis and the port has no
-        FLOP count yet (ROADMAP.md A8): nothing is recorded, and the
-        program's cost entry comes back as it is."""
+    def harvest(self, program: str, compiled=None,
+                flops: Optional[float] = None) -> Dict[str, float]:
+        """Record `flops`, the FLOPs of one execution of `program`, when
+        positive; merge them into the program's cost entry and return
+        it.  `compiled`, the JAX package's compiled executable, has no
+        counterpart here: a CUDA graph carries no cost analysis, so the
+        owner that counted the program passes its count."""
         with self._lock:
-            return dict(self._cost.get(program, {}))
+            entry = self._cost.setdefault(program, {})
+            if flops and flops > 0:
+                entry["flops"] = float(flops)
+            return dict(entry)
 
     def observe_step(self, program: str, seconds: float) -> None:
-        """Record the latest wall time of one execution of `program`
-        (the JAX package derives MFU from it and the harvested FLOPs;
-        the port keeps it in `snapshot()["cost"]`)."""
+        """Record the latest wall time of one execution of `program`, so
+        that MFU (flops / (seconds · peak)) can be derived at scrape."""
         if seconds <= 0:
             return
         with self._lock:
@@ -310,6 +321,7 @@ class PerfWatch:
             memory = dict(self._memory)
             serving = self._serving_ready_s
             training = self._training_ready_s
+            cost = {k: dict(v) for k, v in self._cost.items()}
         out: List[Sample] = []
         for program, n in sorted(compiles.items()):
             out.append(Sample(
@@ -376,6 +388,23 @@ class PerfWatch:
         out.append(Sample("singa_hbm_watermark_bytes", "gauge",
                           "high-watermark of observed/modelled HBM",
                           float(watermark)))
+        # cost: FLOPs per program; MFU where the peak table knows the
+        # card (None on the CPU)
+        try:
+            peak = peak_flops()
+        except Exception:  # noqa: BLE001 — telemetry never kills
+            peak = None
+        for program, entry in sorted(cost.items()):
+            lab = (("program", program),)
+            flops = entry.get("flops")
+            step = entry.get("step_seconds")
+            if flops:
+                out.append(Sample("singa_program_flops", "gauge",
+                                  "model FLOPs per execution", flops, lab))
+            if flops and step and peak:
+                out.append(Sample("singa_program_mfu", "gauge",
+                                  "achieved FLOP/s over the card's bf16 "
+                                  "peak", flops / (step * peak), lab))
         return out
 
     def snapshot(self) -> Dict[str, Any]:
@@ -511,8 +540,9 @@ def set_memory_tree(component: str, tree, scope: str = "") -> int:
     return _WATCH.set_memory_tree(component, tree, scope=scope)
 
 
-def harvest(program: str, compiled=None) -> Dict[str, float]:
-    return _WATCH.harvest(program, compiled)
+def harvest(program: str, compiled=None,
+            flops: Optional[float] = None) -> Dict[str, float]:
+    return _WATCH.harvest(program, compiled, flops=flops)
 
 
 def observe_step(program: str, seconds: float) -> None:

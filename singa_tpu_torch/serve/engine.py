@@ -66,6 +66,14 @@ Such a poll is a torn poll now (`CheckpointManager.save_in_flight`).
 Each capture runs inside `obs.perf.compile_span`: `warmup()` marks its
 mode families warm, so a capture after warmup is a
 `perf.recompile_anomaly`.
+
+CostWatch (`:762,843,867-876`): the JAX engine reads each compiled
+program's FLOPs off XLA's cost analysis, which a CUDA graph does not
+have.  Here each program is counted once, by `utils.flops.
+counted_flops` over an eager call on its warm-up inputs before its
+capture (the serving programs run none of the ctypes kernels a FLOP
+counter cannot see), and harvested into `obs.perf`; `harvest_costs()`
+re-records those counts and never captures or counts again.
 """
 
 from __future__ import annotations
@@ -88,6 +96,7 @@ from ..models.generate import (_sample, decode, forward_cached,
 from ..obs import perf
 from ..utils import faults
 from ..utils.checkpoint import CheckpointManager
+from ..utils.flops import counted_flops
 from .kvcache import Pools, init_pools
 from .stats import ServeStats
 
@@ -399,6 +408,8 @@ class InferenceEngine:
         self._reload_lock = threading.Lock()
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self._programs: Dict[Tuple, Tuple[Callable, Optional[StepGraph]]] = {}
+        # FLOPs per program key, counted once (`_count`)
+        self._flops: Dict[Tuple, Optional[float]] = {}
         self._cb_pools: Optional[Pools] = None
         # injected straggler latency (engine.stall / set_stall): a
         # host-side sleep before every program call
@@ -815,10 +826,24 @@ class InferenceEngine:
                     f"block_len={spec.cb_block_len}")
         return f"b{key[1]}_p{key[2]}"
 
+    def _count(self, key: Tuple) -> None:
+        """Count program `key`'s FLOPs once, by an eager call on its
+        warm-up inputs (whose writes land in the null block), and harvest
+        them under its mode; under the lock."""
+        if key in self._flops:
+            return
+        fn, _ = self._program(key)
+        inputs = {k: torch.from_numpy(v).to(self.device)
+                  for k, v in self._dummy_inputs(key).items()}
+        self._flops[key] = counted_flops(
+            fn, self._state(key, self._params), inputs)
+        perf.harvest(key[0], flops=self._flops[key])
+
     def _capture(self, key: Tuple, state, inputs) -> None:
         """Capture program `key`'s graph unless it exists (under the
         lock); counts one compile per graph, timed by CompileWatch in
         this engine's scope (the cb programs in the generate family)."""
+        self._count(key)
         fn, graph = self._program(key)
         if graph is None:
             return
@@ -868,7 +893,9 @@ class InferenceEngine:
         generate mode is exactly the two cb programs, whatever the
         bucket list says (predict stays on buckets).  Returns the number
         of graphs captured; afterwards serving never captures again
-        (`stats.compiles` stays put).  Eager engines capture nothing."""
+        (`stats.compiles` stays put).  Eager engines capture nothing.
+        Either way each program's FLOPs are counted first, by one eager
+        call (`_count`)."""
         if self._params is None:
             raise RuntimeError("engine has no params; call load()")
         before = self.stats.compiles
@@ -886,6 +913,17 @@ class InferenceEngine:
             # family is a perf.recompile_anomaly
             perf.mark_warm(self._perf_scope, mode)
         return self.stats.compiles - before
+
+    def harvest_costs(self) -> int:
+        """CostWatch sweep: re-record the FLOPs counted so far (every
+        warmed program, and each captured at first use).  Reads the
+        counts only, never counts or captures again, so `stats.compiles`
+        is unchanged.  Returns the programs harvested."""
+        with self._lock:
+            items = list(self._flops.items())
+        for key, flops in items:
+            perf.harvest(key[0], flops=flops)
+        return len(items)
 
     # -- execution -----------------------------------------------------------
     def set_stall(self, seconds: float) -> None:

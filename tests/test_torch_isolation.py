@@ -49,7 +49,10 @@ def test_importing_every_module_loads_no_jax():
               "obs.trace", "obs.flightrec", "data.discovery", "main",
               "utils.health", "core.supervisor", "data.records",
               "data.shard", "data.native", "data.lmdb_reader",
-              "data.pipeline", "data.feed", "ops.augment", "models.rbm"):
+              "data.pipeline", "data.feed", "ops.augment", "models.rbm",
+              "utils.flops", "utils.profiler", "tools.viz",
+              "tools.export_examples", "tools.convergence_run",
+              "tools.loader"):
         assert f"singa_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -5,8 +5,9 @@ same checkpoint step and print snapshots with the same keys and
 counts); training with `--synthetic --steps N --workspace` on
 lm_tiny.conf and on a shard-backed copy of mlp.conf, both from the same
 step-0 snapshot (`--resume`): both exit 0, each package restores the
-other's workspace, and the final params agree; and the exits of what
-the port does not have yet (2, naming the ROADMAP.md item).  On a
+other's workspace, and the final params agree; `--phase_profile`'s
+device split on the `Time per step` lines; and the exits of what the
+port does not have yet (2, naming the ROADMAP.md item).  On a
 machine without a card the CLI raises rather than running on the
 CPU."""
 
@@ -74,12 +75,22 @@ def test_serve_smoke_matches_the_jax_cli(spec, tmp_path, capsys,
      "A11"),
     (["pipeline", "-model_conf", CONF, "--workspace", "ws"], "A10"),
     (["-model_conf", CONF, "-procsID", "1", "-hostfile", "h"], "A9"),
-    (["-model_conf", CONF, "--phase_profile"], "A8"),
 ])
 def test_what_the_port_lacks_exits_2_naming_the_roadmap_item(
         argv, item, capsys):
     assert tmain.main(argv, device="cpu") == 2
     assert f"ROADMAP.md {item}" in capsys.readouterr().err
+
+
+def test_phase_profile_logs_the_device_split(capsys):
+    assert tmain.main(["-model_conf", CONF, "--synthetic", "--steps", "4",
+                       "--phase_profile"], device="cpu") == 0
+    out = capsys.readouterr()
+    lines = [line for line in (out.out + out.err).splitlines()
+             if "Time per step" in line]
+    assert lines and all("[device: fwd" in line and
+                         "% of device time attributed]" in line
+                         for line in lines)
 
 
 def test_the_cli_runs_on_the_card():
