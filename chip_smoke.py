@@ -196,6 +196,35 @@ non-zero before the last line is printed:
    copy of conv.conf with `debug: true`: 4 steps on the card and on the
    CPU log debug lines that name every layer and param and agree
    within 1e-4 relative.
+15. The serving control plane (`[fleet]`, `[scale]`, `[procs]` lines;
+   no kernel of K1-K6 may launch).  (a) The bench stack in f32, cb=on
+   with 8 slots: `EngineFleet.local(..., 2)` behind the `Router`; 32
+   greedy requests while a third engine is grown on another thread
+   (its captures beside the siblings' replays) must each equal one
+   replayed engine's answer under phase 4b's tie rule, reach both
+   engines, and add no capture and no CompileWatch anomaly to a
+   sibling; the grown engine answers alike, then retires, and the
+   device memory must come back within MEM_SLACK; memory per engine,
+   the router's host time per request, fleet against one engine in
+   turns.  (b) Rollout under traffic: a workspace's first save,
+   healthy, is served by exactly one engine while it is the canary
+   (the sibling's params unchanged under `torch.equal`: fault C5), then
+   promoted, with no refused canary (fault C6); a diverged save
+   reaches one engine and is rolled back; 0 failed requests;
+   canary-to-decision ms and the reloads' `copy_` ms.  (c) Three
+   128-token streams on one engine, a sibling revived (no capture),
+   then the streams' engine killed mid-decode: each stream completes
+   exactly once, spliced, equal to the uninterrupted one under the tie
+   rule; kill to the first spliced token.  (d) lm.conf in f32 under an
+   `AutoScaler` (1-3 engines) and `TrafficGen`'s ramp, flash crowd and
+   quiet: it must grow and shrink with 0 failed and 0 dropped requests
+   and give the memory back; grow and retire ms.  (e) Two `serve
+   --pinned --wire` worker processes on lm.conf adopted by
+   `EngineFleet.from_hostfile(transport="auto")`: both negotiate the
+   wire, one request's router and worker spans merge into one trace
+   with 0 orphans (`obs.collect`), and a SIGKILL of the worker serving
+   a stream is spliced onto the other exactly once; `serve --fleet 2
+   --smoke 8`, a subprocess started beside the workers, must exit 0.
 
 Every result line ends with the card's `nvidia-smi` name and power
 limit.  The last lines are one JSON object listing each kernel with its
@@ -3974,6 +4003,669 @@ def phase_measure(dev, arrays, lm_kw=BENCH, alex_batch=ALEX_BATCH,
         torch.cuda.empty_cache() if dev == "cuda" else None
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the serving control plane on the card — a fleet behind the
+# Router, rollout, failover, the autoscaler, worker processes and the CLI
+
+# a resume leg re-admits prompt ‖ emitted prefix: the cap leaves room
+FLEET_SPEC = dict(buckets=((1, 16),), max_new_tokens=128, cb="on",
+                  cb_slots=8, cb_block_len=16, cb_prompt_cap=256,
+                  queue_capacity=128, request_timeout_s=300.0)
+FLEET_N = 32            # 15a's greedy requests, prompts of 16-128 tokens
+FLEET_STREAMS = 3       # 15c's concurrent streams, 128 tokens each
+FLEET_WAIT = 300.0      # every wait of this phase is bounded
+# allocated bytes that a grow and its retire may leave behind (cuBLAS's
+# per-stream workspaces are released before each reading): far below
+# one engine of either stack, so a retired engine that stays referenced
+# fails the check
+MEM_SLACK = 16 << 20
+SCALE_SPEC = dict(buckets=((1, 16),), max_new_tokens=32, cb="on",
+                  cb_slots=8, cb_block_len=16, cb_prompt_cap=64,
+                  queue_capacity=256, request_timeout_s=120.0)
+# 15d's traffic: a ramp, a flash crowd over one engine's capacity, quiet
+SCALE_LOAD = dict(ramp=(1.5, 20.0, 200.0), flash=(2.0, 200.0, 4.0),
+                  quiet=(4.0, 2.0))
+PROC_SPEC = ("buckets=1x16,max_new_tokens=128,cb=on,cb_slots=8,"
+             "cb_block_len=16,cb_prompt_cap=256,request_timeout_s=120")
+# the CLI on the CPU for a rehearsal (`python -m` runs it on the card)
+CPU_MAIN = ("import sys; from singa_tpu_torch.main import main; "
+            "sys.exit(main(sys.argv[1:], device='cpu'))")
+
+
+def main_cmd(dev):
+    """The command line of `python -m singa_tpu_torch.main` on `dev`."""
+    return ([sys.executable, "-m", "singa_tpu_torch.main"] if dev == "cuda"
+            else [sys.executable, "-c", CPU_MAIN])
+
+
+def allocated(dev):
+    """Device bytes allocated, after a garbage collection, with cuBLAS's
+    per-stream workspaces released (each capture's side stream gets
+    one; they are a cache of the library, not an engine's)."""
+    import gc
+    gc.collect()
+    if dev != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def fleet_traffic(vocab, n=FLEET_N, seed=15, cap=128):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(k)).astype(np.int32)
+            for k in rng.integers(16, cap + 1, n)]
+
+
+def tie_rule(net, params, dev, prompt, got, want, tag):
+    """None when `got` equals `want`, else (index, top-2 gap) of the first
+    differing token, which must sit at a gap below NEAR_TIE (phase 4b's
+    rule: decode batches of another size round differently)."""
+    got, want = list(got), list(want)
+    assert len(got) == len(want), (tag, len(got), len(want))
+    if got == want:
+        return None
+    i, gap = first_divergence(net, params, dev, prompt, got, want)
+    assert gap < NEAR_TIE, (tag, i, gap)
+    return i, gap
+
+
+def fleet_reference(net, params, dev, spec, prompts):
+    """Each prompt's answer from one replayed engine's scheduler (all
+    submitted before it starts)."""
+    from singa_tpu_torch.serve import ContinuousScheduler, InferenceEngine
+    eng = InferenceEngine(net, spec, params, device=dev, log_fn=log)
+    sched = ContinuousScheduler(eng, log_fn=log)
+    tickets = [sched.submit(p) for p in prompts]
+    sched.start()
+    try:
+        return [t.wait(FLEET_WAIT)["tokens"] for t in tickets]
+    finally:
+        sched.stop()
+
+
+def concurrently(fn, items, workers=None):
+    """`fn` over `items` in threads; results in order, exceptions
+    raised."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(workers or len(items)) as ex:
+        return list(ex.map(fn, items))
+
+
+def fleet_steps(fleet):
+    return {n: fleet.router.handle_for(n).engine.params_step
+            for n in fleet.router.names()}
+
+
+def fleet_a(dev, net, params, fleet, prompts, want):
+    """15a: answers through the router (a grow captures meanwhile),
+    retire and memory, router overhead, fleet against one engine."""
+    from singa_tpu_torch.obs import perf
+    from singa_tpu_torch.serve import LocalEngineHandle
+    handles = {h.name: h for h in fleet._local}
+    compiles = {n: h.engine.stats.compiles for n, h in handles.items()}
+    anomalies = perf.snapshot()["anomalies"]
+    before_grow = allocated(dev)
+    grown = {}
+
+    def grow():
+        t0 = time.perf_counter()
+        grown["name"] = fleet.grow()
+        grown["s"] = time.perf_counter() - t0
+
+    import threading
+    t = threading.Thread(target=grow, name="fleet-grow")
+    t0 = time.perf_counter()
+    t.start()
+    outs = concurrently(lambda p: fleet.generate(p, timeout=FLEET_WAIT),
+                        prompts)
+    t.join(FLEET_WAIT)
+    assert not t.is_alive() and "name" in grown, grown
+    wall = time.perf_counter() - t0
+    ties = [tie_rule(net, params, dev, p, o["tokens"], w, f"15a {i}")
+            for i, (p, o, w) in enumerate(zip(prompts, outs, want))]
+    by_engine = {}
+    for o in outs:
+        by_engine[o["engine"]] = by_engine.get(o["engine"], 0) + 1
+    assert {"engine-0", "engine-1"} <= set(by_engine), by_engine
+    new = fleet.router.handle_for(grown["name"])
+    assert isinstance(new, LocalEngineHandle)
+    for i in range(4):
+        got = new.request("generate", prompts[i], timeout=FLEET_WAIT)
+        ties.append(tie_rule(net, params, dev, prompts[i], got["tokens"],
+                             want[i], f"15a grown {i}"))
+    assert {n: h.engine.stats.compiles for n, h in handles.items()} == \
+        compiles, "a sibling captured after warm-up"
+    assert perf.snapshot()["anomalies"] == anomalies, \
+        "CompileWatch counted a capture anomaly"
+    gen = sum(len(o["tokens"]) for o in outs)
+    log(f"[fleet] 15a {FLEET_N} greedy requests through the Router over 2 "
+        f"engines while a third was grown (captured on another thread "
+        f"in {grown['s']:.3f} s, the siblings replaying): {gen} tokens in "
+        f"{wall:.3f} s, per engine {by_engine}; answers equal one "
+        f"replayed engine's except {sum(x is not None for x in ties)} "
+        f"(first index, top-2 gap: {[x for x in ties if x]}); no capture "
+        f"after warm-up on a sibling, 0 capture anomalies")
+    t0 = time.perf_counter()
+    assert fleet.retire(grown["name"]) is True
+    retire_s = time.perf_counter() - t0
+    del new
+    left = allocated(dev) - before_grow
+    log(f"[fleet] 15a retire of {grown['name']}: {retire_s * 1e3:.3f} ms "
+        f"(drained); device memory after it {left:+d} bytes against "
+        f"before the grow (slack {MEM_SLACK})")
+    assert left <= MEM_SLACK, left
+
+    # router overhead: the router's wall time per request less the time
+    # the engine's server reports for it, one request at a time
+    over, lone = [], []
+    for p in prompts[:8]:
+        t0 = time.perf_counter()
+        o = fleet.generate(p, timeout=FLEET_WAIT)
+        total = (time.perf_counter() - t0) * 1e3
+        over.append(total - o["latency_ms"])
+        lone.append(total)
+    log(f"[fleet] 15a router overhead per lone request: p50 "
+        f"{float(np.median(over)):.3f} ms, max {max(over):.3f} ms, of "
+        f"{float(np.median(lone)):.3f} ms p50 end to end "
+        f"({FLEET_SPEC['max_new_tokens']} new tokens)")
+
+    one = handles["engine-0"].server
+    runs = {"fleet of 2": lambda: concurrently(
+        lambda p: fleet.generate(p, timeout=FLEET_WAIT), prompts),
+        "engine-0 alone": lambda: concurrently(
+            lambda p: one.generate(p, timeout=FLEET_WAIT), prompts)}
+    ms = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]):     # in turns
+        for k in order:
+            t0 = time.perf_counter()
+            runs[k]()               # ends with every answer on the host
+            ms[k].append((time.perf_counter() - t0) * 1e3)
+    for k, v in ms.items():
+        log(f"[fleet] 15a {FLEET_N} concurrent requests, {k}: "
+            + ", ".join(f"{t:.3f}" for t in v) + " ms in turns, "
+            + ", ".join(f"{gen / t * 1e3:.1f}" for t in v)
+            + " generated tokens/s")
+    ratio = min(ms["engine-0 alone"]) / min(ms["fleet of 2"])
+    log(f"[fleet] 15a fleet of 2 on one card: {ratio:.3f}x one engine's "
+        f"tokens/s (best of each)")
+
+
+def fleet_b(dev, fleet, ws, arrays):
+    """15b: a healthy save canaries one engine and is promoted; a
+    diverged one canaries one and is rolled back; never two engines on
+    a canary step, no request fails."""
+    import threading
+    from singa_tpu_torch import CheckpointManager
+    mgr = CheckpointManager(ws, log_fn=log)
+    ctrl = fleet.rollout
+    stop, errors, served = threading.Event(), [], []
+    prompts = fleet_traffic(BENCH["vocab_size"], n=8, seed=16)
+
+    def traffic(i):
+        while not stop.is_set():
+            try:
+                fleet.generate(prompts[i % len(prompts)],
+                               timeout=FLEET_WAIT)
+                served.append(i)
+            except Exception as e:  # noqa: BLE001 — counted, then fails
+                errors.append(repr(e))
+            i += 4
+
+    def watch(step, done, tag):
+        """Poll every 2 ms until `done()`: the most engines seen on
+        `step` while the canary's window was open and at all, the time
+        the canary began serving (its reload done) and the time of the
+        verdict."""
+        most, most_canary, t_canary = 0, 0, None
+        deadline = time.monotonic() + FLEET_WAIT
+        while not done():
+            assert time.monotonic() < deadline, (tag, ctrl.snapshot())
+            state = ctrl.state
+            # the window is open until its deadline; the promotion's
+            # reloads of the others come after it, still in CANARY
+            window = time.monotonic() < ctrl._deadline - 0.05
+            steps = fleet_steps(fleet)
+            on = sum(s == step for s in steps.values())
+            most = max(most, on)
+            if state == "CANARY" and window and ctrl.state == "CANARY":
+                most_canary = max(most_canary, on)
+            if t_canary is None and state == "CANARY":
+                t_canary = time.perf_counter()
+                canary = ctrl.canary
+                if canary is not None and tag == "promote":
+                    # fault C5 on the card: the canary's reload moved
+                    # its own params only
+                    other = next(n for n in steps if n != canary)
+                    live = fleet.router.handle_for(other).engine.params
+                    assert all(torch.equal(live[k], clones[other][k])
+                               for k in live), "C5: a sibling moved"
+            time.sleep(0.002)
+        return most, most_canary, t_canary, time.perf_counter()
+
+    clones = {n: {k: v.clone() for k, v in
+                  fleet.router.handle_for(n).engine.params.items()}
+              for n in fleet.router.names()}
+    workers = [threading.Thread(target=traffic, args=(i,))
+               for i in range(4)]          # 4 clients, one request each
+    for w in workers:
+        w.start()
+    try:
+        assert ctrl.pinned_step < 10, ctrl.pinned_step
+        t0 = time.perf_counter()
+        mgr.save(10, arrays, {"t": np.zeros((), np.float32)},
+                 health={"verdict": "ok"})
+        t_saved = time.perf_counter()
+        most, most_c, t_c, t_d = watch(10, lambda: ctrl.promotions == 1,
+                                       "promote")
+        assert most_c == 1 and t_c is not None, most_c
+        steps = fleet_steps(fleet)
+        assert set(steps.values()) == {10}, steps
+        copy = {n: round(fleet.router.handle_for(n).engine.reload_copy_ms,
+                         3) for n in steps}
+        log(f"[fleet] 15b healthy save of step 10 ({t_saved - t0:.3f} s "
+            f"to write): on exactly one engine during the canary's window "
+            f"(serving {(t_c - t_saved) * 1e3:.3f} ms after the save), "
+            f"promoted {(t_d - t_c) * 1e3:.3f} ms after the canary began "
+            f"serving (window {ctrl.spec.window_s} s); reload copy_ ms per "
+            f"engine {copy}; the sibling's params unchanged under "
+            f"torch.equal while the canary served (C5)")
+        del clones
+        t0 = time.perf_counter()
+        mgr.save(20, arrays, {"t": np.zeros((), np.float32)},
+                 health={"verdict": "diverged"})
+        t_saved = time.perf_counter()
+        most, most_c, t_c, t_d = watch(20, lambda: ctrl.rollbacks == 1,
+                                       "rollback")
+        assert most == 1 and t_c is not None, most
+        steps = fleet_steps(fleet)
+        assert set(steps.values()) == {10}, steps
+        log(f"[fleet] 15b diverged save of step 20 ({t_saved - t0:.3f} s "
+            f"to write): on at most {most} engine at any time, rolled "
+            f"back {(t_d - t_c) * 1e3:.3f} ms after the canary began "
+            f"serving; the rollback's copy_ "
+            + ", ".join(f"{n} {fleet.router.handle_for(n).engine.reload_copy_ms:.3f}"
+                        for n in steps) + " ms (last reload of each)")
+    finally:
+        stop.set()
+        for w in workers:
+            w.join(FLEET_WAIT)
+    assert not any(w.is_alive() for w in workers)
+    assert not errors and fleet.router.stats.failed == 0, errors[:3]
+    # fault C6: a reader in a first save's window refused it
+    assert ctrl.refusals == 0, ctrl.snapshot()
+    log(f"[fleet] 15b {len(served)} requests served through both rollouts, "
+        f"0 failed; rollout {ctrl.snapshot()}")
+
+
+def fleet_c(dev, net, fleet):
+    """15c: 3 concurrent 128-token streams on one engine; a sibling is
+    revived (its graphs reused), then the streams' engine is killed
+    mid-decode: each completes exactly once, spliced, tokens equal the
+    uninterrupted streams under the tie rule."""
+    import threading
+    e0, e1 = (fleet.router.handle_for(n) for n in ("engine-0", "engine-1"))
+    params = e0.engine.params
+    prompts = fleet_traffic(BENCH["vocab_size"], n=FLEET_STREAMS, seed=17)
+    mn = FLEET_SPEC["max_new_tokens"]
+    ref = [[ev["token"] for ev in fleet.generate_stream(
+        p, max_new=mn, timeout=FLEET_WAIT) if "token" in ev]
+        for p in prompts]
+    e1.kill()
+    fleet.router.probe_all()
+    assert fleet.router.healthy_names() == ["engine-0"]
+    events = [[] for _ in prompts]
+    dones = [None] * len(prompts)
+
+    def consume(i):
+        for ev in fleet.generate_stream(prompts[i], max_new=mn,
+                                        timeout=FLEET_WAIT):
+            events[i].append((time.perf_counter(), ev))
+            if ev.get("done"):
+                dones[i] = ev
+    threads = [threading.Thread(target=consume, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + FLEET_WAIT
+    while min(len(e) for e in events) < 4:
+        assert time.monotonic() < deadline
+        time.sleep(0.001)
+    compiles = e1.engine.stats.compiles
+    e1.revive()
+    assert e1.engine.stats.compiles == compiles, "revive captured again"
+    while "engine-1" not in fleet.router.healthy_names():
+        assert time.monotonic() < deadline
+        fleet.router.probe_all()
+        time.sleep(0.005)
+    sessions = fleet.router.sessions.snapshot()["sessions"]
+    assert {s["engine"] for s in sessions} == {"engine-0"}, sessions
+    at = [len(e) for e in events]
+    t_kill = time.perf_counter()
+    e0.kill()
+    for t in threads:
+        t.join(FLEET_WAIT)
+    assert not any(t.is_alive() for t in threads)
+    firsts, ties = [], []
+    for i, (evs, done) in enumerate(zip(events, dones)):
+        toks = [ev for _, ev in evs if "token" in ev]
+        assert [ev["i"] for ev in toks] == list(range(mn)), i
+        assert done["spliced"] and done["resumes"] == 1, done
+        assert done["engine"] == "engine-1", done
+        ties.append(tie_rule(net, params, dev, prompts[i],
+                             [ev["token"] for ev in toks], ref[i],
+                             f"15c stream {i}"))
+        firsts.append(next((ts - t_kill) * 1e3 for ts, ev in evs
+                           if ts > t_kill and "token" in ev))
+    snap = fleet.router.sessions.snapshot()
+    assert snap["dup_tokens"] == 0 and snap["gap_events"] == 0, snap
+    log(f"[fleet] 15c {FLEET_STREAMS} streams of {mn} tokens, engine-0 "
+        f"killed after {at} events: every index exactly once, all spliced "
+        f"onto engine-1 (revived with its graphs, 0 captures); tokens "
+        f"equal the uninterrupted streams except "
+        f"{[x for x in ties if x]} (first index, top-2 gap); kill to the "
+        f"first spliced token "
+        + ", ".join(f"{x:.3f}" for x in firsts) + " ms")
+    e0.revive()
+
+
+def phase_fleet(dev, arrays, cfg=BENCH):
+    """15a-15c on the bench stack in f32 (`cfg` cuts it for a rehearsal
+    on the CPU)."""
+    import shutil
+    import tempfile
+    from singa_tpu_torch import params_from_numpy, numpy_params
+    from singa_tpu_torch.serve import (EngineFleet, RolloutSpec, RouterSpec,
+                                       ServeSpec)
+    net = build(cfg, cfg["seq_len"])
+    params = params_from_numpy(net, arrays, device=dev)
+    spec = ServeSpec(**FLEET_SPEC)
+    prompts = fleet_traffic(cfg["vocab_size"])
+    want = fleet_reference(net, params, dev, spec, prompts)
+    base = allocated(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    ws = tempfile.mkdtemp(prefix="fleet-", dir=os.path.join(REPO, "build"))
+    fleet = EngineFleet.local(
+        net, spec, 2, workspace=ws, params=params,
+        router_spec=RouterSpec(probe_period_s=0.05, quarantine_after=1,
+                               readmit_base_s=0.05, readmit_cap_s=0.1,
+                               hedge="off", request_timeout_s=FLEET_WAIT),
+        rollout_spec=RolloutSpec(poll_s=0.02, window_s=1.0),
+        device=dev, log_fn=lambda s: None)
+    try:
+        t0 = time.perf_counter()
+        fleet.start()
+        warm = time.perf_counter() - t0
+        per = (allocated(dev) - base) / 2
+        peak = (torch.cuda.max_memory_allocated() - base
+                if dev == "cuda" else 0)
+        log(f"[fleet] 15a EngineFleet.local(2) on the bench stack in f32 "
+            f"(cb 8 slots): started in {warm:.3f} s (load, warm-up, "
+            f"captures {[h.engine.stats.compiles for h in fleet._local]}); "
+            f"{per / 2**20:.1f} MiB allocated per engine, peak "
+            f"{peak / 2**20:.1f} MiB over both")
+        fleet_a(dev, net, params, fleet, prompts, want)
+        fleet_b(dev, fleet, ws, numpy_params(net, seed=1))
+        fleet_c(dev, net, fleet)
+    finally:
+        fleet.stop()
+        shutil.rmtree(ws, ignore_errors=True)
+
+
+def phase_autoscale(dev, conf=LM_CONF, load=SCALE_LOAD):
+    """15d: the AutoScaler over a fleet on lm.conf (f32, cb) under
+    TrafficGen's ramp, flash crowd and quiet: grows under the flash (a
+    capture while a sibling replays), shrinks after the quiet, 0 failed,
+    0 dropped by the harness, and the memory comes back."""
+    from singa_tpu_torch import build_net, load_model_config
+    from singa_tpu_torch.data.discovery import discover_input_shapes
+    from singa_tpu_torch.serve import (AutoScaler, AutoScaleSpec,
+                                       EngineFleet, RouterSpec, ServeSpec,
+                                       TrafficGen, flash_crowd, ramp, steady)
+    from singa_tpu_torch.weights import numpy_params, params_from_numpy
+    model = load_model_config(conf)
+    net = build_net(model, "kTrain",
+                    discover_input_shapes(model, force_synthetic=True))
+    params = params_from_numpy(net, numpy_params(net, seed=0), device=dev)
+    fleet = EngineFleet.local(
+        net, ServeSpec(**SCALE_SPEC), 1, params=params,
+        router_spec=RouterSpec(probe_period_s=0.05, hedge="off",
+                               request_timeout_s=120.0),
+        device=dev, log_fn=lambda s: None).start()
+    times = {"grow": [], "retire": []}
+
+    def timed(kind, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            times[kind].append(time.perf_counter() - t0)
+            return out
+        return call
+    fleet.grow = timed("grow", fleet.grow)
+    fleet.retire = timed("retire", fleet.retire)
+    scaler = AutoScaler(fleet, spec=AutoScaleSpec(
+        min_engines=1, max_engines=3, cooldown_s=0.5, window_s=1.0,
+        tick_s=0.1, quiet_ticks=5, slo_p95_ms=2000.0), log_fn=log)
+    before = allocated(dev)
+    vocab = next(layer.vocab_size for layer in net.layers.values()
+                 if isinstance(getattr(layer, "vocab_size", None), int))
+    gen = TrafficGen(lambda toks: fleet.generate(toks, timeout=120.0),
+                     vocab=vocab, seed=15, max_outstanding=8192,
+                     log_fn=lambda s: None)
+    (rd, r0, r1), (fd, fb, fk), (qd, qr) = (load["ramp"], load["flash"],
+                                            load["quiet"])
+    scaler.start()
+    try:
+        rep = gen.run([ramp("ramp", rd, r0, r1),
+                       flash_crowd("flash", fd, fb, k=fk),
+                       steady("quiet", qd, qr)], drain_timeout_s=120.0)
+        deadline = time.monotonic() + 60.0
+        while scaler.scale_downs < 1 or scaler._busy or \
+                len(fleet.router.names()) > 1:
+            assert time.monotonic() < deadline, scaler.snapshot()
+            time.sleep(0.05)
+    finally:
+        scaler.stop()
+    try:
+        tot = rep["totals"]
+        snap = scaler.snapshot()
+        assert tot["failed"] == 0 and tot["dropped_harness"] == 0, tot
+        assert snap["scale_ups"] >= 1 and snap["scale_downs"] >= 1, snap
+        left = allocated(dev) - before
+        for row in rep["phases"]:
+            log(f"[scale] 15d phase {row['name']}: offered "
+                f"{row['offered']}, completed {row['completed']}, shed "
+                f"{row['shed']}, failed {row['failed']}, p50/p95/p99 "
+                f"{row.get('p50_ms')}/{row.get('p95_ms')}/"
+                f"{row.get('p99_ms')} ms")
+        log(f"[scale] 15d autoscaler on lm.conf: {snap['scale_ups']} "
+            f"grows, {snap['scale_downs']} retires, engines back to "
+            f"{len(fleet.router.names())}; grow (spawn, load, warm-up "
+            f"captures, join) "
+            + ", ".join(f"{t * 1e3:.3f}" for t in times["grow"])
+            + " ms; retire (drain, stop) "
+            + ", ".join(f"{t * 1e3:.3f}" for t in times["retire"])
+            + f" ms; 0 failed, 0 dropped; device memory after the shrink "
+            f"{left:+d} bytes against before the first grow (slack "
+            f"{MEM_SLACK})")
+        assert left <= MEM_SLACK, left
+    finally:
+        fleet.stop()
+
+
+def start_worker(dev, i, tmp, conf):
+    """One `serve --pinned --wire` worker process with telemetry on; its
+    log goes to a file."""
+    path = os.path.join(tmp, f"worker-{i}.log")
+    obs_spec = (f"trace={tmp}/w{i}.json,events={tmp}/w{i}.jsonl,"
+                f"flightrec={tmp}/fr{i},trace_ring=4096,process=worker-{i}")
+    out = open(path, "w")
+    proc = subprocess.Popen(
+        main_cmd(dev) + ["serve", "-model_conf", conf, "--pinned", "--wire",
+                         "--port", "0", "--serve_spec", PROC_SPEC, "--obs",
+                         "on", "--obs_spec", obs_spec],
+        cwd=REPO, env=dict(os.environ, PYTHONUNBUFFERED="1"), stdout=out,
+        stderr=subprocess.STDOUT)
+    out.close()
+    return proc, path
+
+
+def worker_url(proc, path, deadline):
+    while True:
+        with open(path) as f:
+            text = f.read()
+        if "wire on" in text:
+            line = next(ln for ln in text.splitlines()
+                        if "serve: http on " in ln)
+            return "http://" + line.split("http on ")[1].split()[0]
+        if proc.poll() is not None or time.monotonic() > deadline:
+            print(text[-4000:], file=sys.stderr)
+            raise AssertionError(f"worker {path} never served")
+        time.sleep(0.05)
+
+
+def phase_procs(dev, conf=LM_CONF):
+    """15e: two worker processes adopted over the wire, a SIGKILL spliced
+    across, one merged trace; and `serve --fleet 2 --smoke 8`, a third
+    process started with the workers (their start-ups overlap)."""
+    import shutil
+    import tempfile
+    import threading
+    from singa_tpu_torch import obs
+    from singa_tpu_torch.obs import collect
+    from singa_tpu_torch.serve import (EngineFleet, NegotiatingEngineHandle,
+                                       RouterSpec)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="procs-", dir=os.path.join(REPO, "build"))
+    procs, smoke = [], None
+    try:
+        t0 = time.perf_counter()
+        smoke_out = open(os.path.join(tmp, "smoke.log"), "w")
+        smoke = subprocess.Popen(
+            main_cmd(dev) + ["serve", "--fleet", "2", "--smoke", "8",
+                             "-model_conf", conf],
+            cwd=REPO, stdout=smoke_out, stderr=subprocess.STDOUT)
+        smoke_out.close()
+        procs = [start_worker(dev, i, tmp, conf) for i in range(2)]
+        deadline = time.monotonic() + FLEET_WAIT
+        urls = [worker_url(p, path, deadline) for p, path in procs]
+        log(f"[procs] 15e two `serve --pinned --wire` workers on "
+            f"lm.conf serving in {time.perf_counter() - t0:.3f} s")
+        hosts = os.path.join(tmp, "hosts")
+        with open(hosts, "w") as f:
+            f.write("".join(u.split("//", 1)[1] + "\n" for u in urls))
+        with obs.session(obs.ObsSpec(process="router", trace_ring=65536)):
+            fleet = EngineFleet.from_hostfile(
+                hosts, router_spec=RouterSpec(
+                    probe_period_s=0.1, quarantine_after=1, hedge="off",
+                    request_timeout_s=120.0),
+                transport="auto", log_fn=lambda s: None).start()
+            try:
+                hs = [fleet.router.handle_for(n) for n in
+                      fleet.router.names()]
+                assert all(isinstance(h, NegotiatingEngineHandle)
+                           and h.transport == "binary" for h in hs), \
+                    [h.transport for h in hs]
+                prompt = np.arange(1, 13, dtype=np.int32)
+                out = fleet.generate(prompt, timeout=120.0)
+                tid = fleet.router.requests.snapshot()["recent"][-1]["trace"]
+                merged = collect.collect(urls, extra_buffers=[
+                    obs.trace_dump()])
+                spans = collect.spans_of(merged, tid)
+                names = {e["name"] for e in spans}
+                assert {"router.dispatch", "serve.request"} <= names, names
+                assert len({e["pid"] for e in spans}) >= 2
+                assert collect.orphans(merged, tid) == []
+                log(f"[procs] 15e both workers negotiated the wire; one "
+                    f"request's trace {tid}: {len(spans)} spans over "
+                    f"{len({e['pid'] for e in spans})} processes merged "
+                    f"by obs.collect, 0 orphans")
+                events, done = [], {}
+
+                def consume():
+                    for ev in fleet.generate_stream(prompt, max_new=128,
+                                                    timeout=120.0):
+                        events.append((time.perf_counter(), ev))
+                        if ev.get("done"):
+                            done.update(ev)
+                t = threading.Thread(target=consume)
+                t.start()
+                deadline = time.monotonic() + 120.0
+                while len(events) < 8:
+                    assert time.monotonic() < deadline and t.is_alive()
+                    time.sleep(0.001)
+                serving = fleet.router.sessions.snapshot()[
+                    "sessions"][0]["engine"]
+                victim = procs[int(serving.split("-")[1])][0]
+                at = len(events)
+                t_kill = time.perf_counter()
+                victim.kill()
+                t.join(120.0)
+                assert not t.is_alive()
+                toks = [ev for _, ev in events if "token" in ev]
+                assert [ev["i"] for ev in toks] == list(range(128))
+                assert done["spliced"] and done["resumes"] == 1, done
+                assert done["engine"] != serving, done
+                first = next((ts - t_kill) * 1e3 for ts, ev in events
+                             if ts > t_kill and "token" in ev)
+                log(f"[procs] 15e {serving}'s process SIGKILLed after "
+                    f"{at} events of a 128-token stream: spliced "
+                    f"onto {done['engine']} exactly once (indices 0-127 "
+                    f"once each, 1 resume); kill to the first spliced "
+                    f"token {first:.3f} ms")
+            finally:
+                fleet.stop()
+        code = smoke.wait(600)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "smoke.log")) as f:
+            text = f.read()
+        if code != 0:
+            print(text[-6000:], file=sys.stderr)
+        assert code == 0, code
+        snap = json.loads([ln for ln in text.splitlines()
+                           if ln.startswith("{")][-1])
+        assert snap["completed"] == 8 and snap["failed"] == 0, snap
+        per = {e["name"]: e["dispatched"] for e in snap["engines"]}
+        log(f"[procs] 15e `serve --fleet 2 --smoke 8 -model_conf "
+            f"lm.conf`: exit 0, {wall:.3f} s wall from its start (process "
+            f"start, import, 2 engines' load and captures, 8 requests; "
+            f"it started beside the two workers and ran beside the "
+            f"steps above); dispatched {per}, latency p50 "
+            f"{snap['p50_latency_ms']} ms")
+    finally:
+        for p in [p for p, _ in procs] + ([smoke] if smoke else []):
+            p.kill()
+            p.wait(30)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_control(dev, arrays, cfg=BENCH, conf=LM_CONF, load=SCALE_LOAD):
+    """Phase 15; the arguments cut it down for a rehearsal on the CPU.
+    The serving path launches none of K1-K6."""
+    from singa_tpu_torch.ops import _kernels
+    clock = [time.perf_counter()]
+
+    def took(what):
+        now = time.perf_counter()
+        log(f"[time] phase 15{what}: {now - clock[0]:.1f} s")
+        clock[0] = now
+    _kernels.reset_launches()
+    phase_fleet(dev, arrays, cfg)
+    took("a-c")
+    phase_autoscale(dev, conf, load)
+    took("d")
+    phase_procs(dev, conf)
+    took("e")
+    assert not any(_kernels.LAUNCHES.values()), _kernels.LAUNCHES
+    log("[fleet] phase 15: 0 launches of K1-K6 on the fleet path")
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4059,6 +4751,8 @@ def main() -> int:
     mfus = phase_measure(dev, arrays)
     assert set(mfus) == {"bench", "lmconf", "alexnet"}, mfus
     took("phase 14")
+    phase_control(dev, arrays)
+    took("phase 15")
 
     kernels = []
     for name, res, replaces in (

@@ -36,15 +36,20 @@ batching over a paged KV cache and streams tokens when the request body
 carries `"stream": true`.  `--smoke N` serves N synthetic in-process
 requests, prints the stats snapshot as JSON and exits.
 
+With `--fleet N` (`_fleet_main`, `:374-468`) it serves N pinned engines
+on the card behind a `Router` with canary rollout (`--rollout_spec`),
+the router's own knobs (`--fleet_spec`), an autoscaler
+(`--autoscale_spec`) and a warm standby mode (`--standby`), fronted by
+`FleetServer`; `--fleet_hostfile` adopts running `serve --pinned`
+workers instead (`--transport auto` negotiates the binary wire per
+worker, `http` pins HTTP).
+
 The CLI runs on the card and has no device flag; `main(argv,
 device="cpu")` is the Python entry that runs it on the CPU.  What the
 port does not have yet exits 2, naming its ROADMAP.md item: `-procsID`,
 `-hostfile`, a cluster config with more than one async group, and an
 elastic/RandomSync run that reaches its first center exchange (A9);
-the `pipeline` subcommand (A10); serve's
-fleet flags (`--fleet`, `--fleet_hostfile`, `--standby`,
-`--autoscale_spec`, `--fleet_spec`, `--rollout_spec`, `--transport`:
-A11).
+the `pipeline` subcommand (A10).
 """
 
 from __future__ import annotations
@@ -62,11 +67,6 @@ from .config import load_cluster_config, load_model_config
 from .core.trainer import Trainer
 from .data.discovery import discover_input_shapes
 from .device import DeviceLike, resolve_device
-
-# flags of the JAX CLI's fleet branch, which waits for the Router
-_FLEET_FLAGS = ("fleet", "fleet_hostfile", "standby", "autoscale_spec",
-                "fleet_spec", "rollout_spec", "transport")
-
 
 def make_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -225,13 +225,41 @@ def make_serve_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--fault_spec", default=None,
                     help="deterministic fault injection over the serve.* "
                          "sites (singa_tpu_torch/utils/faults.py)")
-    lacking = "not in the port yet (ROADMAP.md A11)"
     ap.add_argument("--fleet", type=int, default=0, metavar="N",
-                    help=lacking)
-    ap.add_argument("--standby", action="store_true", help=lacking)
-    for flag in ("fleet_hostfile", "autoscale_spec", "fleet_spec",
-                 "rollout_spec", "transport"):
-        ap.add_argument(f"--{flag}", default=None, help=lacking)
+                    help="serving fleet: N in-process pinned engines "
+                         "behind a health-driven router with canary "
+                         "rollout and rollback")
+    ap.add_argument("--fleet_hostfile", default=None,
+                    help="adopt running `serve --pinned` workers "
+                         "instead: one host[:port] per line; mutually "
+                         "exclusive with --fleet")
+    ap.add_argument("--fleet_spec", default=None,
+                    help="router config: comma-separated key=value over "
+                         "the RouterSpec fields, e.g. 'probe_period_s="
+                         "0.25,quarantine_after=2' "
+                         "(singa_tpu_torch/serve/router.py)")
+    ap.add_argument("--rollout_spec", default=None,
+                    help="rollout config: comma-separated key=value over "
+                         "the RolloutSpec fields, e.g. 'window_s=2,"
+                         "min_requests=10' (singa_tpu_torch/serve/"
+                         "fleet.py)")
+    ap.add_argument("--autoscale_spec", default=None,
+                    help="the SLO-driven autoscaler over the fleet: "
+                         "comma-separated key=value over the "
+                         "AutoScaleSpec fields, e.g. 'min_engines=1,"
+                         "max_engines=4' (singa_tpu_torch/serve/"
+                         "autoscale.py; grows only a --fleet fleet)")
+    ap.add_argument("--standby", action="store_true",
+                    help="start the fleet router as a warm standby over "
+                         "the primary's --workspace: the data plane "
+                         "stays 503 until POST /admin/promote (needs "
+                         "--fleet or --fleet_hostfile)")
+    ap.add_argument("--transport", default="auto",
+                    choices=("auto", "http"),
+                    help="data plane of adopted (hostfile) workers: "
+                         "auto = the binary wire where /healthz "
+                         "advertises it, with HTTP fallback; http = "
+                         "HTTP only")
     _add_obs_flags(ap)
     return ap
 
@@ -250,11 +278,13 @@ def serve_main(argv, device: DeviceLike = None) -> int:
     config, load the latest healthy checkpoint, and serve on `device`
     (CUDA unless the caller passes device='cpu')."""
     args = make_serve_argparser().parse_args(argv)
-    fleet = [f for f in _FLEET_FLAGS if getattr(args, f)]
-    if fleet:
-        print(f"error: --{fleet[0]} needs the serving fleet and router, "
-              f"which the port does not have yet (ROADMAP.md A11)",
-              file=sys.stderr)
+    if args.fleet and args.fleet_hostfile:
+        print("error: --fleet and --fleet_hostfile are mutually "
+              "exclusive (spawn a fleet OR adopt one)", file=sys.stderr)
+        return 2
+    if args.standby and not (args.fleet or args.fleet_hostfile):
+        print("error: --standby is a fleet-router mode (needs --fleet "
+              "or --fleet_hostfile)", file=sys.stderr)
         return 2
     dev = resolve_device(device)
     from .serve import InferenceEngine, InferenceServer, ServeSpec
@@ -277,6 +307,9 @@ def serve_main(argv, device: DeviceLike = None) -> int:
         # fresh-init fallback so a checkpoint-less workspace still
         # serves (engine.load prefers any restorable healthy snapshot)
         fallback = net.init_params(args.seed, device=dev)
+        if args.fleet or args.fleet_hostfile:
+            return _fleet_main(args, net, spec, fallback, schedule, log,
+                               dev)
         engine = InferenceEngine(net, spec, fallback, device=dev,
                                  workspace=args.workspace, log_fn=log,
                                  pinned=args.pinned)
@@ -330,6 +363,96 @@ def serve_main(argv, device: DeviceLike = None) -> int:
     finally:
         if obs_on:
             obs.disable()
+
+
+def _fleet_main(args, net, spec, fallback, schedule, log, dev) -> int:
+    """The fleet branch of `serve`: N pinned engines behind a `Router`
+    and a `RolloutController`, fronted by `FleetServer` (or driven in
+    process under --smoke)."""
+    from .serve import (AutoScaler, AutoScaleSpec, EngineFleet,
+                        FleetServer, RolloutSpec, RouterSpec)
+    from .serve.tenancy import TenantRegistry
+    from .utils.faults import inject
+    router_spec = RouterSpec.parse(args.fleet_spec)
+    rollout_spec = RolloutSpec.parse(args.rollout_spec)
+    autoscale_spec = (AutoScaleSpec.parse(args.autoscale_spec)
+                      if args.autoscale_spec is not None else None)
+    tenancy = (TenantRegistry.parse(args.tenant_spec)
+               if args.tenant_spec else None)
+    if args.pinned:
+        log("warning: --pinned is a member flag; the fleet's workers "
+            "are always pinned — ignoring")
+    with inject(schedule):
+        if schedule is not None:
+            log(f"fault injection active: {args.fault_spec} "
+                f"(seed {args.seed})")
+        if args.fleet_hostfile:
+            fleet = EngineFleet.from_hostfile(
+                args.fleet_hostfile, workspace=args.workspace,
+                router_spec=router_spec, rollout_spec=rollout_spec,
+                tenancy=tenancy, standby=args.standby, log_fn=log,
+                transport=args.transport)
+        else:
+            fleet = EngineFleet.local(
+                net, spec, args.fleet, workspace=args.workspace,
+                params=fallback, router_spec=router_spec,
+                rollout_spec=rollout_spec, tenancy=tenancy,
+                standby=args.standby, log_fn=log, device=dev)
+        scaler = None
+        if autoscale_spec is not None and args.standby:
+            log("warning: --autoscale_spec ignored on a standby router "
+                "(no traffic signal to scale on until promote)")
+        elif autoscale_spec is not None:
+            if not fleet.can_grow():
+                log("warning: --autoscale_spec on an adopted (hostfile) "
+                    "fleet can only scale DOWN — spawning remote "
+                    "workers is deployment's job")
+            scaler = AutoScaler(fleet, spec=autoscale_spec, log_fn=log)
+            # cooldown and streak survive a router restart
+            fleet.add_state_provider("autoscale", scaler.export_state,
+                                     scaler.restore_state)
+        reg = obs.registry()
+        if reg is not None:
+            fleet.router.stats.register_into(reg)
+            if scaler is not None:
+                scaler.register_into(reg)
+        fleet.start()
+        if scaler is not None:
+            scaler.start()
+        try:
+            if args.smoke > 0:
+                rng = np.random.default_rng(args.seed)
+                vocab = _serve_vocab(net)
+                cap = (spec.cb_max_prompt_len if spec.cb_on
+                       else spec.max_prompt_len)
+                for i in range(args.smoke):
+                    plen = int(rng.integers(1, cap + 1))
+                    prompt = rng.integers(0, vocab, plen).astype("int32")
+                    out = fleet.generate(prompt)
+                    log(f"smoke {i}: plen={plen} -> "
+                        f"{len(out['tokens'])} tokens on "
+                        f"{out['engine']} (step {out['step']})")
+                snap = fleet.snapshot()
+                if scaler is not None:
+                    snap["autoscale"] = scaler.snapshot()
+                print(json.dumps(snap), flush=True)
+                return 0
+            front = FleetServer(fleet, host=args.host, port=args.port,
+                                log_fn=log)
+            front.start()
+            try:
+                while True:
+                    time.sleep(3600)
+            except KeyboardInterrupt:
+                log("fleet: shutting down")
+                print(json.dumps(fleet.snapshot()), flush=True)
+                return 0
+            finally:
+                front.stop()
+        finally:
+            if scaler is not None:
+                scaler.stop()
+            fleet.stop()
 
 
 def main(argv=None, device: DeviceLike = None) -> int:

@@ -34,14 +34,13 @@ CLI: `--obs on|off` plus `--obs_spec 'trace=path,events=path,
 metrics_period_s=5'` (main.py), mirroring `--health_spec`.  Artifacts:
 a Chrome trace JSON (Perfetto-loadable next to the device traces that
 `utils/profiler.trace` exports), a JSONL event log, and flight-recorder
-dumps (`flightrec.py`).  The JAX package's `collect.py`, which merges
-per-process buffers into one fleet trace, is not ported yet
-(ROADMAP.md A11).  See docs/OBSERVABILITY.md.
+dumps (`flightrec.py`); `collect.py` merges per-process buffers into
+one fleet trace.  See docs/OBSERVABILITY.md.
 
 The port's own copy of `singa_tpu/obs/__init__.py`.  The port has no
-pipeline or fleet yet (ROADMAP.md A10, A11); its Supervisor, trainer,
-feeder, checkpoints and serving tier (engine, scheduler, batcher,
-server, wire) report through this layer.
+pipeline yet (ROADMAP.md A10); its Supervisor, trainer, feeder,
+checkpoints and serving tier (engine, scheduler, batcher, server, wire,
+router, fleet, autoscaler) report through this layer.
 """
 
 from __future__ import annotations

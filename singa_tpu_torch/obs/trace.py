@@ -36,8 +36,7 @@ keys (legal extras in the Chrome schema): `wall_origin_s` is the
 wall-clock instant of this tracer's ts=0, which is what lets
 `obs/collect.py` re-anchor buffers from different processes onto one
 merged timeline.  (`utils/profiler.trace` writes the device traces, as
-torch.profiler's Chrome export; `obs/collect.py` is the JAX package's
-alone, ROADMAP.md A11.)
+torch.profiler's Chrome export.)
 
 The port's own copy of `singa_tpu/obs/trace.py`, which is JAX-free
 (the port imports nothing of the JAX package).

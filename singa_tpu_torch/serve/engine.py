@@ -336,6 +336,14 @@ def _host_copy(params) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in params.items()}
 
 
+def _owned(params, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The engine's own copy of `params` on `device`.  `.to` alone
+    returns the caller's tensor when it already lies there, and a
+    reload copies into the live tensors: two engines built over one
+    dict would then move together."""
+    return {k: v.detach().to(device, copy=True) for k, v in params.items()}
+
+
 class InferenceEngine:
     """Serves params on `device` (CUDA unless the caller passes
     device='cpu'): `run_batch` runs one left-padded micro-batch in
@@ -377,8 +385,7 @@ class InferenceEngine:
         self.ckpt = (CheckpointManager(workspace, log_fn=log_fn)
                      if workspace is not None else None)
         self._params: Optional[Dict[str, torch.Tensor]] = (
-            {k: v.to(self.device) for k, v in params.items()}
-            if params is not None else None)
+            _owned(params, self.device) if params is not None else None)
         self.params_step = -1           # constructor params, no checkpoint
         # the fresh-init fallback that `reload_to(-1)` restores, and the
         # params served before the last explicit reload: host copies,
@@ -465,8 +472,7 @@ class InferenceEngine:
             self._check_geometry(new, step)
         with self._lock:
             if self._params is None:
-                self._params = {k: v.to(self.device)
-                                for k, v in new.items()}
+                self._params = _owned(new, self.device)
             else:
                 t0 = time.perf_counter()
                 for k, v in new.items():

@@ -9,16 +9,15 @@ requests, a wall at fleet scale.  "RPC Considered Harmful" (arxiv
 explicit length-prefixed framing, and no boxed per-message
 serialization on the per-token path.  HTTP/JSON stays as the
 always-on debug surface; the binary transport is a negotiated upgrade
-(the JAX package's `NegotiatingEngineHandle`) that degrades back to
-HTTP on any transport-level failure — counted, never a lost request.
+(`NegotiatingEngineHandle`) that degrades back to HTTP on any
+transport-level failure — counted, never a lost request.
 
 The port's own copy of `singa_tpu/serve/wire.py`, JAX-free there too:
 the codec, `FrameReader`, `TokenRing`, `LineCoalescer`, `WireStats`,
 the engine side (`BinaryTransportServer`) and the client
 (`BinaryEngineHandle`), byte for byte the same protocol, so either
 package's handle drives the other's server.  `NegotiatingEngineHandle`
-wraps the Router's `HttpEngineHandle` and comes with the Router
-(ROADMAP.md A11).
+wraps the Router's `HttpEngineHandle` and upgrades it to the wire.
 
 Frame layout (all little-endian)::
 
@@ -1250,6 +1249,180 @@ class BinaryEngineHandle:
 
 
 # -- transport negotiation ---------------------------------------------------
+
+class NegotiatingEngineHandle:
+    """Per-engine transport negotiation with automatic HTTP fallback.
+    HTTP/JSON is the always-on debug-and-control surface: probes,
+    stats, and reloads ride it unconditionally, and every `probe()`
+    is also the DISCOVERY point — a worker advertising `wire_port` on
+    /healthz upgrades this engine's data plane (request /
+    request_stream) to the binary transport.  Any transport-level
+    binary failure (WireUnavailable, a broken mid-stream socket)
+    degrades the engine back to HTTP — counted
+    `wire_fallbacks_total` — without failing the request when a
+    same-call HTTP retry is safe, and the next probe re-negotiates,
+    so a restarted binary listener is re-adopted automatically."""
+
+    def __init__(self, name: str, base_url: str,
+                 connect_timeout_s: float = 5.0,
+                 stats: Optional[WireStats] = None, log_fn=print):
+        from .router import HttpEngineHandle
+        self.name = name
+        self.http = HttpEngineHandle(name, base_url,
+                                     connect_timeout_s)
+        self.connect_timeout_s = float(connect_timeout_s)
+        self.stats = stats or STATS
+        self.log = log_fn
+        self._host = base_url.split("//", 1)[-1].split("/", 1)[0] \
+                             .rsplit(":", 1)[0] or "127.0.0.1"
+        self._lock = threading.Lock()
+        self._bin: Optional[BinaryEngineHandle] = None
+        self._wire_port: Optional[int] = None
+        self._bin_down = False
+
+    # -- negotiation state ---------------------------------------------------
+    @property
+    def transport(self) -> str:
+        with self._lock:
+            return ("binary" if self._wire_port and not self._bin_down
+                    else "http")
+
+    def _binary(self) -> Optional[BinaryEngineHandle]:
+        with self._lock:
+            if self._wire_port is None or self._bin_down:
+                return None
+            if self._bin is None or \
+                    self._bin.address[1] != self._wire_port:
+                if self._bin is not None:
+                    self._bin.close()
+                self._bin = BinaryEngineHandle(
+                    self.name, (self._host, self._wire_port),
+                    self.connect_timeout_s, stats=self.stats)
+            return self._bin
+
+    def _mark_down(self, why: str) -> None:
+        with self._lock:
+            if self._bin_down:
+                return
+            self._bin_down = True
+        self.stats.count("fallbacks")
+        obs.emit_event("wire.fallback", engine=self.name, why=why)
+        self.log(f"warning: engine {self.name} binary transport "
+                 f"down ({why}); serving over HTTP until the next "
+                 f"probe re-negotiates")
+
+    def close(self) -> None:
+        with self._lock:
+            if self._bin is not None:
+                self._bin.close()
+                self._bin = None
+        self.http.close()
+
+    # -- the engine-handle surface ------------------------------------------
+    def probe(self) -> Dict[str, Any]:
+        h = self.http.probe()
+        port = h.get("wire_port")
+        with self._lock:
+            if port:
+                if int(port) != self._wire_port:
+                    self._wire_port = int(port)
+                # every probe re-arms the upgrade: a dead listener
+                # costs at most one fallback per probe period
+                self._bin_down = False
+            else:
+                self._wire_port = None
+                if self._bin is not None:
+                    self._bin.close()
+                    self._bin = None
+        h["transport"] = self.transport
+        return h
+
+    def stats_snapshot(self) -> Dict[str, Any]:
+        return self.http.stats_snapshot()
+
+    def reload(self, step: Optional[int] = None,
+               trace=None) -> Dict[str, Any]:
+        return self.http.reload(step=step, trace=trace)
+
+    def request(self, mode: str, tokens,
+                timeout: Optional[float] = None,
+                deadline: Optional[float] = None,
+                priority: Optional[str] = None,
+                trace=None,
+                tenant: Optional[str] = None) -> Dict[str, Any]:
+        b = self._binary()
+        if b is not None:
+            try:
+                return b.request(mode, tokens, timeout=timeout,
+                                 deadline=deadline,
+                                 priority=priority, trace=trace,
+                                 tenant=tenant)
+            except Exception as e:  # noqa: BLE001 — fallback filter
+                if not _is_transport_failure(e):
+                    raise
+                self._mark_down(str(e))
+        return self.http.request(mode, tokens, timeout=timeout,
+                                 deadline=deadline,
+                                 priority=priority, trace=trace,
+                                 tenant=tenant)
+
+    def request_stream(self, tokens, timeout: Optional[float] = None,
+                       max_new: Optional[int] = None,
+                       deadline: Optional[float] = None,
+                       priority: Optional[str] = None,
+                       resume_from: int = 0, trace=None,
+                       tenant: Optional[str] = None):
+        """Stream over binary when negotiated, degrading to HTTP when
+        admission never committed (no byte lost: the whole stream
+        simply re-admits over HTTP).  A MID-stream binary death
+        propagates as the usual RuntimeError — the session layer owns
+        the splice, and because the failure also marks the transport
+        down, the resume leg lands on HTTP."""
+        kw = dict(timeout=timeout, max_new=max_new,
+                  deadline=deadline, priority=priority,
+                  resume_from=resume_from, trace=trace,
+                  tenant=tenant)
+
+        def gen():
+            b = self._binary()
+            inner = None
+            if b is not None:
+                inner = b.request_stream(tokens, **kw)
+                try:
+                    first = next(inner)
+                except Exception as e:  # noqa: BLE001 — filter below
+                    if not _is_transport_failure(e):
+                        raise
+                    self._mark_down(str(e))
+                    inner = None
+            if inner is None:
+                inner = self.http.request_stream(tokens, **kw)
+                first = next(inner)
+            try:
+                yield first
+                for ev in inner:
+                    yield ev
+            except RuntimeError as e:
+                if getattr(e, "wire_transport", False):
+                    self._mark_down(str(e))
+                raise
+            finally:
+                inner.close()
+        return gen()
+
+
+def _is_transport_failure(e: BaseException) -> bool:
+    """True for failures of the binary WIRE (connect/handshake/socket
+    death) where an HTTP fallback can help; False for engine-reported
+    errors (Overloaded, deadline, bad request...) that would fail
+    identically over HTTP."""
+    if isinstance(e, WireUnavailable):
+        return True
+    if getattr(e, "wire_transport", False):
+        return True
+    cause = getattr(e, "__cause__", None)
+    return isinstance(cause, WireUnavailable)
+
 
 def register_into(registry, prefix: str = "singa_wire") -> None:
     """Export the process-wide wire counters into a MetricsRegistry

@@ -6,8 +6,10 @@ flattened {params, opt_state, step} triple under `|`-joined keys
 (`params|attn0/wq`, `opt_state|history|attn0/wq`, `step`), written to a
 tmp file, fsynced and renamed into place; `MANIFEST.json` records each
 snapshot's size and sha256 and is itself written atomically;
-`LAYOUT_VERSION` stamps the parameter layout.  So a snapshot that either
-package writes on this path restores in the other.  A workspace written
+`LAYOUT_VERSION` stamps the parameter layout, before the first
+snapshot shows (the JAX package stamps it after the manifest record, so
+a reader in between refuses its first save: fault C6).  So a snapshot
+that either package writes on this path restores in the other.  A workspace written
 by the JAX package through orbax (step directories) is not readable
 here.
 
@@ -110,8 +112,7 @@ class CheckpointManager:
         return os.path.join(self.dir, "LAYOUT_VERSION")
 
     def _write_version(self) -> None:
-        with open(self._version_path(), "w") as f:
-            f.write(str(LAYOUT_VERSION))
+        _atomic_write(self._version_path(), str(LAYOUT_VERSION).encode())
 
     def _check_version(self) -> None:
         """Refuse snapshots written under another parameter layout: the
@@ -213,6 +214,11 @@ class CheckpointManager:
             np.savez(f, **arrays)
             f.flush()
             os.fsync(f.fileno())
+        # the layout marker goes down before the snapshot shows: a
+        # reader between the rename and the manifest record (a second
+        # of checksumming for a large snapshot) would take a workspace's
+        # first save for the unmarked layout 1 and refuse it (fault C6)
+        self._write_version()
         os.replace(tmp, path)
         if act == "torn":
             # the rename "succeeded" but the data never reached the
@@ -220,8 +226,6 @@ class CheckpointManager:
             _tear(path)
             return
         self._manifest_record(step, path, health=health)
-        # stamp only after a successful save
-        self._write_version()
 
     # -- listing -----------------------------------------------------------
     def available_steps(self) -> List[int]:

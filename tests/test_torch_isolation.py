@@ -52,7 +52,10 @@ def test_importing_every_module_loads_no_jax():
               "data.pipeline", "data.feed", "ops.augment", "models.rbm",
               "utils.flops", "utils.profiler", "tools.viz",
               "tools.export_examples", "tools.convergence_run",
-              "tools.loader"):
+              "tools.loader", "serve.session", "serve.sessionlog",
+              "serve.fleet", "serve.autoscale", "serve.traffic",
+              "obs.collect", "parallel.bootstrap", "tools.walcheck",
+              "tools.trace_timeline"):
         assert f"singa_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

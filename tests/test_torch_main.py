@@ -68,11 +68,6 @@ def test_serve_smoke_matches_the_jax_cli(spec, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "-model_conf", CONF, "--fleet", "2"], "A11"),
-    (["serve", "-model_conf", CONF, "--fleet_hostfile", "h"], "A11"),
-    (["serve", "-model_conf", CONF, "--standby"], "A11"),
-    (["serve", "-model_conf", CONF, "--autoscale_spec", "slo_p95_ms=9"],
-     "A11"),
     (["pipeline", "-model_conf", CONF, "--workspace", "ws"], "A10"),
     (["-model_conf", CONF, "-procsID", "1", "-hostfile", "h"], "A9"),
 ])
