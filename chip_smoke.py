@@ -225,6 +225,40 @@ non-zero before the last line is printed:
    with 0 orphans (`obs.collect`), and a SIGKILL of the worker serving
    a stream is spliced onto the other exactly once; `serve --fleet 2
    --smoke 8`, a subprocess started beside the workers, must exit 0.
+16. The `pipeline` subcommand on lm.conf uncut (`[pipe]` lines; a copy
+   saving every 10 steps; `step.train@25:preempt,step.grad@40:spike`).
+   (a) In process, twice, in turns with the same supervised run alone:
+   a `PipelineController` over the supervised trainer (replayed, bf16,
+   Adam, health on) and `EngineFleet.local(..., 2)` (buckets 1x16, 16
+   new tokens, f32; rollout poll 50 ms, window 250 ms) on one
+   workspace, one client sending requests until blessed == served; the
+   trainer is held at the spike save until the rollout has decided on
+   it.  0 failed requests; the preemption absorbed (65 steps trained);
+   blessed == served == 60 at the end; no response below the pinned
+   step, the pinned step never regresses, the spike step served by one
+   engine at most (the canary) and rolled back, 0 refusals; the
+   fleet's answers at step 60 equal a fresh engine's on that checkpoint
+   under the tie rule; the blessed-to-served lag per blessed step (p50,
+   max), training tokens/s inside the pipeline against alone, and
+   K1/K3/K4 2 launches a step trained, 0 on the fleet.  (b) `python -m
+   singa_tpu_torch.main pipeline ... --fleet 2 --smoke 32` with the
+   same faults and `--autoscale_spec`: exit 0, blessed == served, 0
+   failed, one unblessed save, the launches of its 65 steps.
+17. The elastic tier on `examples/mnist/mlp.conf` uncut (batch 1000,
+   11.97M f32 params, kSGD, Elastic, moving_rate 0.9, a sync every 8
+   steps after 60; `[elastic]` lines; no kernel of K1-K6).  (a) `python
+   -m singa_tpu_torch.main -model_conf examples/mnist/mlp.conf
+   --synthetic --steps 200` exits 0 (18 sync steps).  (b) 80 steps from
+   numpy seed 0, replayed and eager: the params after each sync step
+   (60, 68, 76), the SGD history and the center equal under
+   `torch.equal`; a replayed step's ms with and without its exchange,
+   and `elastic_update` alone against its byte bound (r and c read and
+   written).  (c) 2 async worker groups from a cluster conf with
+   `synchronous: false`, once Elastic and once RandomSync (momentum 0):
+   a `ReplicaSet` of 100 steps each over the trainer's graphs; the
+   replicas', the center's, the snapshots' and the graphs' tensors
+   disjoint (`data_ptr`); each replica's loss falls; then the CLI with
+   that cluster conf exits 0 with the center's test line.
 
 Every result line ends with the card's `nvidia-smi` name and power
 limit.  The last lines are one JSON object listing each kernel with its
@@ -2800,15 +2834,15 @@ sys.exit(code)
 """
 
 
-def cli_conf(tmp, conf=None):
-    """A copy of lm.conf (or `conf`) with a checkpoint every CLI_CKPT
+def cli_conf(tmp, conf=None, every=CLI_CKPT):
+    """A copy of lm.conf (or `conf`) with a checkpoint every `every`
     steps: the shipped config sets none, and `--workspace` alone then
     saves only at the end, so a fault would have nothing to resume."""
     with open(conf or LM_CONF) as f:
         text = re.sub(r"(?m)^checkpoint_frequency:.*$", "", f.read())
     path = os.path.join(tmp, "lm_ckpt.conf")
     with open(path, "w") as f:
-        f.write(f"checkpoint_frequency: {CLI_CKPT}\n" + text)
+        f.write(f"checkpoint_frequency: {every}\n" + text)
     return path
 
 
@@ -4666,6 +4700,520 @@ def phase_control(dev, arrays, cfg=BENCH, conf=LM_CONF, load=SCALE_LOAD):
         torch.cuda.empty_cache()
 
 
+# phase 16: the pipeline subcommand on lm.conf uncut
+PIPE_STEPS = 60
+PIPE_CKPT = 10          # the cadence written into the copy of lm.conf
+# a preemption before step 25 (attempt 2 restores step 20), then a spike
+# at step 35 (the step.grad site's visit 40: 25 visits before the
+# restart, 15 after it): the save of step 40 carries the verdict "spike"
+PIPE_FAULTS = "step.train@25:preempt,step.grad@40:spike"
+PIPE_SPIKE = 40
+PIPE_TRAINED = PIPE_STEPS + 5   # steps 20-24 run twice
+PIPE_SPEC = "buckets=1x16,max_new_tokens=16"
+PIPE_ROLLOUT = "poll_s=0.05,window_s=0.25,min_requests=1"
+PIPE_AUTOSCALE = "min_engines=1,max_engines=3,tick_s=0.1,cooldown_s=0.5"
+PIPE_SMOKE = 32         # the CLI's client requests, at least
+PIPE_ANSWERS = 8        # prompts held against a fresh engine at the end
+PIPE_WAIT = 120.0       # every wait of this phase is bounded
+PIPE_HOLD = 30.0        # the trainer's hold at the spike save
+
+
+def pipe_trainer(dev, conf, ws):
+    """(trainer, supervisor, batch factory, tokens a step) of the
+    supervised run on `conf`, as `pipeline_main` builds them."""
+    from singa_tpu_torch import Trainer, load_model_config
+    from singa_tpu_torch.core.supervisor import Supervisor
+    from singa_tpu_torch.data import (discover_input_shapes,
+                                      resolve_data_source)
+    from singa_tpu_torch.utils.health import HealthMonitor, HealthSpec
+    model = load_model_config(conf)
+    model.train_steps = PIPE_STEPS
+    shapes = discover_input_shapes(model, force_synthetic=True)
+    tr = Trainer(model, shapes, device=dev, log_fn=lambda m: None,
+                 health=HealthMonitor(HealthSpec(), log_fn=lambda m: None))
+    sup = Supervisor(tr, ws, max_restarts=3, log=lambda m: None)
+    p = next(l for l in model.neuralnet.layer if l.type == "kSequenceData")
+
+    def factory():
+        return resolve_data_source(model, p.seqdata_param.batchsize, seed=0,
+                                   force_synthetic=True,
+                                   sample_shapes=shapes)[0]
+    return tr, sup, factory, p.seqdata_param.batchsize * \
+        p.seqdata_param.seq_len
+
+
+def pipe_alone(dev, conf, ws):
+    """The pipeline's training run without the fleet: tokens/s."""
+    from singa_tpu_torch.utils.faults import FaultSchedule, inject
+    tr, sup, factory, tokens = pipe_trainer(dev, conf, ws)
+    trained = []
+    with inject(FaultSchedule.parse(PIPE_FAULTS, seed=0)):
+        t0 = time.perf_counter()
+        sup.run(factory, seed=0, hooks=[lambda s, m: trained.append(s)])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    assert [f.kind for f in sup.failures] == ["preemption"], sup.failures
+    assert len(trained) == PIPE_TRAINED, len(trained)
+    return len(trained) * tokens / wall
+
+
+def pipe_fleet(dev, conf, ws, vocab):
+    """16a: the supervised run (PIPE_FAULTS) beside `EngineFleet.local(...,
+    2)` on one workspace, under a `PipelineController`, one client
+    sending requests until blessed == served; the trainer is held at
+    the spike save until the rollout has decided on it (that wait is
+    left out of its tokens/s).  Asserts the loop's invariants and holds
+    the fleet's answers at the final step against a fresh engine."""
+    from singa_tpu_torch.core.pipeline import PipelineController, PipelineSpec
+    from singa_tpu_torch.serve import (EngineFleet, InferenceEngine,
+                                       RolloutSpec, ServeSpec, left_pad)
+    from singa_tpu_torch.utils.faults import FaultSchedule, inject
+    tr, sup, factory, tokens = pipe_trainer(dev, conf, ws)
+    net = tr.test_net or tr.train_net
+    spec = ServeSpec.parse(PIPE_SPEC)
+    t0 = time.perf_counter()
+    fleet = EngineFleet.local(net, spec, 2, workspace=ws,
+                              params=net.init_params(0, device=dev),
+                              rollout_spec=RolloutSpec.parse(PIPE_ROLLOUT),
+                              device=dev,
+                              log_fn=lambda m: log(f"[pipe] 16a {m}"))
+    ctl = PipelineController(sup, fleet, ws,
+                             spec=PipelineSpec(lag_alarm_s=60.0),
+                             log_fn=lambda m: None)
+    publish, held, trained, wall = tr.on_checkpoint, [0.0], [], [0.0]
+    judged = []
+
+    def on_checkpoint(step, verdict):
+        publish(step, verdict)
+        if verdict == "spike":
+            # hold until the rollout has canaried this step and left it
+            t, seen = time.perf_counter(), False
+            while time.perf_counter() - t < PIPE_HOLD:
+                seen = seen or fleet.rollout.target_step == step
+                if seen and fleet.rollout.target_step != step:
+                    judged.append((step, fleet.rollout.pinned_step))
+                    break
+                time.sleep(0.001)
+            held[0] += time.perf_counter() - t
+    tr.on_checkpoint = on_checkpoint
+    run = sup.run
+
+    def timed_run(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return run(*args, **kwargs)
+        finally:
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall[0] = time.perf_counter() - t
+    sup.run = timed_run
+    rng = np.random.default_rng(16)
+    responses, pinned_seen, failed = [], [], 0
+    with inject(FaultSchedule.parse(PIPE_FAULTS, seed=0)):
+        ctl.start(factory, seed=0, hooks=[lambda s, m: trained.append(s)])
+        up = time.perf_counter() - t0
+        try:
+            deadline = time.monotonic() + PIPE_WAIT
+            while True:
+                done = not ctl.train_running()
+                lag = ctl.lag()
+                if done and lag["lag_steps"] == 0 and \
+                        lag["blessed_step"] >= 0:
+                    break
+                assert time.monotonic() < deadline, ctl.snapshot()
+                pinned = fleet.rollout.pinned_step
+                pinned_seen.append(pinned)
+                prompt = rng.integers(0, vocab, int(rng.integers(1, 17))
+                                      ).astype(np.int32)
+                try:
+                    out = ctl.generate(prompt)
+                    responses.append((pinned, out["step"], out["engine"]))
+                except Exception as e:  # noqa: BLE001 — counted, must be 0
+                    failed += 1
+                    log(f"[pipe] 16a request failed: {type(e).__name__}: "
+                        f"{e}")
+            assert ctl.wait(timeout=PIPE_WAIT), "training never finished"
+            assert ctl.train_error is None, ctl.train_error
+            final = fleet.rollout.pinned_step
+            prompts = [rng.integers(0, vocab, int(k)).astype(np.int32)
+                       for k in rng.integers(4, 17, PIPE_ANSWERS)]
+            outs = [ctl.generate(p) for p in prompts]
+            rollout = dict(fleet.snapshot()["rollout"])
+        finally:
+            ctl.stop()
+    assert [f.kind for f in sup.failures] == ["preemption"], sup.failures
+    assert len(trained) == PIPE_TRAINED, len(trained)
+    assert failed == 0, failed
+    assert final == PIPE_STEPS and all(o["step"] == final for o in outs)
+    assert all(s >= p for p, s, _ in responses), "a step below the pin"
+    assert pinned_seen == sorted(pinned_seen), "the pinned step regressed"
+    on_spike = {e for _, s, e in responses if s == PIPE_SPIKE}
+    assert len(on_spike) <= 1, on_spike
+    # the spike save was canaried and rolled back: never pinned
+    assert len(judged) == 1 and judged[0][1] != PIPE_SPIKE, judged
+    assert PIPE_SPIKE not in pinned_seen, pinned_seen
+    assert rollout["rollbacks"] >= 1 and rollout["refusals"] == 0, rollout
+    served = {s for _, s, _ in responses}
+    assert served <= {-1, PIPE_SPIKE, *range(PIPE_CKPT, PIPE_STEPS + 1,
+                                             PIPE_CKPT)}, served
+    fresh = InferenceEngine(net, spec, net.init_params(0, device=dev),
+                            device=dev, workspace=ws, log_fn=lambda m: None,
+                            pinned=True)
+    assert fresh.load() == final
+    ties = []
+    for i, (p, out) in enumerate(zip(prompts, outs)):
+        want = fresh.run_batch("generate", *left_pad([p], spec.buckets[0]))
+        tie = tie_rule(net, fresh.params, dev, p, out["tokens"],
+                       want[0].tolist(), f"16a answer {i}")
+        if tie is not None:
+            ties.append(tie)
+    lags = sorted(1e3 * x for x in ctl.promote_lags_s)
+    return {"up_s": up, "wall": wall[0], "held": held[0],
+            "tokens_s": len(trained) * tokens / (wall[0] - held[0]),
+            "requests": len(responses), "failed": failed,
+            "lags_ms": lags, "rollout": rollout, "spike_on": on_spike,
+            "ties": ties, "served": sorted(served),
+            "engines": sorted({e for _, _, e in responses})}
+
+
+def pipe_cli(dev, conf, ws):
+    """16b: `python -m singa_tpu_torch.main pipeline ... --fleet 2 --smoke
+    N` with the faults and the autoscaler (the CLI as its `__main__`
+    runs it, with the launch counts written to a file)."""
+    out = os.path.join(ws, "launches.json")
+    argv = ["pipeline", "-model_conf", conf, "--workspace", ws,
+            "--synthetic", "--steps", str(PIPE_STEPS), "--fleet", "2",
+            "--smoke", str(PIPE_SMOKE), "--serve_spec", PIPE_SPEC,
+            "--rollout_spec", PIPE_ROLLOUT, "--fault_spec", PIPE_FAULTS,
+            "--autoscale_spec", PIPE_AUTOSCALE]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", CLI_WRAPPER, out,
+                          "" if dev == "cuda" else dev, *argv], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print((res.stdout + res.stderr)[-8000:], file=sys.stderr)
+    assert res.returncode == 0, res.returncode
+    # the snapshot line; the fleet's shutdown may log after it
+    snap = json.loads([line for line in res.stdout.splitlines()
+                       if line.startswith("{")][-1])
+    assert snap["blessed_step"] == snap["served_step"] == PIPE_STEPS, snap
+    assert snap["lag_steps"] == 0 and snap["fleet"]["failed"] == 0, snap
+    assert snap["train"]["error"] is None and \
+        snap["train"]["failures"] == 1, snap["train"]
+    assert snap["unblessed"] == 1 and "autoscale" in snap, snap
+    with open(out) as f:
+        launches = json.load(f)["launches"]
+    return wall, snap, launches
+
+
+def phase_pipeline(dev, conf=LM_CONF):
+    """Phase 16; `conf` cuts it down for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+    from singa_tpu_torch import build_net, load_model_config
+    from singa_tpu_torch.data import discover_input_shapes
+    from singa_tpu_torch.ops import _kernels
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="pipeline_", dir=os.path.join(REPO,
+                                                                "build"))
+    try:
+        conf = cli_conf(tmp, conf, every=PIPE_CKPT)
+        model = load_model_config(conf)
+        net = build_net(model, "kTrain",
+                        discover_input_shapes(model, force_synthetic=True))
+        vocab = next(layer.vocab_size for layer in net.layers.values()
+                     if isinstance(getattr(layer, "vocab_size", None), int))
+        _kernels.reset_launches()
+        runs, alone = [], []
+        for turn in range(2):
+            runs.append(pipe_fleet(dev, conf, os.path.join(
+                tmp, f"fleet{turn}"), vocab))
+            alone.append(pipe_alone(dev, conf, os.path.join(
+                tmp, f"alone{turn}")))
+        launches = {k: v for k, v in _kernels.LAUNCHES.items()
+                    if k in ("flash_fwd", "flash_dq", "flash_dkv")}
+        if dev == "cuda":
+            # lm.conf: 2 attention layers, each step on the graphs' record
+            want = 2 * PIPE_TRAINED * 4
+            assert launches == {"flash_fwd": want, "flash_dq": want,
+                                "flash_dkv": want}, launches
+        r = runs[0]
+        lags = [x for run in runs for x in run["lags_ms"]]
+        log(f"[pipe] 16a pipeline on {os.path.basename(LM_CONF)} (B=8, "
+            f"S=512, bf16, Adam, replayed; a save every {PIPE_CKPT} steps; "
+            f"'{PIPE_FAULTS}') beside a fleet of 2 ({PIPE_SPEC}, f32): "
+            f"fleet up in {r['up_s']:.3f} s; {r['requests']} and "
+            f"{runs[1]['requests']} requests served, 0 failed; steps served "
+            f"{r['served']} by {r['engines']}; blessed == served == "
+            f"{PIPE_STEPS} at the end; the spike save (step {PIPE_SPIKE}) "
+            f"served by {sorted(r['spike_on']) or 'no engine'} (the canary "
+            f"at most) and rolled back (rollout {r['rollout']}); the pinned "
+            f"step never regressed; {PIPE_ANSWERS} answers at step "
+            f"{PIPE_STEPS} equal a fresh engine's"
+            + (f" but for ties {r['ties']}" if r["ties"] else ""))
+        log(f"[pipe] 16a blessed-to-served lag per blessed step, 2 runs: "
+            f"p50 {np.percentile(lags, 50):.3f} ms, max {max(lags):.3f} ms "
+            f"over {len(lags)} steps ({', '.join(f'{x:.3f}' for x in lags)})")
+        log(f"[pipe] 16a training tokens/s in turns, inside the pipeline / "
+            f"alone: " + "; ".join(f"{p['tokens_s']:.1f} / {a:.1f}"
+                                   for p, a in zip(runs, alone))
+            + f" ({np.mean([p['tokens_s'] for p in runs]) / np.mean(alone):.4f}x"
+            f"; {PIPE_TRAINED} steps trained a run, saves and the restart "
+            f"included, the spike hold {runs[0]['held']:.3f} and "
+            f"{runs[1]['held']:.3f} s left out)")
+        log(f"[pipe] 16a K1/K3/K4 launches over the phase's 4 in-process "
+            f"runs: {launches}")
+        wall, snap, cli_launches = pipe_cli(dev, conf,
+                                            os.path.join(tmp, "cli"))
+        if dev == "cuda":
+            want = 2 * PIPE_TRAINED
+            assert all(cli_launches[k] == want
+                       for k in ("flash_fwd", "flash_dq", "flash_dkv")), \
+                cli_launches
+        log(f"[pipe] 16b python -m singa_tpu_torch.main pipeline ... "
+            f"--fleet 2 --smoke {PIPE_SMOKE} --fault_spec '{PIPE_FAULTS}' "
+            f"--autoscale_spec '{PIPE_AUTOSCALE}': exit 0 in {wall:.3f} s "
+            f"wall (process start included); blessed {snap['blessed_step']} "
+            f"served {snap['served_step']}, {snap['fleet']['completed']} "
+            f"requests, {snap['fleet']['failed']} failed, unblessed "
+            f"{snap['unblessed']}, promote lag max "
+            f"{snap['promote_lag_max_s']} s, autoscale "
+            f"{ {k: snap['autoscale'].get(k) for k in ('scale_ups', 'scale_downs', 'engines')} }; "
+            f"launches {cli_launches}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase 17: the elastic tier on mlp.conf uncut
+MLP_CONF = os.path.join(REPO, "examples", "mnist", "mlp.conf")
+MLP_CLI_STEPS = 200     # syncs at 60, 68, ..., 196
+MLP_EXACT_STEPS = 80    # replayed against eager: syncs at 60, 68, 76
+MLP_GROUP_STEPS = 100   # a replica's steps in the 2-group runs
+MLP_TIMED = 10
+ASYNC_CLUSTER = "nworkers: 2\nnprocs_per_group: 1\nsynchronous: false\n"
+
+
+def mlp_trainer(dev, conf, graphs=None, ngroups=1):
+    from singa_tpu_torch import Trainer, load_model_config
+    from singa_tpu_torch.data import discover_input_shapes
+    model = load_model_config(conf)
+    return Trainer(model, discover_input_shapes(model, force_synthetic=True),
+                   device=dev, log_fn=lambda m: None, graphs=graphs,
+                   ngroups=ngroups)
+
+
+def mlp_stream(tr, stream_seed=None):
+    from singa_tpu_torch.data import resolve_data_source
+    p = next(l for l in tr.cfg.neuralnet.layer if l.type == "kShardData")
+    return resolve_data_source(tr.cfg, p.data_param.batchsize, seed=0,
+                               force_synthetic=True,
+                               stream_seed=stream_seed)[0]
+
+
+def elastic_cli(dev, conf, steps):
+    """17a: `python -m singa_tpu_torch.main -model_conf mlp.conf
+    --synthetic --steps N` exits 0 past the warmup."""
+    t0 = time.perf_counter()
+    res = subprocess.run(main_cmd(dev) + ["-model_conf", conf, "--synthetic",
+                                          "--steps", str(steps)], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    text = res.stdout + res.stderr
+    if res.returncode != 0:
+        print(text[-8000:], file=sys.stderr)
+    assert res.returncode == 0, res.returncode
+    expect_in(text, "async consistency tier active: Elastic", "training done")
+    return wall, [line for line in text.splitlines()
+                  if "test:" in line][-1:]
+
+
+def elastic_exact(dev, conf, steps):
+    """17b: the same numpy-seeded run replayed and eager, params after
+    every sync step equal under torch.equal; then a step's ms with and
+    without an exchange, and the exchange alone against its bound."""
+    from singa_tpu_torch import numpy_params, params_from_numpy
+    from singa_tpu_torch.parallel.elastic import elastic_update
+    states, seen, trainers = [], [], []
+    for graphs in (None, False):
+        tr = mlp_trainer(dev, conf, graphs)
+        arrays = numpy_params(tr.train_net, seed=0)
+        params = params_from_numpy(tr.train_net, arrays, device=dev)
+        opt = tr.updater.init(params)
+        ctl, orig, at = tr.elastic, tr.elastic.maybe_sync, {}
+
+        def rec(step, p, rng=None, orig=orig, ctl=ctl, at=at):
+            out = orig(step, p, rng=rng)
+            if ctl.sync_now(step):
+                at[step] = {k: v.clone() for k, v in out.items()}
+            return out
+        ctl.maybe_sync = rec
+        tr.cfg.train_steps = steps
+        it = mlp_stream(tr)
+        try:
+            params, opt, _ = tr.run(params, opt, it, seed=0)
+        finally:
+            it.close()
+        assert tr.graphs == (graphs is None and dev == "cuda")
+        states.append((params, opt, ctl.center))
+        seen.append(at)
+        trainers.append((tr, params, opt))
+    syncs = sorted(seen[0])
+    assert syncs == sorted(seen[1]) and len(syncs) >= 3, syncs
+    for s in syncs:
+        assert state_equal(seen[0][s], seen[1][s]), s
+    assert state_equal(states[0], states[1])
+    tr, params, opt = trainers[0]
+    ctl = tr.elastic
+    it = mlp_stream(tr, stream_seed=17)
+    batch = next(it)
+    it.close()
+    u = tr.cfg.updater
+    step = steps + u.sync_frequency - (steps - u.warmup_steps) % \
+        u.sync_frequency
+
+    def run(with_sync):
+        sync(dev)
+        t0 = time.perf_counter()
+        for i in range(MLP_TIMED):
+            s = step + i * u.sync_frequency
+            tr.train_step(params, opt, batch, s)
+            if with_sync:
+                ctl.maybe_sync(s, params)
+        sync(dev)
+        return (time.perf_counter() - t0) / MLP_TIMED * 1e3
+    plain, synced = [], []
+    for _ in range(2):
+        plain.append(run(False))
+        synced.append(run(True))
+    nbytes = sum(v.numel() * v.element_size() for v in params.values())
+    center = ctl.center
+    ex_ms = (time_ms(lambda: elastic_update(params, center, ctl.alpha), 20)
+             if dev == "cuda" else float("nan"))
+    bound = 4 * nbytes / PEAK_BYTES * 1e3
+    return {"syncs": syncs, "plain": plain, "synced": synced,
+            "ex_ms": ex_ms, "bound": bound, "nbytes": nbytes,
+            "graphs": trainers[0][0].graphs}
+
+
+def sync(dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def elastic_groups(dev, conf, tmp, param_type, steps):
+    """17c: 2 async worker groups from a cluster conf (synchronous: false)
+    as `main._replica_groups` builds them: a `ReplicaSet` over the
+    trainer's graphs; replica, center, snapshot and graph storages
+    disjoint; each replica's loss falls."""
+    from singa_tpu_torch.config import load_cluster_config
+    from singa_tpu_torch.core.step_graph import leaves
+    from singa_tpu_torch.parallel.elastic import ReplicaSet
+    path = os.path.join(tmp, f"mlp_{param_type}.conf")
+    with open(conf) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write(text.replace("updater {\n",
+                             f'updater {{\n  param_type: "{param_type}"\n',
+                             1))
+    cl_path = os.path.join(tmp, "cluster.conf")
+    with open(cl_path, "w") as f:
+        f.write(ASYNC_CLUSTER)
+    cluster = load_cluster_config(cl_path)
+    ngroups = cluster.nworkers // cluster.nprocs_per_group
+    tr = mlp_trainer(dev, path, ngroups=ngroups)
+    assert tr.cfg.updater.momentum == 0.0
+    rs = ReplicaSet(tr, ngroups, seed=0, bandwidth_mb_s=cluster.bandwidth,
+                    nservers=cluster.nservers or 1)
+    iters = [mlp_stream(tr, stream_seed=1000 * (g + 1))
+             for g in range(ngroups)]
+    t0 = time.perf_counter()
+    try:
+        center, hist = rs.run(iters, steps, seed=0)
+    finally:
+        for it in iters:
+            it.close()
+    wall = time.perf_counter() - t0
+    trees = [rep[k] for rep in rs.replicas for k in ("params", "opt")]
+    trees.append(center)
+    trees += [c.snapshot for c in rs.controllers if c.snapshot is not None]
+    if tr.graphs:
+        trees += [tr._state["params"], tr._state["opt"]]
+    ptrs = [v.data_ptr() for t in trees for v in leaves(t)]
+    assert len(ptrs) == len(set(ptrs)), "replica storages overlap"
+    falls = []
+    for g in range(ngroups):
+        loss = [h["loss"] for h in hist[g]]
+        first, last = np.mean(loss[:5]), np.mean(loss[-5:])
+        assert last < first, (param_type, g, first, last)
+        falls.append((float(first), float(last)))
+    return {"wall": wall, "falls": falls, "ptrs": len(ptrs),
+            "ratio": [c.sample_ratio for c in rs.controllers],
+            "graphs": tr.graphs, "ngroups": ngroups,
+            "rounds": sum(1 for s in range(steps)
+                          if rs.controllers[0].sync_now(s))}
+
+
+def phase_elastic(dev, conf=MLP_CONF, cli_steps=MLP_CLI_STEPS,
+                  exact_steps=MLP_EXACT_STEPS, group_steps=MLP_GROUP_STEPS):
+    """Phase 17; the arguments cut it down for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+    from singa_tpu_torch.ops import _kernels
+    _kernels.reset_launches()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="elastic_", dir=os.path.join(REPO, "build"))
+    try:
+        wall, tests = elastic_cli(dev, conf, cli_steps)
+        tr = mlp_trainer(dev, conf, graphs=False)
+        nsync = sum(1 for s in range(cli_steps) if tr.elastic.sync_now(s))
+        log(f"[elastic] 17a python -m singa_tpu_torch.main -model_conf "
+            f"{os.path.relpath(conf, REPO)} --synthetic --steps {cli_steps}:"
+            f" exit 0 in {wall:.3f} s wall (process start included); "
+            f"{nsync} sync steps (the first seeds the center, "
+            f"{nsync - 1} exchanges); {tests[0].strip() if tests else ''}"
+            f"")
+        ex = elastic_exact(dev, conf, exact_steps)
+        log(f"[elastic] 17b {exact_steps} steps replayed (graphs "
+            f"{ex['graphs']}) and eager from numpy seed 0: params after the "
+            f"sync steps {ex['syncs']} and at the end, the SGD history "
+            f"and the center equal under torch.equal")
+        log(f"[elastic] 17b a replayed step {', '.join(f'{x:.3f}' for x in ex['plain'])}"
+            f" ms, with its exchange (validation's norm and host sync "
+            f"included) {', '.join(f'{x:.3f}' for x in ex['synced'])} ms "
+            f"(2 rounds of {MLP_TIMED}, in turns); the exchange alone "
+            f"(`elastic_update`, {ex['nbytes'] / 1e6:.1f} MB of params) "
+            f"{ex['ex_ms']:.4f} ms against its bound {ex['bound']:.4f} ms "
+            f"(r and c read and written at {PEAK_BYTES / 1e12:.2f} TB/s)")
+        for param_type in ("Elastic", "RandomSync"):
+            g = elastic_groups(dev, conf, tmp, param_type, group_steps)
+            log(f"[elastic] 17c {g['ngroups']} async groups x {param_type} "
+                f"(cluster conf synchronous: false), {group_steps} steps "
+                f"each over the trainer's graphs ({g['graphs']}) in "
+                f"{g['wall']:.3f} s, {g['rounds']} sync rounds each: "
+                f"{g['ptrs']} tensors of replicas, center, snapshots and "
+                f"graphs, all disjoint; loss (mean of the first 5 -> last "
+                f"5) " + ", ".join(f"{a:.5f} -> {b:.5f}"
+                                   for a, b in g["falls"])
+                + f"; sample ratio {g['ratio']}")
+        cl = os.path.join(tmp, "cluster.conf")
+        code, text = run_main(["-model_conf", conf, "-cluster_conf", cl,
+                               "--synthetic", "--steps", str(exact_steps)],
+                              dev)
+        assert code == 0, text[-3000:]
+        expect_in(text, "async replica groups: 2 x Elastic",
+                  "training done (center of 2 replicas)", "center test:")
+        center = [line for line in text.splitlines() if "center test" in line]
+        log(f"[elastic] 17c the CLI with that cluster conf, {exact_steps} "
+            f"steps: exit 0; {center[-1].strip()}")
+        assert not any(_kernels.LAUNCHES.values()), _kernels.LAUNCHES
+        log("[elastic] phase 17: 0 launches of K1-K6 on the MLP path")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4753,6 +5301,11 @@ def main() -> int:
     took("phase 14")
     phase_control(dev, arrays)
     took("phase 15")
+    pipe = phase_pipeline(dev)
+    log(f"[pipe] phase 16's launches on the pipeline path: {pipe}")
+    took("phase 16")
+    phase_elastic(dev)
+    took("phase 17")
 
     kernels = []
     for name, res, replaces in (

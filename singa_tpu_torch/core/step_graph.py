@@ -39,7 +39,9 @@ package traces a branch or a static argument.
 - `_kernels.LAUNCHES` counts Python calls of the kernel wrappers, and a
   replay makes none: the launches made while capturing are recorded and
   added to the counts at every replay.  Warm-up and capture add nothing
-  themselves.
+  themselves, and take nothing from what other threads count
+  meanwhile: `_kernels.recording` watches the warm-up's side stream
+  and the capture's stream.
 """
 
 from __future__ import annotations
@@ -173,8 +175,7 @@ class StepGraph:
                              f"tensors than it was captured over")
         copy_batch(got.batch, batch)
         got.graph.replay()
-        for name, n in got.launches.items():
-            _kernels.LAUNCHES[name] += n
+        _kernels.add_launches(got.launches)
         return got.out
 
     def _capture(self, fn, state, batch) -> _Captured:
@@ -182,10 +183,9 @@ class StepGraph:
         static = _map(lambda x: torch.empty(tuple(x.shape), dtype=_dtype(x),
                                             device=dev), batch)
         copy_batch(static, batch)
-        counts = dict(_kernels.LAUNCHES)
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), _kernels.recording(side):
             warm = {k: _map(lambda t: t.clone(), v) if k in self.writes
                     else v for k, v in state.items()}
             self.clone_bytes = sum(
@@ -195,7 +195,6 @@ class StepGraph:
                 fn(warm, static)
             del warm
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = dict(_kernels.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             if not hasattr(graph, "register_generator_state"):
@@ -204,21 +203,18 @@ class StepGraph:
                     f"generator with a CUDA graph, so a replay would "
                     f"repeat one draw")
             graph.register_generator_state(gen)
+        # thread-local capture: another thread's CUDA calls (a
+        # DeviceFeeder staging the next chunk) neither break the capture
+        # nor join it
+        ctx = torch.cuda.graph(graph, pool=self.pool,
+                               capture_error_mode="thread_local")
         try:
-            # thread-local capture: another thread's CUDA calls (a
-            # DeviceFeeder staging the next chunk) neither break the
-            # capture nor join it
-            with torch.cuda.graph(graph, pool=self.pool,
-                                  capture_error_mode="thread_local"):
+            with _kernels.recording(ctx.capture_stream) as captured, ctx:
                 out = fn(state, static)
         except RuntimeError as e:
             raise CaptureError(f"{self.name}: CUDA graph capture failed "
                                f"{_culprit(e)}: {type(e).__name__}: "
                                f"{e}") from e
-        finally:
-            captured = {k: _kernels.LAUNCHES[k] - before[k]
-                        for k in before}
-            _kernels.LAUNCHES.update(counts)
         return _Captured(graph, static, out,
                          tuple(t.data_ptr() for t in leaves(state)),
                          {k: n for k, n in captured.items() if n})

@@ -59,7 +59,16 @@ with `ModelProto.debug`, `run` logs `NeuralNet.debug_info` of an eager
 forward and backward at each display step.  Neither moves the params,
 the optimizer state, the generators or the data stream.
 
-Not ported yet (ROADMAP.md): elastic/async sync and pipeline nets.
+The async consistency tier (`:179-182`, `:711-719`, `:780-787`,
+`:973-976`): when the updater asks for Elastic or RandomSync
+(`parallel.elastic.async_active`), `run` exchanges the params with a
+center copy (`self.elastic`, an `ElasticController`) after each sync
+step, in place on the tensors the graphs own, and chunks end on sync
+steps.  The center is not checkpointed: it seeds lazily from the first
+post-warmup params of the process, so a resumed run seeds it anew.
+Several replica groups train through `parallel.elastic.ReplicaSet`.
+
+Not ported yet (ROADMAP.md A9): pipeline nets.
 """
 
 from __future__ import annotations
@@ -172,9 +181,16 @@ class Trainer:
                  input_shapes: Dict[str, Dict[str, tuple]],
                  log_fn: Optional[Callable[[str], None]] = None,
                  device: DeviceLike = None, seed: int = 0,
-                 graphs: Optional[bool] = None, health=None):
+                 graphs: Optional[bool] = None, health=None,
+                 ngroups: int = 1):
         """`seed` seeds the per-step generators of the layers that draw
         (see `Context.layer_rng`); params come from `init(seed)`.
+
+        When UpdaterProto's consistency knobs request the async tier
+        (param_type Elastic with moving_rate > 0, or RandomSync), `run`
+        exchanges params with a center copy at sync_frequency after
+        warmup_steps (worker.cc:44-55); `ngroups` scales Elastic's
+        alpha = moving_rate/ngroups (param_manager.cc:15).
 
         `health` (a `utils.health.HealthMonitor`) arms the numeric-health
         sentinel: the train step also returns the health probes (in the
@@ -200,6 +216,10 @@ class Trainer:
         self.val_net = self._maybe_net("kValidation", input_shapes)
         self.updater = make_updater(model_cfg.updater)
         self.multipliers = self.train_net.multipliers()
+        from ..parallel.elastic import ElasticController, async_active
+        self.elastic = (ElasticController(model_cfg.updater, ngroups,
+                                          log_fn=self.log)
+                        if async_active(model_cfg.updater) else None)
         self.graphs = self._pick_graphs(graphs)
         # one generator per drawing layer of the train net, keyed by its
         # topological index, seeded before every step (`_seed_layers`)
@@ -557,8 +577,8 @@ class Trainer:
         """Longest chunk [step, step+n) that crosses no test/validate/
         checkpoint boundary (those run on the host between chunks);
         display steps may fall inside a chunk because their metrics come
-        back stacked.  The reference's `_next_chunk_len` (`:693-733`)
-        without the elastic tier."""
+        back stacked; and, with the elastic tier, none runs past a sync
+        step.  The reference's `_next_chunk_len` (`:693-733`)."""
         n = min(scan_chunk, self.cfg.train_steps - step)
 
         def next_event(freq, after):
@@ -570,6 +590,16 @@ class Trainer:
                 m = -(-after // freq) * freq
             return m
 
+        if self.elastic is not None:
+            # chunks may not run past a sync step: the center exchange
+            # runs on the host after that step
+            freq = self.cfg.updater.sync_frequency
+            warm = self.cfg.updater.warmup_steps
+            e = (warm if step < warm
+                 else warm + ((step - warm) // freq + 1) * freq)
+            if self.elastic.sync_now(step):
+                e = step
+            n = min(n, e - step + 1)
         for freq, after in ((self.cfg.test_frequency,
                              self.cfg.test_after_steps),
                             (self.cfg.validation_frequency,
@@ -661,6 +691,13 @@ class Trainer:
         if seed is not None:
             self.seed = seed
         ckpt, interrupted, old_handlers = self._ckpt_guard(workspace)
+        if self.elastic is not None:
+            # the center seeds lazily from the first post-warmup params
+            # inside maybe_sync (worker.cc:50-55 pushes AFTER warmup)
+            self.log(f"async consistency tier active: "
+                     f"{cfg.updater.param_type} sync_frequency="
+                     f"{cfg.updater.sync_frequency} warmup="
+                     f"{cfg.updater.warmup_steps}")
         history: List[Dict[str, float]] = []
         chunked = scan_chunk > 1
         step = start_step
@@ -808,6 +845,11 @@ class Trainer:
                     self.log(f"step-{s_dbg} debug:\n" +
                              self.train_net.debug_info(params, outs, grads))
                 last = step + n - 1
+                if self.elastic is not None:
+                    # chunks are cut so at most the LAST step is a sync
+                    # step; the exchange writes the params in place
+                    params = self.elastic.maybe_sync(
+                        last, params, rng=fold_in(self.seed ^ 0x5eed, last))
                 if (ckpt is not None and last >= cfg.checkpoint_after_steps
                         and (last + 1) % cfg.checkpoint_frequency == 0):
                     # drain first: every step the snapshot holds has been

@@ -16,7 +16,12 @@ Each C entry takes every pointer and the stream as `void*`, its sizes as
 `int` and its real parameters as `double`, and returns
 `cudaGetLastError()` after the launch; `launch` raises when that is not
 0 and otherwise adds one to the kernel's count in `LAUNCHES`, the count
-a run reads to show that its path went through the kernel.
+a run reads to show that its path went through the kernel.  Launches
+on a stream inside `recording(stream)` (a CUDA-graph capture and its
+warm-up, whichever thread launches: the autograd engine runs a
+backward on a thread of its own) count into a dict of their own
+instead, so a capture neither counts itself nor touches what other
+threads count meanwhile.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -60,11 +66,40 @@ SIGNATURES = {
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _entries: Dict[str, tuple] = {}
 _lock = threading.Lock()
+_counts_lock = threading.Lock()
+# stream handle -> the launch counts of a capture recording on it
+_recording: Dict[int, Dict[str, int]] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _counts_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def add_launches(counts: Dict[str, int],
+                 stream: Optional[int] = None) -> None:
+    """Add `counts` (kernel -> launches) to `LAUNCHES`, or, for launches
+    on `stream` (a handle) while it is recording, to its recording."""
+    with _counts_lock:
+        target = _recording.get(stream, LAUNCHES)
+        for name, n in counts.items():
+            target[name] = target.get(name, 0) + n
+
+
+@contextmanager
+def recording(stream):
+    """Count the launches made on `stream` until the block ends, from
+    any thread, into the yielded dict instead of `LAUNCHES`: a capture's
+    launches are added at every replay instead."""
+    rec: Dict[str, int] = {}
+    with _counts_lock:
+        _recording[stream.cuda_stream] = rec
+    try:
+        yield rec
+    finally:
+        with _counts_lock:
+            _recording.pop(stream.cuda_stream, None)
 
 
 def _nvcc() -> str:
@@ -130,8 +165,9 @@ def launch(name: str, *args) -> None:
     """Launch kernel `name` on the current stream without synchronising;
     raise on a refused launch, else count it."""
     fn, err_string = _entry(name)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({err_string(err).decode()})")
-    LAUNCHES[name] += 1
+    add_launches({name: 1}, stream)

@@ -158,6 +158,7 @@ class RolloutController:
         self._extends: int = 0
         self._pre: Dict[str, Any] = {}          # canary stats pre-reload
         self._baseline_p95: Optional[float] = None
+        self._t_live = 0.0          # when the canary went live
         # outcome counters (fleet snapshot / BENCH_pr7.json)
         self.canaries = 0
         self.canary_restarts = 0
@@ -282,7 +283,8 @@ class RolloutController:
         self.canary = name
         self.state = "CANARY"
         self._pre = pre
-        self._deadline = time.monotonic() + float(self.spec.window_s)
+        self._t_live = time.monotonic()
+        self._deadline = self._t_live + float(self.spec.window_s)
         self._extends = 0
         self.log(f"fleet: canarying checkpoint step {target} on "
                  f"engine {name} (fleet pinned at "
@@ -370,18 +372,18 @@ class RolloutController:
         if err_rate > float(self.spec.err_tolerance):
             reasons.append(f"canary error rate {err_rate:.3f} > "
                            f"{self.spec.err_tolerance}")
-        try:
-            snap = handle.stats_snapshot()
-            p95 = snap.get("p95_latency_ms")
-        except Exception:  # noqa: BLE001
-            p95 = None
-        if p95 is not None and self._baseline_p95 is not None:
-            base_ms = self._baseline_p95 * 1e3
-            if base_ms > 0 and p95 > base_ms * float(
-                    self.spec.p95_ratio):
-                reasons.append(f"canary p95 {p95:.1f}ms > "
-                               f"{self.spec.p95_ratio}x baseline "
-                               f"{base_ms:.1f}ms")
+        # the canary's p95 over the requests it served in its own
+        # window, as the router sees them (the baseline's side): its
+        # latencies from before the reload say nothing of the
+        # checkpoint (fault C7)
+        p95 = self.router.stats.engine_latency_quantile(0.95, name,
+                                                        self._t_live)
+        base = self._baseline_p95
+        if p95 is not None and base and \
+                p95 > base * float(self.spec.p95_ratio):
+            reasons.append(f"canary p95 {p95 * 1e3:.1f}ms > "
+                           f"{self.spec.p95_ratio}x baseline "
+                           f"{base * 1e3:.1f}ms")
         if reasons:
             self._rollback("; ".join(reasons))
         else:
@@ -417,7 +419,9 @@ class RolloutController:
         self.promotions += 1
         self.pinned_step = target
         self._rejected_fp = None
-        self._fp = self.mgr.fingerprint()
+        # `_fp` stays the fingerprint this tick began from: a save that
+        # landed while the siblings reloaded is new to the next tick
+        # (fault C9)
         self.state = "OBSERVE"
         self.canary = None
         self.target_step = None

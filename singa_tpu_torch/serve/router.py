@@ -696,6 +696,8 @@ class RouterStats:
                                                       #  brownout, tenant)
         self._done_t: deque = deque(maxlen=16384)     # (stamp, latency,
                                                       #  priority, tenant)
+        # (admitted at, engine, latency): a canary's own window
+        self._engine_lat: deque = deque(maxlen=16384)
         # per-tenant lifetime accounting (bounded label set; callers
         # pass registry-FOLDED labels) — exported as singa_tenant_*
         self.tenants = TenantCounts(("routed", "completed", "shed"))
@@ -746,13 +748,22 @@ class RouterStats:
 
     def observe_latency(self, seconds: float,
                         priority: str = "interactive",
-                        tenant: str = "default") -> None:
+                        tenant: str = "default",
+                        engine: Optional[str] = None,
+                        start: Optional[float] = None) -> None:
+        """One completed request's latency; `engine` (the one that
+        served it) and `start` (when the router admitted it) feed
+        `engine_latency_quantile`."""
+        now = time.monotonic()
         with self._lock:
             self._latencies.append(seconds)
             if len(self._latencies) > 4096:
                 del self._latencies[:2048]
-            self._done_t.append((time.monotonic(), seconds, priority,
-                                 tenant))
+            self._done_t.append((now, seconds, priority, tenant))
+            if engine is not None:
+                self._engine_lat.append(
+                    (now - seconds if start is None else start, engine,
+                     seconds))
         self.tenants.count("completed", tenant)
         self.tenants.observe_latency(seconds, tenant)
         h = self._hist_latency
@@ -863,6 +874,18 @@ class RouterStats:
     def latency_quantile(self, q: float) -> Optional[float]:
         with self._lock:
             lats = sorted(self._latencies)
+        if not lats:
+            return None
+        return lats[min(int(q * len(lats)), len(lats) - 1)]
+
+    def engine_latency_quantile(self, q: float, engine: str,
+                                since: float) -> Optional[float]:
+        """The q-quantile of the latencies of the requests `engine`
+        served that the router admitted at or after `since` (None when
+        there are none): a canary's own window."""
+        with self._lock:
+            lats = sorted(lat for t, e, lat in self._engine_lat
+                          if e == engine and t >= since)
         if not lats:
             return None
         return lats[min(int(q * len(lats)), len(lats) - 1)]
@@ -1742,7 +1765,8 @@ class Router:
                 t2 = time.monotonic()
                 lat = t2 - t0
                 self.stats.observe_latency(lat, priority,
-                                           tenant=tenant)
+                                           tenant=tenant, engine=winner,
+                                           start=t0)
                 # stage partition shares the e2e clock and its
                 # boundary stamps: admit + dispatch == latency exactly
                 self.stats.observe_stage("admit", t1 - t0)
@@ -2272,7 +2296,9 @@ class Router:
                 self._shed_backoffs.reset(priority, tenant=tenant)
                 self.stats.count("completed")
                 self.stats.observe_latency(time.monotonic() - t0,
-                                           priority, tenant=tenant)
+                                           priority, tenant=tenant,
+                                           engine=session.engine,
+                                           start=t0)
             else:
                 self.stats.count("failed")
 

@@ -302,3 +302,50 @@ def test_a_dropped_trainer_is_freed_at_once():
         assert ref() is None
     finally:
         gc.enable()
+
+
+def test_a_capture_keeps_what_other_threads_count():
+    """Fault C8 (found by `chip_smoke.py` phase 16b on the card): a
+    capture restored the whole of `_kernels.LAUNCHES` to its value from
+    before its warm-up, erasing what other threads counted meanwhile;
+    an engine the autoscaler grew during training took ~30 training
+    steps' K1/K3/K4 launches with it (70 counted for 130).  Launches on
+    a capture's stream now count into its `recording` dict, from any
+    thread (the autograd engine launches the backward on one of its
+    own), and its graph adds them at every replay; launches on other
+    streams count in `LAUNCHES` meanwhile."""
+    import threading
+    from types import SimpleNamespace
+
+    from singa_tpu_torch.ops import _kernels
+    side, default = SimpleNamespace(cuda_stream=7001), 0
+    before = dict(_kernels.LAUNCHES)
+    inside, go, done = threading.Event(), threading.Event(), []
+
+    def capture():
+        with _kernels.recording(side) as rec:
+            _kernels.add_launches({"flash_fwd": 2}, side.cuda_stream)
+            inside.set()
+            go.wait(10.0)
+            done.append(dict(rec))
+
+    def backward():                         # the autograd engine's thread
+        _kernels.add_launches({"flash_dq": 2, "flash_dkv": 2},
+                              side.cuda_stream)
+    t = threading.Thread(target=capture)
+    t.start()
+    assert inside.wait(10.0)
+    b = threading.Thread(target=backward)
+    b.start()
+    b.join(10.0)
+    for _ in range(5):                      # another thread trains on
+        _kernels.add_launches({"flash_fwd": 2, "flash_dq": 2}, default)
+    go.set()
+    t.join(10.0)
+    assert not t.is_alive() and not b.is_alive()
+    assert done == [{"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}]
+    got = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
+    assert got == {**{k: 0 for k in before}, "flash_fwd": 10,
+                   "flash_dq": 10}
+    _kernels.add_launches(done[0])          # a replay of that capture
+    assert _kernels.LAUNCHES["flash_dkv"] - before["flash_dkv"] == 2

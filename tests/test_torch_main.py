@@ -6,8 +6,10 @@ counts); training with `--synthetic --steps N --workspace` on
 lm_tiny.conf and on a shard-backed copy of mlp.conf, both from the same
 step-0 snapshot (`--resume`): both exit 0, each package restores the
 other's workspace, and the final params agree; `--phase_profile`'s
-device split on the `Time per step` lines; and the exits of what the
-port does not have yet (2, naming the ROADMAP.md item).  On a
+device split on the `Time per step` lines; and the exit of what the
+port does not have yet (2, naming the ROADMAP.md item: `-procsID` and
+`-hostfile`; the `pipeline` subcommand runs since slice 15,
+`tests/test_torch_pipeline.py`).  On a
 machine without a card the CLI raises rather than running on the
 CPU."""
 
@@ -68,7 +70,6 @@ def test_serve_smoke_matches_the_jax_cli(spec, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["pipeline", "-model_conf", CONF, "--workspace", "ws"], "A10"),
     (["-model_conf", CONF, "-procsID", "1", "-hostfile", "h"], "A9"),
 ])
 def test_what_the_port_lacks_exits_2_naming_the_roadmap_item(

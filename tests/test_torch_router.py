@@ -378,6 +378,119 @@ def test_rollout_rolls_back_when_the_canary_dies():
     assert got["rollbacks"] == 1 and got["pinned"] == 1
 
 
+class SlowHistoryStub(Stub):
+    """A stub whose own latency window holds slow requests from before
+    any canary, as an engine's holds a co-located trainer's start-up
+    stall (PR 15's chip call 1)."""
+
+    def stats_snapshot(self):
+        return {**super().stats_snapshot(), "p95_latency_ms": 300.0}
+
+
+def _canary_window(pkg, in_window_s):
+    """A pinned step 1, 20 requests of 20 ms, then step 2 canaried: the
+    other engine is full, so 5 requests reach the canary, each taking
+    `in_window_s`.  Returns (promotions, rollbacks)."""
+    with tempfile.TemporaryDirectory() as ws:
+        mgr = pkg.ckpt(ws, log_fn=lambda s: None)
+        w = {"w": np.ones((2,), np.float32)}
+        t = {"t": np.zeros((), np.float32)}
+        mgr.save(1, w, t, health={"verdict": "ok"})
+        stubs = [SlowHistoryStub(pkg, f"e{i}", delay_s=0.02)
+                 for i in range(2)]
+        r = pkg.serve.Router(stubs, spec=pkg.serve.RouterSpec(
+            hedge="off"), **QUIET)
+        r.probe_all()
+        ctrl = pkg.serve.RolloutController(
+            r, ws, spec=pkg.serve.RolloutSpec(window_s=0.01), **QUIET)
+        ctrl.pinned_step = 1
+        ctrl._fp = ctrl.mgr.fingerprint()
+        for _ in range(20):
+            r.route("generate", [1])
+        mgr.save(2, w, t, health={"verdict": "ok"})
+        ctrl.tick()
+        assert ctrl.state == "CANARY"
+        for s in stubs:
+            if s.name == ctrl.canary:
+                s.delay_s = in_window_s
+            else:
+                s.overloaded = True
+        for _ in range(5):
+            r.route("generate", [1])
+        ctrl.tick()
+        return ctrl.promotions, ctrl.rollbacks
+
+
+def test_a_canary_is_judged_on_its_own_window():
+    """Fault C7 (found by `chip_smoke.py` phase 16 on the card): the
+    rollout compared the canary engine's p95 over its whole latency
+    window, requests from before the reload included, with the router's
+    p95; beside a trainer on the same card an engine that had served
+    little kept the trainer's start-up stall in that window, and every
+    canary on it was rolled back (blessed 60, served -1 for good).  The
+    port judges the p95 of the requests the canary served in its own
+    window: the slow history alone promotes (the JAX package rolls
+    back), a canary slow in its window still rolls back."""
+    assert _canary_window(PKGS["torch"], 0.02) == (1, 0)
+    assert _canary_window(PKGS["jax"], 0.02) == (0, 1)
+    assert _canary_window(PKGS["torch"], 0.2) == (0, 1)
+
+
+class SavingStub(Stub):
+    """A stub that saves step `then` to the workspace while it reloads
+    to step `when` (a trainer's save landing during a promotion)."""
+
+    def __init__(self, pkg, name, mgr, when, then):
+        super().__init__(pkg, name)
+        self.mgr, self.when, self.then = mgr, when, then
+
+    def reload(self, step=None):
+        out = super().reload(step)
+        if step == self.when and self.mgr is not None:
+            self.mgr.save(self.then, {"w": np.ones((2,), np.float32)},
+                          {"t": np.zeros((), np.float32)},
+                          health={"verdict": "ok"})
+            self.mgr = None
+        return out
+
+
+def _save_during_promote(pkg):
+    """Step 2 is canaried and promoted; the sibling's reload to it saves
+    step 3.  Returns (state, target) after the next tick."""
+    with tempfile.TemporaryDirectory() as ws:
+        mgr = pkg.ckpt(ws, log_fn=lambda s: None)
+        w = {"w": np.ones((2,), np.float32)}
+        t = {"t": np.zeros((), np.float32)}
+        mgr.save(1, w, t, health={"verdict": "ok"})
+        stubs = [Stub(pkg, "e0"), SavingStub(pkg, "e1", mgr, 2, 3)]
+        r = pkg.serve.Router(stubs, spec=pkg.serve.RouterSpec(
+            hedge="off"), **QUIET)
+        r.probe_all()
+        ctrl = pkg.serve.RolloutController(
+            r, ws, spec=pkg.serve.RolloutSpec(window_s=0.01), **QUIET)
+        ctrl.pinned_step = 1
+        ctrl._fp = ctrl.mgr.fingerprint()
+        mgr.save(2, w, t, health={"verdict": "ok"})
+        ctrl.tick()
+        assert ctrl.canary == "e0"          # the sibling, e1, saves
+        time.sleep(0.02)
+        ctrl.tick()                         # promote: the sibling saves 3
+        assert ctrl.pinned_step == 2
+        ctrl.tick()
+        return ctrl.state, ctrl.target_step
+
+
+def test_a_save_during_a_promotion_is_canaried_next():
+    """Fault C9 (found by `chip_smoke.py` phase 16 on the card): a
+    promotion took the workspace's fingerprint after its sibling
+    reloads, so a save that landed meanwhile counted as seen and was
+    never canaried until another save came (with a pipeline's last
+    save, never: blessed stayed above served).  The fingerprint stays
+    the one the tick began from."""
+    assert _save_during_promote(PKGS["torch"]) == ("CANARY", 3)
+    assert _save_during_promote(PKGS["jax"]) == ("OBSERVE", None)
+
+
 # -- the autoscaler ---------------------------------------------------------------
 
 class StubFleet:

@@ -296,8 +296,8 @@ def test_eos_retires_slot_mid_batch_and_slot_is_reused(nets):
 @pytest.fixture(scope="module")
 def small(nets):
     """Pool of 40 blocks: one worst-case request (36 blocks) fits, two
-    cannot coexist.  The timeout is calibrated from one measured full
-    run, as the reference's test does."""
+    cannot coexist.  One full run (128 tokens) first; its wall time
+    rides along."""
     _, _, tnet, tparams = nets
     sched = _scheduler(tnet, tparams, max_new_tokens=128, queue_capacity=2,
                        cb_slots=2, cb_blocks=40)
@@ -308,12 +308,44 @@ def small(nets):
     sched.stop()
 
 
-def test_deadline_mid_stream_retires_with_partial_result(small):
-    sched, full_s = small
+class _StepClock:
+    """The scheduler module's `time`, with a `monotonic` that stands
+    still but for one second per decode step: a deadline then falls on
+    a decode step by construction, however loaded the host is (a
+    deadline of a third of a calibration run's wall time did not: a
+    run calibrated under load and served without it finished all 128
+    tokens with `length`)."""
+
+    def __init__(self):
+        self.now = time.monotonic()
+
+    def monotonic(self) -> float:
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_deadline_mid_stream_retires_with_partial_result(small,
+                                                         monkeypatch):
+    sched, _ = small
+    clock = _StepClock()
+    decode = sched.engine.run_cb_decode
+
+    def stepped(*args, **kwargs):
+        out = decode(*args, **kwargs)
+        clock.now += 1.0
+        return out
+    monkeypatch.setattr(importlib.import_module(
+        "singa_tpu_torch.serve.scheduler"), "time", clock)
+    monkeypatch.setattr(sched.engine, "run_cb_decode", stepped)
+    # the prefill's token, then decode steps until the clock passes the
+    # deadline: after the 11th, at 11 s > 10.5 s
     out = sched.submit(np.array([4, 5], np.int32),
-                       timeout=max(full_s / 3.0, 0.02)).wait(60.0)
+                       deadline=clock.now + 10.5).wait(60.0)
     assert out["finish"] == "deadline"
     assert 1 <= len(out["tokens"]) < 128
+    assert len(out["tokens"]) == 12
 
 
 def test_deadline_expires_in_queue_when_pool_is_held(small):
