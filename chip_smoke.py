@@ -104,7 +104,10 @@ non-zero before the last line is printed:
    idle share); an eager step's split, peak memory; the eval step
    through `Trainer.evaluate` (K5 twice per step); then the same weights
    at batch 4 in f32 on the card and on the CPU, whose loss and every
-   gradient must agree.
+   gradient must agree; then MAX pooling's backward on ReLU-tied inputs
+   ((k, s) = (3, 2), (2, 2), (3, 3) on 32x32 and 13x13, f32 and bf16):
+   the production backward and the tie-exact oracle, card equal to CPU
+   under `torch.equal`.
 
 10. `examples/transformer/lm.conf` uncut (B=8, S=512, V=4096, E=256,
    2 blocks, block 1 a kMoE of 4 experts top-2; its attention takes
@@ -259,6 +262,34 @@ non-zero before the last line is printed:
    replicas', the center's, the snapshots' and the graphs' tensors
    disjoint (`data_ptr`); each replica's loss falls; then the CLI with
    that cluster conf exits 0 with the center's test line.
+18. Checkpoints the JAX package wrote through orbax (`[ckpt]` lines):
+   whether `tensorstore` imports here.  (a) A workspace of
+   `examples/transformer/lm_tiny.conf` with the CLI's npz step 8 beside
+   an orbax step directory 16 (`_CHECKPOINT_METADATA`, `default/
+   _METADATA`): with `tensorstore` unable to import (taken out of
+   `sys.modules` where it imports), `restore`, `latest_step` and
+   `Trainer.resume` raise `OrbaxUnreadableError`, and `--resume` through
+   the CLI exits 1 with the reason, trains no step and writes nothing.
+   (b) Where `tensorstore` imports: a step written with it in orbax's
+   layout (zarr arrays under an ocdbt kvstore) restores equal to the
+   bit, and the CLI's `--resume` takes it up and trains on.
+19. Training over several processes sharing the card (`[dist]` lines;
+   gloo, staged through the host; no kernel of K1-K6).  (a)
+   `examples/mnist/conv.conf` at its shipped width (batch 64) for 20
+   steps through `python -m singa_tpu_torch.main` with a 2-line
+   hostfile, `-procsID 0/1` and a cluster config of `data_parallel: 2`:
+   per-step losses within 1e-4 relative of the single-process CLI run on
+   the same global batches, final params within 1e-4 of each param's
+   largest magnitude, and both ranks' params equal (their sha256, which
+   the CLI checks across the ranks).  (b) The process group's start,
+   the data-parallel step (eager: a gloo collective cannot be
+   captured) and its gradient exchange against the single-process step
+   replayed and eager.  (c) `examples/mnist/mlp.conf` at its shipped
+   width (batch 1000) under `DistributedReplicaSet` of 2 processes for
+   77 steps (syncs at 60, 68, 76), once Elastic and once RandomSync:
+   the centers equal across the processes, and within 1e-6 of the
+   in-process `ReplicaSet` on the card on the same seeds and streams;
+   the all-gather's ms with host staging.
 
 Every result line ends with the card's `nvidia-smi` name and power
 limit.  The last lines are one JSON object listing each kernel with its
@@ -1984,7 +2015,52 @@ def phase_alexnet(dev):
     profile("alexnet_eval_step", lambda: tr.test_step(params, batches[0]),
             eval_ms)
     compare_alexnet(dev, arrays)
+    pool_ties(dev)
     return launches
+
+
+POOL_TIES = ((3, 2), (2, 2), (3, 3))    # (kernel, stride)
+POOL_SIZES = (32, 13)                   # AlexNet-CIFAR10's pool1 input, odd
+
+
+def pool_ties(dev):
+    """MAX pooling's backward on ReLU-tied inputs (relu(x - 1): 84% zeros,
+    whole windows of them) and whole cotangents of 1-8 (whose sums over
+    overlapping windows are exact in bf16 in any order), card against
+    CPU in f32 and bf16: the
+    production backward (autograd of `max_pool2d`: one position per
+    window, the first maximum) and the tie-exact oracle
+    (`max_pool_tie_exact`: every tied maximum) must route the same
+    cotangents to the same positions, equal under `torch.equal`."""
+    from singa_tpu_torch.ops import pool
+    rng = np.random.default_rng(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernel, stride in POOL_TIES:
+            for size in POOL_SIZES:
+                x = np.maximum(rng.standard_normal((64, size, size, 32)) - 1.0,
+                               0.0).astype(np.float32)
+                oh = pool.pooled_size(size, kernel, stride)
+                # small whole cotangents: every sum of them is exact in
+                # bf16 too, so equality holds the routing, not a rounding
+                g = rng.integers(1, 9, (64, oh, oh, 32)).astype(np.float32)
+                tied = 0
+                for fn in (pool.max_pool2d, pool.max_pool_tie_exact):
+                    res = {}
+                    for d in (dev, "cpu"):
+                        t = torch.from_numpy(x).to(d, dtype).requires_grad_()
+                        y = fn(t, kernel, stride)
+                        (dx,) = torch.autograd.grad(
+                            y, t, torch.from_numpy(g).to(d, dtype))
+                        res[d] = (y.detach().cpu(), dx.cpu())
+                    assert torch.equal(res[dev][0], res["cpu"][0]), \
+                        (fn.__name__, kernel, stride, size, dtype)
+                    assert torch.equal(res[dev][1], res["cpu"][1]), \
+                        (fn.__name__, kernel, stride, size, dtype)
+                    tied = int((res["cpu"][0] == 0).sum())
+                log(f"[alexnet] pool ties k={kernel} s={stride} "
+                    f"{size}x{size} {str(dtype)[6:]}: {tied} of "
+                    f"{64 * oh * oh * 32} windows all zeros; production "
+                    f"and tie-exact backward card = CPU (torch.equal)")
 
 
 def check_alexnet_loss(losses):
@@ -5214,6 +5290,554 @@ def phase_elastic(dev, conf=MLP_CONF, cli_steps=MLP_CLI_STEPS,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: checkpoints the JAX package wrote through orbax
+
+CKPT_CONF = os.path.join(REPO, "examples", "transformer", "lm_tiny.conf")
+CKPT_STEPS = 8          # lm_tiny.conf saves every 8 steps
+HIDE_TENSORSTORE = """
+import sys
+sys.modules["tensorstore"] = None       # as on a machine without it
+from singa_tpu_torch.main import main
+sys.exit(main(sys.argv[2:], device=sys.argv[1] or None))
+"""
+
+
+def tensorstore_module():
+    """`tensorstore`, or None where it does not import."""
+    try:
+        import tensorstore
+    except ImportError:
+        return None
+    return tensorstore
+
+
+def flat_state(tree, keys=()):
+    """[(key path, numpy leaf)] of a nested dict, keys sorted."""
+    out = []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out += flat_state(tree[k], keys + (k,))
+        else:
+            out.append((keys + (k,), np.asarray(tree[k])))
+    return out
+
+
+def orbax_step_dir(ckpt_dir, step, state=None, ts=None):
+    """A step directory in orbax's layout under `ckpt_dir`: `default/
+    _METADATA` listing every leaf of `state` by key path, then
+    `_CHECKPOINT_METADATA` (orbax writes it last).  With `ts`
+    (tensorstore) each leaf is written as a zarr array at its key path
+    joined with `.` under the step's ocdbt kvstore, as orbax writes it."""
+    stepdir = os.path.join(ckpt_dir, str(step))
+    base = os.path.join(stepdir, "default") + os.sep
+    os.makedirs(base)
+    leaves = flat_state(state or {"step": np.asarray(step, np.int64)})
+    ctx = ts.Context() if ts is not None else None
+    tree = {}
+    for keys, arr in leaves:
+        if ts is not None:
+            ts.open({"driver": "zarr",
+                     "kvstore": {"driver": "ocdbt",
+                                 "base": {"driver": "file", "path": base},
+                                 "path": ".".join(keys) + "/"},
+                     "metadata": {"shape": list(arr.shape),
+                                  "chunks": list(arr.shape),
+                                  "dtype": arr.dtype.str}},
+                    create=True, context=ctx).result().write(arr).result()
+        tree[str(keys)] = {"key_metadata": [{"key": k, "key_type": 2}
+                                            for k in keys],
+                           "value_metadata": {"value_type": "np.ndarray",
+                                              "skip_deserialize": False}}
+    with open(base + "_METADATA", "w") as f:
+        json.dump({"tree_metadata": tree, "use_ocdbt": True,
+                   "use_zarr3": False}, f)
+    with open(os.path.join(stepdir, "_CHECKPOINT_METADATA"), "w") as f:
+        json.dump({"item_handlers": {"default": "StandardCheckpointHandler"}},
+                  f)
+    return stepdir
+
+
+def ckpt_trainer(dev):
+    from singa_tpu_torch import Trainer, load_model_config
+    from singa_tpu_torch.data import discover_input_shapes
+    model = load_model_config(CKPT_CONF)
+    return Trainer(model, discover_input_shapes(model, force_synthetic=True),
+                   device=dev, log_fn=lambda m: None)
+
+
+def ckpt_refused(dev, ws, orbax_step, hidden):
+    """18a: with `tensorstore` unable to import (`hidden`: taken out of
+    `sys.modules` here), `restore`, `latest_step` and `Trainer.resume`
+    raise `OrbaxUnreadableError`, and the CLI's `--resume` exits 1 with
+    the reason, writing nothing and training no step."""
+    from singa_tpu_torch import CheckpointManager
+    from singa_tpu_torch.utils.checkpoint import OrbaxUnreadableError
+    saved = sys.modules.get("tensorstore", "absent")
+    if hidden:
+        sys.modules["tensorstore"] = None
+    try:
+        mgr = CheckpointManager(ws, log_fn=lambda m: None)
+        steps = mgr.available_steps()
+        for name, call in (("restore", mgr.restore),
+                           ("latest_step", mgr.latest_step)):
+            try:
+                call()
+            except OrbaxUnreadableError as e:
+                msg = str(e)
+            else:
+                raise AssertionError(f"{name} did not refuse")
+        tr = ckpt_trainer(dev)
+        try:
+            tr.resume(*tr.init(seed=0), ws)
+        except OrbaxUnreadableError:
+            pass
+        else:
+            raise AssertionError("Trainer.resume did not refuse")
+    finally:
+        if hidden:
+            if saved == "absent":
+                del sys.modules["tensorstore"]
+            else:
+                sys.modules["tensorstore"] = saved
+    before = sorted(os.listdir(mgr.dir))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", HIDE_TENSORSTORE, "" if dev == "cuda" else dev,
+         "-model_conf", CKPT_CONF, "--synthetic", "--steps",
+         str(orbax_step + 4), "--workspace", ws, "--resume"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    text = res.stdout + res.stderr
+    assert res.returncode == 1, (res.returncode, text[-3000:])
+    expect_in(res.stderr, "error: workspace", "tensorstore",
+              f"[{orbax_step}]")
+    for absent in ("starting from scratch", "training done", "Traceback",
+                   "step-"):
+        assert absent not in text, (absent, text[-3000:])
+    assert sorted(os.listdir(mgr.dir)) == before
+    return {"steps": steps, "msg": msg, "cli_wall": wall,
+            "cli_err": res.stderr.strip().splitlines()[-1]}
+
+
+def ckpt_roundtrip(dev, ws, ts):
+    """18b (tensorstore imports): a step the phase writes in orbax's
+    layout with tensorstore restores equal to what was written, and the
+    CLI's --resume takes it up and trains on."""
+    from singa_tpu_torch import CheckpointManager
+    from singa_tpu_torch.utils.checkpoint import _to_numpy
+    tr = ckpt_trainer(dev)
+    params, opt = tr.init(seed=3)
+    state = {"params": {k: _to_numpy(v) for k, v in params.items()},
+             "opt_state": {s: {k: _to_numpy(v) for k, v in d.items()}
+                           for s, d in opt.items()},
+             "step": np.asarray(CKPT_STEPS * 3, np.int64)}
+    t0 = time.perf_counter()
+    orbax_step_dir(os.path.join(ws, "checkpoints"), CKPT_STEPS * 3, state,
+                   ts=ts)
+    write_s = time.perf_counter() - t0
+    mgr = CheckpointManager(ws, log_fn=lambda m: None)
+    t0 = time.perf_counter()
+    p, o, step = mgr.restore()
+    read_s = time.perf_counter() - t0
+    assert step == CKPT_STEPS * 3, step
+    for k, v in state["params"].items():
+        assert np.array_equal(p[k], v), k
+    for s in state["opt_state"]:
+        for k, v in state["opt_state"][s].items():
+            assert np.array_equal(o[s][k], v), (s, k)
+    code, text = run_main(["-model_conf", CKPT_CONF, "--synthetic",
+                           "--steps", str(CKPT_STEPS * 4), "--workspace", ws,
+                           "--resume"], dev)
+    assert code == 0, text[-3000:]
+    expect_in(text, f"resumed from step {CKPT_STEPS * 3}", "training done")
+    assert mgr.latest_step() == CKPT_STEPS * 4
+    return {"write_s": write_s, "read_s": read_s,
+            "nbytes": sum(a.nbytes for _, a in flat_state(state))}
+
+
+def phase_ckpt(dev):
+    """Phase 18: a workspace holding an npz step beside an orbax step
+    directory is never taken for one without snapshots."""
+    import shutil
+    import tempfile
+    from singa_tpu_torch import CheckpointManager
+    from singa_tpu_torch.ops import _kernels
+    _kernels.reset_launches()
+    ts = tensorstore_module()
+    log(f"[ckpt] 18 tensorstore imports here: {ts is not None}")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(REPO, "build"))
+    try:
+        ws = os.path.join(tmp, "ws")
+        code, text = run_main(["-model_conf", CKPT_CONF, "--synthetic",
+                               "--steps", str(CKPT_STEPS), "--workspace", ws],
+                              dev)
+        assert code == 0, text[-3000:]
+        orbax = CKPT_STEPS * 2
+        orbax_step_dir(os.path.join(ws, "checkpoints"), orbax)
+        got = CheckpointManager(ws, log_fn=lambda m: None).available_steps()
+        assert got == [CKPT_STEPS, orbax], got
+        for hidden in ([True] if ts is not None else [False]):
+            r = ckpt_refused(dev, ws, orbax, hidden)
+            log(f"[ckpt] 18a npz step {CKPT_STEPS} beside orbax step "
+                f"{orbax} (tensorstore "
+                f"{'taken out of sys.modules' if hidden else 'absent'}): "
+                f"steps listed {r['steps']}; restore, latest_step and "
+                f"Trainer.resume raise OrbaxUnreadableError ({r['msg']!r}); "
+                f"the CLI's --resume exits 1 in {r['cli_wall']:.3f} s wall "
+                f"({r['cli_err']!r}), no step trained, nothing written")
+        if ts is not None:
+            shutil.rmtree(os.path.join(ws, "checkpoints", str(orbax)))
+            r = ckpt_roundtrip(dev, ws, ts)
+            log(f"[ckpt] 18b an orbax step written with tensorstore "
+                f"({r['nbytes'] / 1e6:.3f} MB in {r['write_s']:.3f} s) "
+                f"restores equal to the bit in {r['read_s']:.3f} s; the "
+                f"CLI's --resume takes it up and trains to step "
+                f"{CKPT_STEPS * 4}")
+        else:
+            log("[ckpt] 18b skipped: tensorstore does not import here, so "
+                "no orbax step can be written or read on this machine")
+        log(f"[ckpt] phase 18's launches (lm_tiny.conf's CLI runs): "
+            f"{dict(_kernels.LAUNCHES)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: training over several processes sharing the card
+
+DP_STEPS = 20           # 19a's CLI runs of conv.conf
+DP_TIMED = 20           # 19b's timed steps
+DP_LOSS_RTOL = 1e-4
+DP_PARAM_RTOL = 1e-4    # of each param's largest magnitude
+DRS_STEPS = 77          # mlp.conf: syncs at 60, 68, 76
+DRS_ATOL = 1e-6
+DIST_WAIT = 600.0
+DIST_CHILD = """
+import json, sys, time
+import numpy as np
+import torch
+mode, pid, hostfile, out, dev = sys.argv[1:6]
+pid = int(pid)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from singa_tpu_torch.parallel.bootstrap import distributed_init
+t0 = time.perf_counter()
+assert distributed_init(pid, hostfile)
+init_s = time.perf_counter() - t0
+from singa_tpu_torch import Trainer, load_model_config
+from singa_tpu_torch.data import discover_input_shapes, resolve_data_source
+model = load_model_config(sys.argv[6])
+shapes = discover_input_shapes(model, force_synthetic=True)
+bs = next(l for l in model.neuralnet.layer
+          if l.type == "kShardData").data_param.batchsize
+res = {"init_s": init_s}
+def sync():
+    if dev == "cuda":
+        torch.cuda.synchronize()
+if mode == "dp":
+    from singa_tpu_torch.parallel.mesh import make_mesh
+    from singa_tpu_torch.parallel.partition import DataParallel
+    dp = DataParallel(make_mesh())
+    tr = Trainer(model, shapes, device=dev, log_fn=lambda m: None, dp=dp)
+    it = resolve_data_source(model, bs, seed=0, force_synthetic=True)[0]
+    batches = [next(it) for _ in range(4)]
+    p, o = tr.init(seed=0)
+    p, o, m = tr.train_step(p, o, batches[0], 0)
+    sync()
+    dp.seconds, dp.calls = 0.0, 0
+    t0 = time.perf_counter()
+    for s in range(1, int(sys.argv[7]) + 1):
+        p, o, m = tr.train_step(p, o, batches[s % 4], s)
+    float(m["loss"])
+    sync()
+    res.update(step_ms=(time.perf_counter() - t0) * 1e3 / int(sys.argv[7]),
+               exchange_ms=dp.seconds * 1e3 / dp.calls, calls=dp.calls,
+               graphs=tr.graphs, digest=dp.agree(p),
+               nbytes=sum(v.numel() * 4 for v in p.values()))
+    # the exchange alone, the card idle: staged (a gradient-sized f32
+    # buffer to the host, all-reduced, back), then gloo alone
+    import torch.distributed as dist
+    n = sum(v.numel() for v in p.values())
+    flat, host = torch.ones(n, device=dev), torch.ones(n)
+    for name, fn in (("staged_ms", lambda: dp.mean([flat])),
+                     ("gloo_ms", lambda: dist.all_reduce(host))):
+        fn()
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        sync()
+        res[name] = (time.perf_counter() - t0) * 1e3 / 20
+else:
+    from singa_tpu_torch.parallel.elastic import DistributedReplicaSet
+    tr = Trainer(model, shapes, device=dev, log_fn=lambda m: None)
+    drs = DistributedReplicaSet(tr, seed=0)
+    it = resolve_data_source(model, bs, seed=0, force_synthetic=True,
+                             stream_seed=1000 * (pid + 1))[0]
+    t0 = time.perf_counter()
+    center, hist = drs.run(it, int(sys.argv[7]), seed=0)
+    sync()
+    res.update(wall_s=time.perf_counter() - t0, graphs=tr.graphs,
+               gather_ms=drs.gather_seconds * 1e3 / max(drs.gathers, 1),
+               gathers=drs.gathers, losses=[h["loss"] for h in hist],
+               poisoned=drs.poisoned_rounds, skipped=drs.skipped_rounds)
+    np.savez(f"{out}/center_{pid}.npz",
+             **{k: v.cpu().numpy() for k, v in center.items()})
+    np.savez(f"{out}/replica_{pid}.npz",
+             **{k: v.cpu().numpy() for k, v in drs.params.items()})
+with open(f"{out}/{mode}_{pid}.json", "w") as f:
+    json.dump(res, f)
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def two_line_hostfile(tmp, name):
+    """Two distinct lines on this machine, the first the coordinator on a
+    free port (a duplicate host is refused by `parse_hostfile`)."""
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        f.write(f"127.0.0.1:{free_port()}\nlocalhost\n")
+    return path
+
+
+def run_group(cmds, tmp, tag):
+    """Start every command of `cmds` at once (one process each, sharing
+    the card); wait for all; return their outputs.  Every process is
+    stopped before this returns."""
+    env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE="0")
+    for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                "JAX_PROCESS_ID"):
+        env.pop(var, None)
+    logs = [open(os.path.join(tmp, f"{tag}_{i}.log"), "w+")
+            for i in range(len(cmds))]
+    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=lg,
+                              stderr=subprocess.STDOUT, text=True)
+             for c, lg in zip(cmds, logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=DIST_WAIT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for p, lg in zip(procs, logs):
+        lg.seek(0)
+        outs.append(lg.read())
+        lg.close()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-6000:], file=sys.stderr)
+        assert p.returncode == 0, (tag, i, p.returncode)
+    return outs
+
+
+def display_losses(text):
+    return [float(m) for m in re.findall(r"step-\d+: .*?loss : ([-\d.]+)",
+                                         text)]
+
+
+def dist_cli(dev, tmp):
+    """19a: conv.conf at its shipped width through `python -m
+    singa_tpu_torch.main` with a 2-line hostfile and `data_parallel: 2`,
+    against the single-process CLI on the same global batches."""
+    from singa_tpu_torch import CheckpointManager
+    conf = conf_copy(tmp, MNIST_CONF, "conv_dp.conf",
+                     [("display_frequency: 100", "display_frequency: 1")])
+    cluster = os.path.join(tmp, "dp2.conf")
+    with open(cluster, "w") as f:
+        f.write("data_parallel: 2\n")
+    hf = two_line_hostfile(tmp, "hostfile_cli")
+    common = ["-model_conf", conf, "--synthetic", "--steps", str(DP_STEPS)]
+    t0 = time.perf_counter()
+    outs = run_group([main_cmd(dev) + common + [
+        "-cluster_conf", cluster, "--workspace", os.path.join(tmp, "ws_dp"),
+        "-hostfile", hf, "-procsID", str(i)] for i in range(2)], tmp,
+        "cli_dp")
+    dp_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = run_group([main_cmd(dev) + common + [
+        "--workspace", os.path.join(tmp, "ws_one")]], tmp, "cli_one")[0]
+    one_wall = time.perf_counter() - t0
+    want = display_losses(single)
+    assert len(want) == DP_STEPS, single[-3000:]
+    gaps = []
+    for out in outs:
+        expect_in(out, "mesh: {'data': 2", "training done",
+                  "data-parallel ranks agree")
+        got = display_losses(out)
+        assert len(got) == DP_STEPS, out[-3000:]
+        gaps.append(max(abs(a - b) / abs(b) for a, b in zip(got, want)))
+        assert gaps[-1] <= DP_LOSS_RTOL, (got, want)
+    digests = [re.search(r"params sha256 (\w+)", o).group(1) for o in outs]
+    assert digests[0] == digests[1], digests
+    one = CheckpointManager(os.path.join(tmp, "ws_one")).restore()
+    two = CheckpointManager(os.path.join(tmp, "ws_dp")).restore()
+    assert one[2] == two[2] == DP_STEPS, (one[2], two[2])
+    worst = 0.0
+    for k, v in one[0].items():
+        top = float(np.abs(v).max()) or 1.0
+        worst = max(worst, float(np.abs(two[0][k] - v).max()) / top)
+    assert worst <= DP_PARAM_RTOL, worst
+    exch = re.search(r"(\d+) exchanges, ([\d.]+) ms in all", outs[0])
+    return {"dp_wall": dp_wall, "one_wall": one_wall, "loss_gap": max(gaps),
+            "param_gap": worst, "digest": digests[0][:16],
+            "exchanges": int(exch.group(1)),
+            "exchange_ms": float(exch.group(2)) / max(int(exch.group(1)), 1)}
+
+
+def dist_child(mode, conf, steps, tmp, dev):
+    hf = two_line_hostfile(tmp, f"hostfile_{mode}")
+    child = os.path.join(tmp, "dist_child.py")
+    with open(child, "w") as f:
+        f.write(DIST_CHILD)
+    t0 = time.perf_counter()
+    run_group([[sys.executable, child, mode, str(i), hf, tmp, dev, conf,
+                str(steps)] for i in range(2)], tmp, mode)
+    wall = time.perf_counter() - t0
+    res = []
+    for i in range(2):
+        with open(os.path.join(tmp, f"{mode}_{i}.json")) as f:
+            res.append(json.load(f))
+    return res, wall
+
+
+def single_steps_ms(dev, conf, graphs, n=DP_TIMED):
+    """A single-process step of `conf` on the same 4 batches as 19b's
+    children, replayed (`graphs` None) or eager."""
+    from singa_tpu_torch.data import resolve_data_source
+    tr = mlp_trainer(dev, conf, graphs=graphs)
+    bs = next(l for l in tr.cfg.neuralnet.layer
+              if l.type == "kShardData").data_param.batchsize
+    it = resolve_data_source(tr.cfg, bs, seed=0, force_synthetic=True)[0]
+    batches = [next(it) for _ in range(4)]
+    p, o = tr.init(seed=0)
+    p, o, m = tr.train_step(p, o, batches[0], 0)
+    sync(dev)
+    t0 = time.perf_counter()
+    for s in range(1, n + 1):
+        p, o, m = tr.train_step(p, o, batches[s % 4], s)
+    float(m["loss"])
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / n, tr.graphs
+
+
+def dist_drs(dev, tmp, param_type, steps, mlp=MLP_CONF):
+    """19c: mlp.conf at its shipped width under `DistributedReplicaSet`
+    with 2 processes, against the in-process `ReplicaSet` on the card on
+    the same seeds and streams."""
+    from singa_tpu_torch.parallel.elastic import ReplicaSet
+    conf = conf_copy(tmp, mlp, f"mlp_{param_type}.conf",
+                     [("updater {\n",
+                       f'updater {{\n  param_type: "{param_type}"\n')])
+    res, wall = dist_child("drs", conf, steps, tmp, dev)
+    centers = [dict(np.load(os.path.join(tmp, f"center_{i}.npz")))
+               for i in range(2)]
+    reps = [dict(np.load(os.path.join(tmp, f"replica_{i}.npz")))
+            for i in range(2)]
+    for k in centers[0]:
+        assert np.array_equal(centers[0][k], centers[1][k]), k
+    tr = mlp_trainer(dev, conf, ngroups=2)
+    rs = ReplicaSet(tr, 2, seed=0)
+    iters = [mlp_stream(tr, stream_seed=1000 * (g + 1)) for g in range(2)]
+    try:
+        center, hist = rs.run(iters, steps, seed=0)
+    finally:
+        for it in iters:
+            it.close()
+    gap = max(float(np.abs(centers[0][k] - center[k].cpu().numpy()).max())
+              for k in center)
+    rgap = max(float(np.abs(reps[g][k] - rs.replicas[g]["params"][k]
+                            .cpu().numpy()).max())
+               for g in range(2) for k in center)
+    equal = gap == 0.0 and rgap == 0.0
+    assert gap <= DRS_ATOL and rgap <= DRS_ATOL, (gap, rgap)
+    for g in range(2):
+        assert res[g]["poisoned"] == 0 and res[g]["skipped"] == 0, res[g]
+        np.testing.assert_allclose(res[g]["losses"],
+                                   [h["loss"] for h in hist[g]],
+                                   rtol=1e-5)
+    return {"wall": wall, "gap": gap, "rgap": rgap, "equal": equal,
+            "init_s": [r["init_s"] for r in res],
+            "gather_ms": [r["gather_ms"] for r in res],
+            "gathers": res[0]["gathers"], "graphs": res[0]["graphs"],
+            # RandomSync gathers each replica's snapshot beside it
+            "nbytes": sum(v.nbytes for v in centers[0].values())
+            * (2 if param_type == "RandomSync" else 1),
+            "run_s": [r["wall_s"] for r in res]}
+
+
+def phase_dist(dev, conf=MNIST_CONF, mlp=MLP_CONF, drs_steps=DRS_STEPS):
+    """Phase 19; the arguments cut it down for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+    from singa_tpu_torch.ops import _kernels
+    _kernels.reset_launches()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="dist_", dir=os.path.join(REPO, "build"))
+    try:
+        a = dist_cli(dev, tmp)
+        log(f"[dist] 19a conv.conf (batch 64, shipped width), {DP_STEPS} "
+            f"steps through python -m singa_tpu_torch.main: 2 processes "
+            f"(-hostfile, data_parallel: 2) in {a['dp_wall']:.3f} s wall, "
+            f"one process in {a['one_wall']:.3f} s wall (process starts "
+            f"included); per-step losses (as the CLI prints them, 6 "
+            f"decimals) within {a['loss_gap']:.3g} relative of the "
+            f"single-process run's (tol {DP_LOSS_RTOL}); "
+            f"final params within {a['param_gap']:.3g} of each param's "
+            f"largest magnitude (tol {DP_PARAM_RTOL}); both ranks' params "
+            f"equal (sha256 {a['digest']}...); {a['exchanges']} gradient "
+            f"exchanges, {a['exchange_ms']:.3f} ms each (host staging "
+            f"included)")
+        res, wall = dist_child("dp", conf, DP_TIMED, tmp, dev)
+        replayed, graphs = single_steps_ms(dev, conf, None)
+        eager, _ = single_steps_ms(dev, conf, False)
+        log(f"[dist] 19b process group start (distributed_init, gloo, "
+            f"2 processes): {', '.join(f'{r['init_s'] * 1e3:.1f}' for r in res)} ms")
+        log(f"[dist] 19b conv.conf data-parallel step (eager, graphs "
+            f"{res[0]['graphs']}), 2 processes on one card: "
+            f"{', '.join(f'{r['step_ms']:.3f}' for r in res)} ms, of which "
+            f"the gradient exchange (all-reduce of "
+            f"{res[0]['nbytes'] / 1e6:.3f} MB through the host) {', '.join(f'{r['exchange_ms']:.3f}' for r in res)}"
+            f" ms; one process: {replayed:.3f} ms replayed (graphs "
+            f"{graphs}), {eager:.3f} ms eager (batch 64, mean of "
+            f"{DP_TIMED})")
+        log(f"[dist] 19b the exchange alone, the card idle (20 calls): "
+            f"staged through the host "
+            f"{', '.join(f'{r['staged_ms']:.3f}' for r in res)} ms, the "
+            f"gloo all-reduce of the host buffer alone "
+            f"{', '.join(f'{r['gloo_ms']:.3f}' for r in res)} ms")
+        assert res[0]["digest"] == res[1]["digest"]
+        for param_type in ("Elastic", "RandomSync"):
+            d = dist_drs(dev, tmp, param_type, drs_steps, mlp)
+            log(f"[dist] 19c mlp.conf (batch 1000, shipped width) x "
+                f"{param_type}, DistributedReplicaSet of 2 processes, "
+                f"{drs_steps} steps (graphs {d['graphs']}) in "
+                f"{', '.join(f'{s:.3f}' for s in d['run_s'])} s: centers "
+                f"equal across the processes; against the in-process "
+                f"ReplicaSet max |center gap| {d['gap']:.3g}, max |replica "
+                f"gap| {d['rgap']:.3g} (tol {DRS_ATOL}; equal: "
+                f"{d['equal']}); {d['gathers']} exchanges of "
+                f"{d['nbytes'] / 1e6:.1f} MB a process, all-gathered "
+                f"through the host "
+                f"{', '.join(f'{x:.3f}' for x in d['gather_ms'])} ms each; "
+                f"group start {', '.join(f'{x * 1e3:.1f}' for x in d['init_s'])} ms")
+        assert not any(_kernels.LAUNCHES.values()), _kernels.LAUNCHES
+        log("[dist] phase 19: 0 launches of K1-K6 on these paths")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5306,6 +5930,10 @@ def main() -> int:
     took("phase 16")
     phase_elastic(dev)
     took("phase 17")
+    phase_ckpt(dev)
+    took("phase 18")
+    phase_dist(dev)
+    took("phase 19")
 
     kernels = []
     for name, res, replaces in (

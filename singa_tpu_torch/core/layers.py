@@ -73,7 +73,10 @@ class Context:
     the layer's place in the topological order; `device` is the params'
     device.  `generators` (layer index → generator) are the caller's
     own, already seeded for this step (the trainer's, which a CUDA graph
-    replays)."""
+    replays).  `shard` is (index, n) when the batch is one of n equal
+    slices of a global batch (data parallelism): a layer that draws over
+    the batch draws the global batch's numbers and keeps its slice
+    (`global_rows`)."""
     batch: Dict[str, Any]
     train: bool
     compute_dtype: Optional[torch.dtype] = None
@@ -82,6 +85,15 @@ class Context:
     step: Optional[int] = None
     device: Optional[torch.device] = None
     generators: Optional[Dict[int, torch.Generator]] = None
+    shard: Optional[Tuple[int, int]] = None
+
+    def global_rows(self, b: int) -> Tuple[int, int]:
+        """(rows to draw, first row of this slice) for a local batch of
+        `b` rows: (b, 0) unless the batch is a slice."""
+        if self.shard is None:
+            return b, 0
+        index, n = self.shard
+        return b * n, index * b
 
     def layer_rng(self) -> torch.Generator:
         """This layer's generator at this step, seeded from (rng, step,
@@ -233,7 +245,9 @@ class MnistImageLayer(Layer):
                 and (ctx.step is None or self.step_variant(ctx.step)
                      is not False)):
             from ..ops.augment import elastic_deform
-            x = elastic_deform(x, ctx.layer_rng(), **self.distort)
+            x = elastic_deform(x, ctx.layer_rng(),
+                               rows=ctx.global_rows(x.shape[0]),
+                               **self.distort)
         x = x / self.norm_a - self.norm_b
         return _cast(x, ctx.compute_dtype)
 
@@ -319,12 +333,14 @@ class RGBImageLayer(Layer):
         crop = bool(cs and (h > cs or w > cs))
         gen = (ctx.layer_rng() if ctx.train and (self.mirror or crop)
                else None)
+        # the draws of the global batch, this slice's rows of them
+        gb, lo = ctx.global_rows(b)
         if crop:
             if ctx.train:
-                oh = torch.randint(0, max(h - cs, 1), (b,), generator=gen,
-                                   device=x.device)
-                ow = torch.randint(0, max(w - cs, 1), (b,), generator=gen,
-                                   device=x.device)
+                oh = torch.randint(0, max(h - cs, 1), (gb,), generator=gen,
+                                   device=x.device)[lo:lo + b]
+                ow = torch.randint(0, max(w - cs, 1), (gb,), generator=gen,
+                                   device=x.device)[lo:lo + b]
                 ar = torch.arange(cs, device=x.device)
                 rows = (oh[:, None] + ar)[:, :, None]
                 cols = (ow[:, None] + ar)[:, None, :]
@@ -334,7 +350,8 @@ class RGBImageLayer(Layer):
                 oh, ow = (h - cs) // 2, (w - cs) // 2
                 x = x[:, oh:oh + cs, ow:ow + cs]
         if self.mirror and ctx.train:
-            flip = torch.rand((b,), generator=gen, device=x.device) < 0.5
+            flip = torch.rand((gb,), generator=gen,
+                              device=x.device)[lo:lo + b] < 0.5
             x = torch.where(flip[:, None, None, None], x.flip(2), x)
         x = x * self.scale
         return _cast(x.contiguous(), ctx.compute_dtype)
@@ -515,7 +532,8 @@ class DropoutLayer(Layer):
     def apply(self, params, srcs, ctx):
         if not ctx.train or self.rate <= 0.0:
             return srcs[0]
-        return dropout.dropout(srcs[0], self.rate, ctx.layer_rng())
+        return dropout.dropout(srcs[0], self.rate, ctx.layer_rng(),
+                               rows=ctx.global_rows(srcs[0].shape[0]))
 
 
 # ---------------------------------------------------------------------------

@@ -194,7 +194,8 @@ class NeuralNet:
               compute_dtype: Optional[torch.dtype] = None,
               rng: Optional[int] = None, step: Optional[int] = None,
               generators: Optional[Dict[int, torch.Generator]] = None,
-              layer_subset: Optional[List[str]] = None
+              layer_subset: Optional[List[str]] = None,
+              shard: Optional[Tuple[int, int]] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                          Dict[str, Any]]:
         """Run the net on the params' device.  Returns (total_loss,
@@ -206,7 +207,9 @@ class NeuralNet:
         index → generator) replaces a drawing layer's own with the
         caller's, which the caller has seeded.  `layer_subset` runs only
         the named layers (in topological order; a prefix of the net, as
-        the CD trainer's).  A layer that leaves an
+        the CD trainer's).  `shard` (index, n) marks `batch` as one of n
+        slices of a global batch: layers that draw over the batch keep
+        this slice's rows of the global draw.  A layer that leaves an
         auxiliary loss in `_aux` (kMoE) adds it to total_loss and to
         metrics as "<layer>/aux"."""
         if train is None:
@@ -232,7 +235,7 @@ class NeuralNet:
             ctx = Context(batch=batch, train=train,
                           compute_dtype=compute_dtype, rng=rng,
                           layer_index=idx, step=step, device=dev,
-                          generators=generators)
+                          generators=generators, shard=shard)
             out = layer.apply(full, srcs, ctx)
             outputs[name] = out
             aux = getattr(layer, "_aux", None)

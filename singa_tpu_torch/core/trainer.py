@@ -68,6 +68,15 @@ steps.  The center is not checkpointed: it seeds lazily from the first
 post-warmup params of the process, so a resumed run seeds it anew.
 Several replica groups train through `parallel.elastic.ReplicaSet`.
 
+Data parallelism over processes (`dp=`, a `parallel.partition.
+DataParallel`): every rank is handed the same global batch, trains on
+its slice of dim 0 (drawing layers keep their rows of the global draw)
+and averages the gradients and the step's metrics over the data axis
+through gloo before the update, so every rank applies the same update.
+A gloo collective cannot be captured, so such a trainer's train step
+runs eagerly; evaluation runs the whole global batch on every rank, and
+only rank 0 writes checkpoints.
+
 Not ported yet (ROADMAP.md A9): pipeline nets.
 """
 
@@ -182,7 +191,7 @@ class Trainer:
                  log_fn: Optional[Callable[[str], None]] = None,
                  device: DeviceLike = None, seed: int = 0,
                  graphs: Optional[bool] = None, health=None,
-                 ngroups: int = 1):
+                 ngroups: int = 1, dp=None):
         """`seed` seeds the per-step generators of the layers that draw
         (see `Context.layer_rng`); params come from `init(seed)`.
 
@@ -202,13 +211,31 @@ class Trainer:
         on CUDA, eagerly on the CPU.  True: as replays, or raise (on the
         CPU).  False: eagerly.  A capture that fails raises
         `CaptureError`; nothing falls back to eager steps.  `self.graphs`
-        holds the choice."""
+        holds the choice.
+
+        `dp` (a `parallel.partition.DataParallel` over more than one
+        process) trains on this rank's slice of each global batch and
+        averages gradients and metrics over the data axis; its train step
+        runs eagerly (a gloo collective cannot be captured), so `graphs`
+        must not be True, and the net must not compute over the whole
+        batch at once (`parallel.partition.batch_coupling`)."""
         self.cfg = model_cfg
         self.seed = seed
         self.health = health
         self.log = log_fn if log_fn is not None \
             else (lambda msg: print(f"[trainer] {msg}", flush=True))
         self.device = resolve_device(device)
+        self.dp = dp if dp is not None and dp.n > 1 else None
+        if self.dp is not None and graphs:
+            raise ValueError("graphs=True cannot capture the data-parallel "
+                             "step: its gloo collective runs on the host")
+        if self.dp is not None:
+            from ..parallel.partition import batch_coupling
+            coupled = batch_coupling(model_cfg)
+            if coupled:
+                raise ValueError(f"data parallelism over "
+                                 f"{'; '.join(coupled)} is not in the port "
+                                 f"yet (ROADMAP.md A9)")
         self.compute_dtype = (torch.bfloat16
                               if model_cfg.precision == "bfloat16" else None)
         self.train_net = build_net(model_cfg, "kTrain", input_shapes)
@@ -220,7 +247,7 @@ class Trainer:
         self.elastic = (ElasticController(model_cfg.updater, ngroups,
                                           log_fn=self.log)
                         if async_active(model_cfg.updater) else None)
-        self.graphs = self._pick_graphs(graphs)
+        self.graphs = self._pick_graphs(False if self.dp else graphs)
         # one generator per drawing layer of the train net, keyed by its
         # topological index, seeded before every step (`_seed_layers`)
         self._gens = {i: torch.Generator(device=self.device)
@@ -338,9 +365,11 @@ class Trainer:
         self._seed_layers(step)
         return self._grads(params, batch, step)[:2]
 
-    def _grads(self, params, batch, step: Optional[int]) -> tuple:
+    def _grads(self, params, batch, step: Optional[int],
+               shard=None) -> tuple:
         """`gradients` with the generators as they stand, and the layer
-        outputs: (metrics, grads, outputs)."""
+        outputs: (metrics, grads, outputs).  `shard` (index, n) marks
+        `batch` as a slice of the global batch."""
         names = sorted(params)
         tensors = [params[k] for k in names]
         for p in tensors:
@@ -350,7 +379,7 @@ class Trainer:
                 loss, metrics, outputs = self.train_net.apply(
                     params, batch, train=True,
                     compute_dtype=self.compute_dtype, rng=self.seed,
-                    step=step, generators=self._gens)
+                    step=step, generators=self._gens, shard=shard)
             grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         finally:
             for p in tensors:
@@ -362,14 +391,24 @@ class Trainer:
               poison: Optional[float] = None):
         """Forward, backward and the update of the step last written by
         `Updater.set_step`, drawing from the generators as seeded: the
-        device work of one train step, eager or captured.  `poison` (a
+        device work of one train step, eager or captured.  Under `dp`
+        the global `batch` is sliced here and the gradients and metrics
+        are averaged over the data axis before the update.  `poison` (a
         `step.grad` fault's scale) multiplies the gradients first.  With a
         health monitor the metrics gain the probes, over a copy of the
         params taken before the update (the updater writes them in
         place)."""
-        metrics, grads, _ = self._grads(params, batch, step)
+        if self.dp is None:
+            metrics, grads, _ = self._grads(params, batch, step)
+        else:
+            # this rank's slice of the global batch; the mean over the
+            # data axis of the slices' gradients is the global batch's
+            metrics, grads, _ = self._grads(params, self.dp.shard(batch),
+                                            step, shard=self.dp.shard_spec)
         grads = {k: g if g is not None else torch.zeros_like(params[k])
                  for k, g in grads.items()}
+        if self.dp is not None:
+            grads, metrics = self.dp.mean_dict(grads, metrics)
         if poison is not None:
             grads = {k: g * poison for k, g in grads.items()}
         old = None
@@ -718,6 +757,7 @@ class Trainer:
         pending: List[tuple] = []
         staged_credit = [0.0]
         saved = None
+        stopped = False     # by a signal, here or on another rank
         # the newest chunk's last batch, for the debug step and the
         # phase profile; the end of the last drained chunk's fetch
         last_batch = [None]
@@ -767,11 +807,14 @@ class Trainer:
         try:
             while step < cfg.train_steps:
                 faults.maybe_fault("step.train")
-                if interrupted:
+                if self._interrupt(interrupted):
                     drain()   # hooks and logs of every trained step first
-                    self.log(f"signal {interrupted[0]} received: "
-                             f"checkpointing at step {step} and stopping")
+                    who = (f"signal {interrupted[0]} received"
+                           if interrupted else "another rank got a signal")
+                    self.log(f"{who}: checkpointing at step {step} and "
+                             f"stopping")
                     self._save_checkpoint(ckpt, step, params, opt_state)
+                    stopped = True
                     break
                 if self.val_step and self.validate_now(step) \
                         and val_iter_factory:
@@ -869,10 +912,13 @@ class Trainer:
         # the final snapshot, unless the cadence just wrote it: a second
         # save of that step would record the verdict of an empty window
         # ("ok") over the one it holds
-        if (ckpt is not None and not interrupted
+        if (ckpt is not None and not (interrupted or stopped)
                 and cfg.train_steps > start_step
                 and saved != cfg.train_steps):
             self._save_checkpoint(ckpt, cfg.train_steps, params, opt_state)
+        if self.dp is not None:
+            # rank 0's snapshots are on disk before any rank returns
+            self.dp.barrier()
         return params, opt_state, history
 
     # -- contrastive divergence (`:1125-1247`) ------------------------------
@@ -1145,11 +1191,16 @@ class Trainer:
         manager of `run`, and SIGTERM/SIGINT handlers that note the
         signal, installed only on the main thread.  Pair with
         `_ckpt_unguard(old_handlers)`."""
+        saving = bool(workspace) and self.cfg.checkpoint_frequency > 0
         ckpt = (CheckpointManager(workspace, log_fn=self.log)
-                if workspace and self.cfg.checkpoint_frequency > 0 else None)
+                # every rank holds the same state: rank 0 writes it
+                if saving and (self.dp is None or self.dp.rank == 0)
+                else None)
         interrupted: List[int] = []
         old_handlers: Dict[Any, Any] = {}
-        if ckpt is not None:
+        # under dp every rank notes a signal, and `_interrupt` stops them
+        # all at one step, where rank 0 saves
+        if saving:
             import signal
 
             def on_signal(signum, frame):
@@ -1161,6 +1212,14 @@ class Trainer:
                 except ValueError:   # not the main thread: no handlers
                     break
         return ckpt, interrupted, old_handlers
+
+    def _interrupt(self, interrupted: List[int]) -> bool:
+        """Whether to checkpoint and stop before the next step: a signal
+        noted here, or under `dp` on any rank of the group (one flag
+        all-reduced per step), so every rank stops at the same step."""
+        if self.dp is None:
+            return bool(interrupted)
+        return self.dp.any(bool(interrupted))
 
     @staticmethod
     def _ckpt_unguard(old_handlers) -> None:
@@ -1177,18 +1236,28 @@ class Trainer:
         snapshot's params and optimizer slots must match the net's and
         the updater's.  `skip_unhealthy` walks back past snapshots whose
         recorded health verdict is not "ok" (the Supervisor's divergence
-        rescue)."""
+        rescue).  Under `dp` the ranks must resume one state, as from one
+        shared workspace (only rank 0 writes checkpoints): a rank that
+        took up another step or other values raises RuntimeError on
+        every rank, naming each rank's step."""
         restored = CheckpointManager(workspace, log_fn=self.log).restore(
             skip_unhealthy=skip_unhealthy)
         if restored is None:
-            return params, opt_state, 0
-        rp, ro, step = restored
-        if set(ro) != set(opt_state):
-            raise ValueError(f"snapshot optimizer slots {sorted(ro)} != "
-                             f"this updater's {sorted(opt_state)}")
-        return (params_from_numpy(self.train_net, rp, device=self.device),
-                opt_state_from_numpy(self.train_net, ro, device=self.device),
-                step)
+            out = params, opt_state, 0
+        else:
+            rp, ro, step = restored
+            if set(ro) != set(opt_state):
+                raise ValueError(f"snapshot optimizer slots {sorted(ro)} != "
+                                 f"this updater's {sorted(opt_state)}")
+            out = (params_from_numpy(self.train_net, rp, device=self.device),
+                   opt_state_from_numpy(self.train_net, ro,
+                                        device=self.device),
+                   step)
+        if self.dp is not None:
+            self.dp.agree(out[0], out[1], step=out[2],
+                          what=f" on resuming from {workspace} (every "
+                          f"rank must see the one workspace rank 0 writes)")
+        return out
 
 
 def _own(state: Dict[str, Any], params, opt_state=None) -> Dict[str, Any]:

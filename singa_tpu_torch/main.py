@@ -29,10 +29,10 @@ Serving (the `serve` subcommand, `:163-371`, with `_obs_enable`
 
 builds the inference net from the model config, serves the latest
 healthy checkpoint of the workspace (npz, written by either package's
-`CheckpointManager`) on the card, follows the workspace (hot reload),
-and serves /generate, /predict, /stats, /metrics, /healthz, /trace and
-/admin/reload over stdlib HTTP and, with `--wire`, the binary framed
-transport.  With `cb=on` in the serve spec, /generate runs continuous
+`CheckpointManager`, or the JAX package's orbax step) on the card,
+follows the workspace (hot reload), and serves /generate, /predict,
+/stats, /metrics, /healthz, /trace and /admin/reload over stdlib HTTP
+and, with `--wire`, the binary framed transport.  With `cb=on` in the serve spec, /generate runs continuous
 batching over a paged KV cache and streams tokens when the request body
 carries `"stream": true`.  `--smoke N` serves N synthetic in-process
 requests, prints the stats snapshot as JSON and exits.
@@ -64,10 +64,30 @@ promoted to traffic; `--smoke N` drives N in-process requests while it
 trains, waits for blessed == served, prints the pipeline's snapshot and
 exits 0 (1 on a failed request, a failed training or a lag left).
 
-The CLI runs on the card and has no device flag; `main(argv,
-device="cpu")` is the Python entry that runs it on the CPU.  What the
-port does not have yet exits 2, naming its ROADMAP.md item: `-procsID`
-and `-hostfile` (A9).
+Several processes (`_run`, `:758-797`): the reference's launch,
+
+    python -m singa_tpu_torch.main -model_conf conv.conf \
+        -cluster_conf cluster.conf -hostfile hostfile -procsID $i
+
+joins one gloo process group per run (`parallel/bootstrap.py`; the
+first hostfile line is the coordinator, `start_port` its port unless
+the line says `host:port`; a one-line hostfile is a single-process
+run).  With more than one process the cluster config's data axis
+(`data_parallel: N`, or the legacy worker groups under kDataPartition
+or kNone) spans the group: every process builds the same global batch
+and trains on its slice, gradients averaged over the group
+(`parallel/partition.py`).  Only rank 0 writes checkpoints, so the
+processes must share one workspace: `--resume` fails on every rank,
+naming each rank's step, where the ranks took up different states.
+
+A workspace holding orbax steps that cannot be read here (no
+`tensorstore`) ends any subcommand with exit 1 and the reason, never a
+run from step 0.  The CLI runs on the card and has no device flag;
+`main(argv, device="cpu")` is the Python entry that runs it on the CPU.
+What the port does not have yet exits 2, naming its ROADMAP.md item: a
+cluster config that asks for a tensor, pipeline, sequence or expert
+axis above 1, and a data axis above 1 under a net that computes over
+the whole batch at once (a kMoE layer, contrastive divergence) (A9).
 """
 
 from __future__ import annotations
@@ -94,11 +114,10 @@ def make_argparser() -> argparse.ArgumentParser:
     ap.add_argument("-model_conf", "--model_conf", required=True)
     ap.add_argument("-cluster_conf", "--cluster_conf", default=None)
     ap.add_argument("-procsID", "--procsID", type=int, default=0,
-                    help="multi-process runs: not in the port yet "
-                         "(ROADMAP.md A9)")
+                    help="this process's id in a -hostfile launch")
     ap.add_argument("-hostfile", "--hostfile", default=None,
-                    help="multi-host runs: not in the port yet "
-                         "(ROADMAP.md A9)")
+                    help="one host[:port] per line, the first the "
+                         "coordinator; one line per process")
     ap.add_argument("-v", type=int, default=0, help="verbosity (glog style)")
     ap.add_argument("--synthetic", action="store_true",
                     help="use a synthetic learnable dataset (no egress env)")
@@ -726,14 +745,21 @@ def _pipeline_smoke(ctl, net, args, log) -> int:
 def main(argv=None, device: DeviceLike = None) -> int:
     """Training, or the `serve` or `pipeline` subcommand.  `device` is for Python
     callers (tests pass 'cpu'); the command line runs on the card."""
+    from .utils.checkpoint import OrbaxUnreadableError
+    try:
+        return _main(argv, device)
+    except OrbaxUnreadableError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+
+def _main(argv, device: DeviceLike) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "serve":
         return serve_main(argv[1:], device=device)
     if argv and argv[0] == "pipeline":
         return pipeline_main(argv[1:], device=device)
     args = make_argparser().parse_args(argv)
-    if args.hostfile or args.procsID:
-        return _lacking("-procsID/-hostfile (multi-process runs)", "A9")
     from .utils.faults import FaultSchedule, inject
     schedule = (FaultSchedule.parse(args.fault_spec, seed=args.seed)
                 if args.fault_spec else None)
@@ -761,6 +787,30 @@ def _run(args, device: DeviceLike) -> int:
     model = load_model_config(args.model_conf)
     cluster = (load_cluster_config(args.cluster_conf)
                if args.cluster_conf else None)
+    from .parallel.mesh import unported_axes
+    ptype = model.neuralnet.partition_type if model.neuralnet else "kNone"
+    lacking = unported_axes(cluster, ptype)
+    if lacking:
+        return _lacking(f"a cluster config with {lacking} (tensor, "
+                        f"pipeline, sequence or expert parallelism)", "A9")
+    # the multi-process bootstrap comes before any device is chosen:
+    # -procsID/-hostfile are the reference's launch (run.sh:20-37)
+    joined = False
+    if args.hostfile:
+        from .parallel.bootstrap import DEFAULT_PORT, distributed_init
+        port = cluster.start_port if cluster else DEFAULT_PORT
+        joined = distributed_init(args.procsID, args.hostfile, port=port)
+        if joined:
+            log(f"process group joined: process {args.procsID}")
+    try:
+        return _train(args, device, model, cluster, ptype, log)
+    finally:
+        if joined:
+            from .parallel.bootstrap import distributed_shutdown
+            distributed_shutdown()
+
+
+def _train(args, device: DeviceLike, model, cluster, ptype, log) -> int:
     if args.steps is not None:
         model.train_steps = args.steps
     dev = resolve_device(device)
@@ -794,16 +844,35 @@ def _run(args, device: DeviceLike) -> int:
         log("warning: --health_spec given with --health off; the "
             "monitor is disabled and the spec only configures the "
             "supervisor's divergence policy")
+    # the mesh over the group's processes, when there are several: its
+    # data axis splits every global batch (the JAX CLI's mesh over the
+    # devices, `:788-797`)
+    from .parallel.bootstrap import process_count
+    dp = None
+    from .parallel.elastic import async_active
+    async_multi = ngroups > 1 and async_active(model.updater)
+    if process_count() > 1:
+        from .parallel.mesh import mesh_from_cluster
+        from .parallel.partition import DataParallel
+        mesh = mesh_from_cluster(cluster, ptype)
+        log(f"mesh: {mesh.shape} over {mesh.size} processes")
+        if async_multi:
+            log("warning: mesh sharding is not supported on the "
+                "multi-group async simulation path; ignoring")
+        else:
+            from .parallel.partition import batch_coupling
+            coupled = batch_coupling(model)
+            if mesh.shape["data"] > 1 and coupled:
+                return _lacking(f"data parallelism over "
+                                f"{'; '.join(coupled)}", "A9")
+            dp = DataParallel(mesh)
     trainer = Trainer(model, input_shapes, log_fn=obs.get_logger("trainer"),
                       device=dev, seed=args.seed, health=health,
-                      ngroups=ngroups)
+                      ngroups=ngroups, dp=dp)
     trainer.phase_profile = args.phase_profile
     reg = obs.registry()
     if reg is not None and health is not None:
         health.register_into(reg)
-
-    from .parallel.elastic import async_active
-    async_multi = ngroups > 1 and async_active(model.updater)
 
     workspace = args.workspace or (cluster.workspace if cluster else None)
     # an explicit --workspace is a request to checkpoint: default to a
@@ -883,13 +952,18 @@ def _run(args, device: DeviceLike) -> int:
                     "starting from scratch")
         train_iter = make_train_iter()
         try:
-            trainer.run(params, opt_state, train_iter,
-                        test_iter_factory=test_factory, seed=args.seed,
-                        start_step=start_step, workspace=workspace,
-                        scan_chunk=args.scan_chunk, feeder=feeder_flag,
-                        feeder_depth=args.feeder_depth)
+            params, _, _ = trainer.run(
+                params, opt_state, train_iter,
+                test_iter_factory=test_factory, seed=args.seed,
+                start_step=start_step, workspace=workspace,
+                scan_chunk=args.scan_chunk, feeder=feeder_flag,
+                feeder_depth=args.feeder_depth)
         finally:
             train_iter.close()
+        if dp is not None:
+            log(f"data-parallel ranks agree: params sha256 "
+                f"{dp.agree(params)} (rank {dp.rank} of {dp.n}); "
+                f"{dp.calls} exchanges, {dp.seconds * 1e3:.3f} ms in all")
     final = trainer.perf.to_string()
     log("training done" + (f": {final}" if final else
                            f" at step {model.train_steps}"))

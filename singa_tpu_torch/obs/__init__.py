@@ -37,10 +37,10 @@ a Chrome trace JSON (Perfetto-loadable next to the device traces that
 dumps (`flightrec.py`); `collect.py` merges per-process buffers into
 one fleet trace.  See docs/OBSERVABILITY.md.
 
-The port's own copy of `singa_tpu/obs/__init__.py`.  The port has no
-pipeline yet (ROADMAP.md A10); its Supervisor, trainer, feeder,
-checkpoints and serving tier (engine, scheduler, batcher, server, wire,
-router, fleet, autoscaler) report through this layer.
+The port's own copy of `singa_tpu/obs/__init__.py`.  Its Supervisor,
+trainer, feeder, checkpoints, train-and-serve pipeline
+(`core/pipeline.py`) and serving tier (engine, scheduler, batcher,
+server, wire, router, fleet, autoscaler) report through this layer.
 """
 
 from __future__ import annotations

@@ -123,13 +123,17 @@ def _bilinear(x: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor
 
 def elastic_deform(x: torch.Tensor, generator: torch.Generator, *,
                    kernel: int = 0, sigma: float = 0.0, alpha: float = 0.0,
-                   beta: float = 0.0, gamma: float = 0.0) -> torch.Tensor:
+                   beta: float = 0.0, gamma: float = 0.0,
+                   rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Random elastic and affine deformation of a (B, H, W) f32 batch,
     drawn from `generator` (rotation, scales, then dx and dy).  All
-    strengths zero gives the identity."""
+    strengths zero gives the identity.  `rows` (global rows, first row)
+    draws for a global batch and keeps x's rows (x is one slice under
+    data parallelism)."""
     b, h, w = x.shape
-    rot, sc, dx, dy = elastic_draws(b, h, w, generator, x.device,
-                                    kernel=kernel, alpha=alpha, beta=beta,
-                                    gamma=gamma)
+    gb, lo = rows if rows is not None else (b, 0)
+    draws = elastic_draws(gb, h, w, generator, x.device, kernel=kernel,
+                          alpha=alpha, beta=beta, gamma=gamma)
+    rot, sc, dx, dy = (None if d is None else d[lo:lo + b] for d in draws)
     return elastic_warp(x, rot, sc, dx, dy, kernel=kernel, sigma=sigma,
                         alpha=alpha)

@@ -12,9 +12,14 @@ f32 and casts back, as the JAX code does, through `avg_pool2d` with
 clipped window by fewer than k·k).  Pools run on the NCHW view of the
 NHWC activation, which is channels_last in memory.
 
-The JAX package's tie-exact `_max_pool_nhwc` vjp (`:60-125`) is a test
-oracle there, not its production path; autograd's max-pool backward here
-is the counterpart of its select-and-scatter.
+MAX's backward is autograd's (`F.max_pool2d`'s), the counterpart of the
+JAX package's select-and-scatter: each window's gradient goes to one
+position, the first maximum in the window's row-major order, on ties too
+(a ReLU's zeros tie often).  `max_pool_tie_exact` is the port of the JAX
+package's tie-exact `_max_pool_nhwc` (`:60-127`), mshadow's
+`unpool<red::maximum>` (tensor_expr_ext.h:148-163): every tied maximum
+of a window receives the window's whole gradient.  As there, it is an
+oracle for tests of tie semantics, not the production path.
 """
 
 from __future__ import annotations
@@ -56,3 +61,46 @@ def avg_pool2d(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     xc = _padded_nchw(x.float(), kernel, stride, 0.0)
     s = F.avg_pool2d(xc, kernel, stride, divisor_override=1)
     return (s * (1.0 / (kernel * kernel))).to(x.dtype).permute(0, 2, 3, 1)
+
+
+class _TieExactMaxPool(torch.autograd.Function):
+    """The equality-mask vjp of `_max_pool_nhwc`: a tap loop over the
+    window, each tap adding the gradient where its input equals its
+    window's maximum (taps in row-major order, as the JAX loops add
+    them)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, stride):
+        y = max_pool2d(x, kernel, stride)
+        ctx.save_for_backward(x, y)
+        ctx.geometry = (kernel, stride)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        kernel, stride = ctx.geometry
+        h, w = x.shape[1], x.shape[2]
+        oh_full, ow_full = y.shape[1], y.shape[2]
+        yx = y.to(x.dtype)
+        dx = torch.zeros_like(x, dtype=g.dtype)
+        for ki in range(kernel):
+            # windows whose tap ki lands inside the unpadded input
+            oh = min(oh_full, (h - 1 - ki) // stride + 1)
+            hi = ki + (oh - 1) * stride + 1
+            for kj in range(kernel):
+                ow = min(ow_full, (w - 1 - kj) // stride + 1)
+                wj = kj + (ow - 1) * stride + 1
+                xs = x[:, ki:hi:stride, kj:wj:stride, :]
+                hit = xs == yx[:, :oh, :ow, :]
+                dx[:, ki:hi:stride, kj:wj:stride, :] += torch.where(
+                    hit, g[:, :oh, :ow, :], torch.zeros((), dtype=g.dtype,
+                                                        device=g.device))
+        return dx, None, None
+
+
+def max_pool_tie_exact(x: torch.Tensor, kernel: int,
+                       stride: int) -> torch.Tensor:
+    """`max_pool2d` whose backward routes a window's gradient to EVERY
+    tied maximum (the JAX `_max_pool_nhwc`); x (N, H, W, C)."""
+    return _TieExactMaxPool.apply(x, kernel, stride)

@@ -24,7 +24,11 @@ is split in two: `randomsync_masks` draws the masks from an explicit
 controller's `_fallback_rng` folds its key), `randomsync_apply` applies
 given masks, so a test can feed it the masks JAX draws.
 
-`DistributedReplicaSet` (one replica per process) is ROADMAP.md A9.
+`DistributedReplicaSet` (`:432-734`) runs the same tier over real
+transport: one replica per process of a `torch.distributed` group
+(`parallel/bootstrap.py`), the replicas all-gathered over gloo (staged
+through the host), and every process applying the same sequential
+center chain as `ReplicaSet`, so no coordinator can fail.
 """
 
 from __future__ import annotations
@@ -460,3 +464,204 @@ class ReplicaSet:
     @property
     def center(self) -> Optional[Tree]:
         return self.controllers[0].center
+
+
+class DistributedReplicaSet:
+    """The async consistency tier over real transport: one replica per
+    process of the group, the role the reference's ZMQ worker<->server
+    delta push/pull played (param_manager.cc:100-153,
+    server.cc:45-214).
+
+    Trajectory-exact with `ReplicaSet` on the same seeds: an exchange
+    all-gathers every replica (and, for RandomSync, its snapshot) over
+    the group, staged through the host, and every process applies the
+    same sequential center chain `ReplicaSet` applies (replica 0 first,
+    then 1, ...), with the same lazy center init (the first post-warmup
+    sync seeds the center from replica 0, which skips its own exchange
+    that step, and the others exchange against it with zero-delta
+    snapshots), the same per-replica RandomSync snapshots and the same
+    masks (`mask_generator` seeded from (seed, step, replica)).  Every
+    process holds the same center, so no coordinator can fail.
+
+    An exchange commits all at once: the chain runs on copies, and the
+    params (in place: a trainer's graphs own them), the snapshot and the
+    center change only after it finished, so a failure mid-exchange
+    leaves all three as they were.  With `validate`, a round in which
+    any replica's contribution is non-finite (or, with
+    `delta_max_norm`, further from the center than that) is rejected on
+    every process alike (`poisoned_rounds`); a failed exchange is
+    retried and then skipped (`sync_with_retries`, `skipped_rounds`)."""
+
+    def __init__(self, trainer, seed: int = 0,
+                 bandwidth_mb_s: float = 0.0, nservers: int = 1,
+                 validate: bool = True, delta_max_norm: float = 0.0):
+        from .bootstrap import process_count, process_index
+        self.trainer = trainer
+        self.proc = process_index()
+        self.ngroups = process_count()
+        cfg = trainer.cfg.updater
+        self.cfg = cfg
+        self.alpha = easgd_alpha(cfg, self.ngroups)
+        self.mode = cfg.param_type
+        self.seed = seed
+        self.center: Optional[Tree] = None
+        self.snapshot: Optional[Tree] = None
+        self.sample_ratio = 1.0
+        self.bandwidth_mb_s = bandwidth_mb_s
+        self.nservers = max(nservers, 1)
+        self.params, self.opt = trainer.init(seed=seed)
+        self.sync_retries = 3
+        self.skipped_rounds = 0
+        self.validate = validate
+        self.delta_max_norm = delta_max_norm
+        self.poisoned_rounds = 0
+        # seconds in the all-gather (host staging included), and calls
+        self.gather_seconds = 0.0
+        self.gathers = 0
+
+    def _sync_now(self, step: int) -> bool:
+        return sync_now(self.cfg, step)
+
+    def _gather(self, trees):
+        """Every process's `trees` (flat dicts of this process's tensors,
+        all with the first one's keys and shapes), as a list over the
+        processes in rank order, on this process's device: one host
+        all-gather of one packed f32 buffer."""
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        keys = sorted(trees[0])
+        flat = torch.cat([t[k].detach().reshape(-1).float()
+                          for t in trees for k in keys]).cpu()
+        if self.ngroups > 1:
+            parts = [torch.empty_like(flat) for _ in range(self.ngroups)]
+            dist.all_gather(parts, flat)
+        else:
+            parts = [flat]
+        dev = trees[0][keys[0]].device
+        out = []
+        for part in parts:
+            d = part.to(dev)
+            off, got = 0, []
+            for t in trees:
+                tree = {}
+                for k in keys:
+                    n = t[k].numel()
+                    tree[k] = d[off:off + n].view(t[k].shape).to(t[k].dtype)
+                    off += n
+                got.append(tree)
+            out.append(got)
+        self.gather_seconds += time.perf_counter() - t0
+        self.gathers += 1
+        return out
+
+    def _exchange(self, rs, center, ss, step: int, init: bool):
+        """The sequential center chain over the gathered replicas `rs`
+        (and snapshots `ss`, RandomSync), on tensors of this call's own:
+        returns (replicas, center, snapshots)."""
+        if init:
+            center = _copy(rs[0])
+            if self.mode == "RandomSync":
+                ss = [_copy(r) for r in rs]
+        else:
+            center = _copy(center)
+        for g in range(1 if init else 0, self.ngroups):
+            if self.mode == "RandomSync":
+                gen = mask_generator(fold_in(self.seed ^ 0xA57, step, g),
+                                     next(iter(rs[g].values())).device)
+                randomsync_update(rs[g], center, ss[g], self.sample_ratio,
+                                  gen)
+            else:
+                elastic_update(rs[g], center, self.alpha)
+        return rs, center, ss
+
+    def _sync(self, step: int) -> bool:
+        """One center exchange.  Returns False when the round was
+        rejected by delta validation (a poisoned contribution: counted,
+        nothing changed), True otherwise."""
+        init = self.center is None
+        contrib = _poisoned_contrib(self.params, maybe_fault("sync.delta"))
+        local = [contrib]
+        if self.mode == "RandomSync":
+            local.append(self.snapshot if self.snapshot is not None
+                         else self.params)
+        gathered = self._gather(local)
+        rs = [g[0] for g in gathered]
+        ss = [g[1] for g in gathered] if self.mode == "RandomSync" else None
+        if self.validate:
+            # on the init round a "delta" is the raw params: only the
+            # finiteness leg applies there
+            checks = [delta_health(r, None if init else self.center,
+                                   max_norm=0.0 if init
+                                   else self.delta_max_norm) for r in rs]
+            bad = [g for g, (ok, _) in enumerate(checks) if not ok]
+            if bad:
+                self.poisoned_rounds += 1
+                self.trainer.log(
+                    f"warning: poisoned sync delta at step {step} from "
+                    f"replica(s) {bad} (delta norms "
+                    f"{[checks[g][1] for g in bad]}); rejecting exchange "
+                    f"— center untouched")
+                return False
+        rs, center, ss = self._exchange(rs, self.center, ss, step, init)
+        # -- the commit: nothing above changed this process's state --
+        with torch.no_grad():
+            for k, v in rs[self.proc].items():
+                self.params[k].copy_(v)
+        if self.mode == "RandomSync":
+            self.snapshot = ss[self.proc]
+        self.center = center
+        return True
+
+    def run(self, data_iter, steps: int, seed: int = 0,
+            hooks: Optional[list] = None):
+        """Train this process's replica for `steps` steps with center
+        exchanges at the UpdaterProto cadence.  Returns (center,
+        history), history being this replica's metrics."""
+        tr = self.trainer
+        g = self.proc
+        history = []
+        warmup = self.cfg.warmup_steps
+        t_warm = None
+        saved_seed = tr.seed
+        # this replica's draws, as `ReplicaSet` folds the group in
+        tr.seed = fold_in(seed ^ 0xA57, g)
+        try:
+            for step in range(steps):
+                # warmup timing for the bandwidth model; every process
+                # must agree on one ratio, so the per-process times are
+                # averaged over the group
+                if step == 1 and warmup > 1:
+                    t_warm = time.perf_counter()
+                if (step == warmup and t_warm is not None
+                        and self.bandwidth_mb_s > 0):
+                    per_step = (time.perf_counter() - t_warm) / (warmup - 1)
+                    t = torch.tensor([per_step], dtype=torch.float64)
+                    per_step = float(torch.stack(
+                        [x[0]["t"] for x in self._gather([{"t": t}])]
+                    ).mean())
+                    size = sum(v.numel() for v in self.params.values())
+                    self.sample_ratio = sync_sample_ratio(
+                        self.bandwidth_mb_s, self.nservers, self.ngroups,
+                        size, per_step)
+                self.params, self.opt, m = tr.train_step(
+                    self.params, self.opt, next(data_iter), step)
+                metrics = {k: float(v) for k, v in m.items()}
+                if self._sync_now(step):
+                    # every process makes the same skip/retry decision (a
+                    # failed collective raises on all of them, and the
+                    # seeded backoff keys on `step`), or the next
+                    # exchange would deadlock
+                    try:
+                        sync_with_retries(lambda: self._sync(step),
+                                          attempts=self.sync_retries,
+                                          log=tr.log, step=step)
+                    except SyncRoundSkipped as e:
+                        self.skipped_rounds += 1
+                        tr.log(f"warning: skipping sync round at step "
+                               f"{step} ({e}); replica continues un-synced")
+                history.append(metrics)
+                for h in hooks or ():
+                    h(step, g, metrics)
+        finally:
+            tr.seed = saved_seed
+        return self.center, history

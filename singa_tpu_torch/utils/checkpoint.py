@@ -1,20 +1,32 @@
-"""Checkpoint / resume on npz snapshots.
+"""Checkpoint / resume: npz snapshots, and the JAX package's orbax steps.
 
-Port of the no-orbax path of `singa_tpu/utils/checkpoint.py`, byte for
-byte in its format: `workspace/checkpoints/step_<N>.npz` holds the
-flattened {params, opt_state, step} triple under `|`-joined keys
-(`params|attn0/wq`, `opt_state|history|attn0/wq`, `step`), written to a
-tmp file, fsynced and renamed into place; `MANIFEST.json` records each
-snapshot's size and sha256 and is itself written atomically;
+Port of `singa_tpu/utils/checkpoint.py`.  The port writes the no-orbax
+format of that module byte for byte: `workspace/checkpoints/step_<N>.npz`
+holds the flattened {params, opt_state, step} triple under `|`-joined
+keys (`params|attn0/wq`, `opt_state|history|attn0/wq`, `step`), written
+to a tmp file, fsynced and renamed into place; `MANIFEST.json` records
+each snapshot's size and sha256 and is itself written atomically;
 `LAYOUT_VERSION` stamps the parameter layout, before the first
 snapshot shows (the JAX package stamps it after the manifest record, so
 a reader in between refuses its first save: fault C6).  So a snapshot
-that either package writes on this path restores in the other.  A workspace written
-by the JAX package through orbax (step directories) is not readable
-here.
+that either package writes on this path restores in the other.
+
+It also reads the steps the JAX package writes through orbax, its
+default where `orbax.checkpoint` imports: a digit-named directory
+holding `_CHECKPOINT_METADATA` (orbax writes it last, the JAX
+`_finalized` rule), whose `default/_METADATA` lists every leaf's key
+path; a leaf is a zarr array at the key path joined with `.` under the
+step's ocdbt kvstore, read with `tensorstore` alone (no JAX).  Such a
+step's health verdict sits in the manifest under the bare step
+(`"7"`).  `available_steps` lists both kinds, and a workspace holding
+both restores the newest step of either.  Where `tensorstore` does not
+import, a workspace holding an orbax step is never skipped in silence:
+`latest_step` and `restore` raise `OrbaxUnreadableError`.
 
 `restore` verifies the snapshot against the manifest and walks back to
-the previous good one past any corrupt, partial or unreadable snapshot;
+the previous good one past any corrupt or partial snapshot (on an orbax
+step, torn bytes; a step whose metadata it does not understand raises
+`OrbaxUnreadableError` rather than being skipped);
 with `skip_unhealthy` it also walks back past any snapshot whose health
 verdict in the manifest is not "ok" (a snapshot without one counts as
 ok).  `save(..., health=)` records a verdict: the Trainer writes the
@@ -22,12 +34,12 @@ health monitor's (`core/trainer.py`) and the serving engine reads them
 (`serve/engine.py`).  Saves and restores run inside the `ckpt.save` and
 `ckpt.restore` spans and consult their fault sites; the `torn` kind at
 `ckpt.save` truncates the renamed snapshot to half and records no
-manifest entry, a save that "succeeded" with garbage on disk.  Orbax,
-which needs JAX, is the one part of the JAX module not here.
+manifest entry, a save that "succeeded" with garbage on disk.
 
 Snapshots hold numpy arrays: `save` takes tensors or arrays (moved to
-the host; bf16 tensors are stored as f32) and `restore` returns numpy,
-which the caller places (`Trainer.resume`).
+the host; bf16 tensors are stored as f32) and `restore` returns numpy
+(an orbax step's bf16 leaves widened to f32, which holds every bf16
+value exactly), which the caller places (`Trainer.resume`).
 """
 
 from __future__ import annotations
@@ -54,6 +66,32 @@ _MANIFEST = "MANIFEST.json"
 
 class LayoutMismatchError(RuntimeError):
     pass
+
+
+class OrbaxUnreadableError(RuntimeError):
+    """The workspace holds orbax steps (the JAX package's default
+    format) that cannot be read here: `tensorstore`, which reads them,
+    does not import, or a step's metadata describes a tree this reader
+    does not understand (a sequence key, a leaf kept in the metadata)."""
+
+
+class OrbaxTornStepError(OSError):
+    """An orbax step whose bytes are torn: its `_METADATA` does not
+    parse, or tensorstore fails to read a leaf.  `restore` walks back
+    past it, as past a torn npz snapshot."""
+
+
+# what a torn or partial npz snapshot raises on its way to the arrays
+_NPZ_TORN = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
+
+
+def _tensorstore():
+    """The `tensorstore` module, or None where it does not import."""
+    try:
+        import tensorstore
+    except ImportError:
+        return None
+    return tensorstore
 
 
 def _sha256_file(path: str) -> str:
@@ -162,8 +200,13 @@ class CheckpointManager:
     def health_verdict(self, step: int) -> Optional[str]:
         """The health verdict recorded at save time ("ok" / "spike" /
         "diverged" / "nonfinite"), or None for a snapshot saved without
-        one (treated as ok by the `skip_unhealthy` walk-back)."""
-        entry = self._read_manifest().get(f"step_{step}.npz")
+        one (treated as ok by the `skip_unhealthy` walk-back).  An npz
+        snapshot's record is keyed by its file name, an orbax step's by
+        the bare step."""
+        man = self._read_manifest()
+        entry = man.get(f"step_{step}.npz")
+        if entry is None:
+            entry = man.get(str(step))
         if not isinstance(entry, dict):
             return None
         health = entry.get("health")
@@ -228,21 +271,54 @@ class CheckpointManager:
         self._manifest_record(step, path, health=health)
 
     # -- listing -----------------------------------------------------------
+    def _is_orbax(self, step: int) -> bool:
+        """Whether `step` is a finished orbax step directory: digit-named,
+        holding `_CHECKPOINT_METADATA`, which orbax writes last (a
+        directory without it is a save in flight or the wreck of a
+        writer that died mid-save, and is not listed).  A step that is
+        also an npz snapshot is read from the npz."""
+        return (os.path.isfile(os.path.join(self.dir, str(step),
+                                            "_CHECKPOINT_METADATA"))
+                and not os.path.exists(
+                    os.path.join(self.dir, f"step_{step}.npz")))
+
     def available_steps(self) -> List[int]:
-        """All snapshot steps on disk, ascending (readable or not —
-        restore decides).  Never raises against a live writer: a listing
-        that fails returns the previous one (counted in `torn_polls`)."""
+        """All snapshot steps on disk, npz snapshots and finished orbax
+        step directories, ascending (readable or not — restore decides).
+        Never raises against a live writer: a listing that fails returns
+        the previous one (counted in `torn_polls`)."""
         try:
-            steps = sorted(int(f[5:-4]) for f in os.listdir(self.dir)
-                           if f.startswith("step_") and f.endswith(".npz"))
+            steps = set()
+            for f in os.listdir(self.dir):
+                if f.startswith("step_") and f.endswith(".npz"):
+                    steps.add(int(f[5:-4]))
+                elif f.isdigit() and self._is_orbax(int(f)):
+                    steps.add(int(f))
+            steps = sorted(steps)
         except (OSError, ValueError):
             self.torn_polls += 1
             return list(self._last_steps)
         self._last_steps = steps
         return steps
 
+    def _require_reader(self, steps: List[int]) -> None:
+        """Raise `OrbaxUnreadableError` when `steps` hold an orbax step
+        and `tensorstore` does not import: such a workspace is never
+        taken for one without snapshots."""
+        orbax = [s for s in steps if self._is_orbax(s)]
+        if orbax and _tensorstore() is None:
+            raise OrbaxUnreadableError(
+                f"workspace {os.path.dirname(self.dir)} holds orbax "
+                f"checkpoint step(s) {orbax}, written by the JAX package; "
+                f"reading them needs the `tensorstore` package, which does "
+                f"not import here")
+
     def latest_step(self) -> Optional[int]:
+        """The newest step on disk, or None.  Raises
+        `OrbaxUnreadableError` when the workspace holds an orbax step
+        that cannot be read here."""
         steps = self.available_steps()
+        self._require_reader(steps)
         return steps[-1] if steps else None
 
     def fingerprint(self) -> tuple:
@@ -278,7 +354,8 @@ class CheckpointManager:
         one.  A torn snapshot (truncated, no record to come) is not in
         flight: the poll goes on, and restore walks past it."""
         steps = self.available_steps()
-        if not steps:
+        if not steps or self._is_orbax(steps[-1]):
+            # an orbax step shows once it is finished
             return False
         name = f"step_{steps[-1]}.npz"
         man = self._read_manifest()
@@ -294,10 +371,12 @@ class CheckpointManager:
                 skip_unhealthy: bool = False
                 ) -> Optional[Tuple[Dict, Dict, int]]:
         """(params, opt_state, step) as numpy dicts from the latest (or
-        the latest <= `step`) restorable snapshot, else None.  A corrupt
-        or partial snapshot is logged and skipped: the next older one is
-        tried.  With `skip_unhealthy`, so is a snapshot whose recorded
-        health verdict is not "ok"."""
+        the latest <= `step`) restorable snapshot, npz or orbax, else
+        None.  A corrupt or partial snapshot is logged and skipped: the
+        next older one is tried.  With `skip_unhealthy`, so is a snapshot
+        whose recorded health verdict is not "ok".  Raises
+        `OrbaxUnreadableError` when the steps hold an orbax step and
+        `tensorstore` does not import."""
         with obs.span("ckpt.restore",
                       skip_unhealthy=skip_unhealthy) as sp:
             out = self._restore(step, skip_unhealthy)
@@ -312,6 +391,7 @@ class CheckpointManager:
             steps = [s for s in steps if s <= step]
         if not steps:
             return None
+        self._require_reader(steps)
         self._check_version()
         faults.maybe_fault("ckpt.restore")
         for s in reversed(steps):
@@ -322,11 +402,14 @@ class CheckpointManager:
                              f"verdict {verdict!r}; skipping to the "
                              f"previous snapshot")
                     continue
+            # an orbax step walks back only on torn bytes: a tree it
+            # does not understand raises OrbaxUnreadableError
+            torn = (OrbaxTornStepError,) if self._is_orbax(s) else _NPZ_TORN
             try:
                 return self._restore_one(s)
-            except (OSError, ValueError, KeyError, EOFError,
-                    zipfile.BadZipFile) as e:
-                # checksum mismatch, a torn zip or member, a missing key
+            except torn as e:
+                # checksum mismatch, a torn zip, member or zarr chunk, a
+                # missing key
                 self.log(f"warning: checkpoint step {s} is corrupt or "
                          f"partial ({type(e).__name__}: {e}); skipping "
                          f"to the previous snapshot")
@@ -335,6 +418,9 @@ class CheckpointManager:
         return None
 
     def _restore_one(self, step: int) -> Tuple[Dict, Dict, int]:
+        if self._is_orbax(step):
+            state = _read_orbax(os.path.join(self.dir, str(step)))
+            return state["params"], state["opt_state"], int(state["step"])
         path = self._verify(step)
         if path is None:
             raise IOError(f"snapshot step_{step}.npz missing or checksum "
@@ -342,6 +428,74 @@ class CheckpointManager:
         with np.load(path) as data:
             state = _unflatten({k: data[k] for k in data.files})
         return state["params"], state["opt_state"], int(state["step"])
+
+
+def _read_orbax(stepdir: str) -> Dict[str, Any]:
+    """The state tree of an orbax step directory, as numpy: each leaf of
+    `default/_METADATA`'s `tree_metadata` is a zarr array at its key path
+    joined with `.`, under the ocdbt kvstore of `default/` (or a plain
+    file kvstore where the step was written without ocdbt).  bf16
+    leaves come back as `ml_dtypes.bfloat16` arrays, which torch cannot
+    take: they are widened to f32, which holds each of them exactly.
+    Torn bytes (a `_METADATA` that does not parse, a leaf tensorstore
+    fails to read) raise `OrbaxTornStepError`; a tree this reader does
+    not understand, `OrbaxUnreadableError`."""
+    ts = _tensorstore()
+    if ts is None:
+        raise OrbaxUnreadableError(
+            f"{stepdir} is an orbax step; reading it needs the "
+            f"`tensorstore` package, which does not import here")
+    base = os.path.join(stepdir, "default") + os.sep
+    try:
+        with open(os.path.join(base, "_METADATA")) as f:
+            meta = json.load(f)
+    except (OSError, ValueError) as e:
+        raise OrbaxTornStepError(f"{stepdir}: default/_METADATA does not "
+                                 f"read ({type(e).__name__}: {e})") from e
+
+    def unreadable(why):
+        return OrbaxUnreadableError(f"{stepdir} is an orbax step this "
+                                    f"reader does not understand: {why}")
+    tree = meta.get("tree_metadata") if isinstance(meta, dict) else None
+    if not isinstance(tree, dict):
+        raise unreadable("default/_METADATA has no tree_metadata")
+    driver = "zarr3" if meta.get("use_zarr3") else "zarr"
+    root: Dict[str, Any] = {}
+    for entry in tree.values():
+        keys = [k.get("key") for k in entry.get("key_metadata", ())]
+        if not keys or any(k.get("key_type") != 2
+                           for k in entry["key_metadata"]):
+            raise unreadable(f"leaf {keys} is not under dict keys alone")
+        value = entry.get("value_metadata", {})
+        if (value.get("value_type") not in ("jax.Array", "np.ndarray")
+                or value.get("skip_deserialize")):
+            raise unreadable(f"leaf {keys} is a {value.get('value_type')!r}"
+                             f" value, not an array in the kvstore")
+        keys = [str(k) for k in keys]
+        name = ".".join(keys) + "/"
+        if meta.get("use_ocdbt", True):
+            kvstore = {"driver": "ocdbt",
+                       "base": {"driver": "file", "path": base},
+                       "path": name}
+        else:
+            kvstore = {"driver": "file", "path": base + name}
+        try:
+            arr = np.asarray(ts.open({"driver": driver,
+                                      "kvstore": kvstore},
+                                     open=True).result().read().result())
+        except ValueError as e:      # tensorstore's error on a read
+            raise OrbaxTornStepError(f"{stepdir}: leaf {name} does not "
+                                     f"read ({e})") from e
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
+        d = root
+        for k in keys[:-1]:
+            d = d.setdefault(k, {})
+        d[keys[-1]] = arr
+    missing = {"params", "opt_state", "step"} - set(root)
+    if missing:
+        raise unreadable(f"the tree lacks {sorted(missing)}")
+    return root
 
 
 def _flatten(prefix: str, tree) -> Dict[str, Any]:

@@ -7,8 +7,10 @@ lm_tiny.conf and on a shard-backed copy of mlp.conf, both from the same
 step-0 snapshot (`--resume`): both exit 0, each package restores the
 other's workspace, and the final params agree; `--phase_profile`'s
 device split on the `Time per step` lines; and the exit of what the
-port does not have yet (2, naming the ROADMAP.md item: `-procsID` and
-`-hostfile`; the `pipeline` subcommand runs since slice 15,
+port does not have yet (2, naming the ROADMAP.md item: a cluster config
+asking for tensor, sequence, pipeline or expert parallelism; `-procsID`
+and `-hostfile` run since slice 16, `tests/test_torch_distributed.py`,
+and the `pipeline` subcommand since slice 15,
 `tests/test_torch_pipeline.py`).  On a
 machine without a card the CLI raises rather than running on the
 CPU."""
@@ -70,7 +72,8 @@ def test_serve_smoke_matches_the_jax_cli(spec, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-model_conf", CONF, "-procsID", "1", "-hostfile", "h"], "A9"),
+    (["-model_conf", CONF, "-cluster_conf",
+      os.path.join(os.path.dirname(CONF), "cluster.conf")], "A9"),
 ])
 def test_what_the_port_lacks_exits_2_naming_the_roadmap_item(
         argv, item, capsys):

@@ -228,9 +228,13 @@ def test_moe_scheduler_matches_jax_scheduler(moe_nets):
     at decode), submitted before `start()` so that admission runs in
     one order on both sides: slots join, retire and sit idle in the
     same steps, and every answer equals the JAX scheduler's token for
-    token."""
+    token.  Each request's deadline is the test's own 60 s wait: the
+    spec's default of 5 s runs from `submit`, before the JAX side
+    compiles its programs in the loop, and on a loaded machine that
+    compile alone outlasted it (requests retired with "deadline")."""
     jnet, jparams, tnet, tparams = moe_nets
-    text = "buckets=2x16,max_new_tokens=12,cb=on,cb_slots=3,cb_block_len=4"
+    text = ("buckets=2x16,max_new_tokens=12,cb=on,cb_slots=3,cb_block_len=4,"
+            "request_timeout_s=60")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, VOCAB, n).astype(np.int32)
                for n in (1, 5, 9, SEQ, 3, 7)]

@@ -8,7 +8,10 @@ into the port by `params_from_numpy`.  Tolerances, each with its reason:
   magnitude — the same f32 math, convolutions and window sums summed in
   another order by another library;
 - three kSGD steps: params within 1e-5 (plus 1e-5 relative) — the same
-  f32 update on gradients that agree to ~1e-6.
+  f32 update on gradients that agree to ~1e-6;
+- MAX pooling's gradients on ReLU-tied inputs, the production backward
+  and the tie-exact oracle: equal to the bit — each routes the same
+  cotangent entries to the same positions.
 The random layers (dropout, the RGB crop and mirror) cannot draw JAX's
 threefry bits, so they are checked by their statistics and invariants.
 """
@@ -274,6 +277,82 @@ def test_pool_geometry_and_values_match_jax(mode, kernel, stride):
                          tpool.pooled_size(8, kernel, stride), 3)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _relu_tied(shape, seed):
+    """ReLU of a normal draw less 1: 84% of the entries are 0, so windows
+    tie (an all-zero window ties everywhere)."""
+    x = np.random.default_rng(seed).standard_normal(shape) - 1.0
+    return np.maximum(x, 0.0).astype(np.float32)
+
+
+def _port_vjp(fn, x, cot):
+    t = torch.from_numpy(x).requires_grad_(True)
+    y = fn(t)
+    (dx,) = torch.autograd.grad(y, t, torch.from_numpy(cot))
+    return y.detach().numpy(), dx.numpy()
+
+
+@pytest.mark.parametrize("kernel,stride", [(3, 2), (2, 2), (3, 3)])
+@pytest.mark.parametrize("size", [12, 13])
+def test_max_pool_backward_routes_ties_as_jax_grad(kernel, stride, size):
+    """The production MAX backward (autograd of `max_pool2d`) against
+    `jax.grad` of the JAX `max_pool2d(..., layout="NHWC")` (its
+    select-and-scatter) on ReLU-tied inputs: each window's gradient goes
+    to the same single position, the first maximum, bit for bit."""
+    x = _relu_tied((2, size, size, 4), seed=kernel * 100 + stride * 10 + size)
+    oh = tpool.pooled_size(size, kernel, stride)
+    cot = np.random.default_rng(size).standard_normal(
+        (2, oh, oh, 4)).astype(np.float32)
+    y, dx = _port_vjp(lambda t: tpool.max_pool2d(t, kernel, stride), x, cot)
+    want = np.asarray(jax.grad(lambda t: jnp.sum(
+        jpool.max_pool2d(t, kernel, stride, layout="NHWC") * cot))(
+            jnp.asarray(x)))
+    assert (y == 0).any()                     # some window is all ties
+    np.testing.assert_array_equal(dx, want)
+
+
+def test_tie_exact_max_pool_oracle_matches_jax():
+    """`max_pool_tie_exact` against the JAX `_max_pool_nhwc` on the inputs
+    of `tests/test_ops.py:374-395`: a constant input, where every position
+    of a 2x2/2 window ties and receives the window's whole gradient, and
+    untied data, where it is the production backward."""
+    from singa_tpu.ops.pool import _max_pool_nhwc
+    x = np.ones((1, 4, 4, 1), np.float32)
+    _, dx = _port_vjp(lambda t: tpool.max_pool_tie_exact(t, 2, 2), x,
+                      np.ones((1, 2, 2, 1), np.float32))
+    _, jvjp = jax.vjp(lambda t: _max_pool_nhwc(t, 2, 2), jnp.asarray(x))
+    np.testing.assert_array_equal(dx, np.ones((1, 4, 4, 1)))
+    np.testing.assert_array_equal(
+        dx, np.asarray(jvjp(jnp.ones((1, 2, 2, 1), jnp.float32))[0]))
+    rng = np.random.default_rng(7)
+    xr = rng.standard_normal((2, 8, 8, 3)).astype(np.float32)
+    cot = rng.standard_normal((2, 4, 4, 3)).astype(np.float32)
+    _, dx = _port_vjp(lambda t: tpool.max_pool_tie_exact(t, 3, 2), xr, cot)
+    _, jvjp = jax.vjp(lambda t: _max_pool_nhwc(t, 3, 2), jnp.asarray(xr))
+    np.testing.assert_allclose(dx, np.asarray(jvjp(jnp.asarray(cot))[0]),
+                               atol=1e-6)
+    _, prod = _port_vjp(lambda t: tpool.max_pool2d(t, 3, 2), xr, cot)
+    np.testing.assert_allclose(dx, prod, atol=1e-6)
+
+
+@pytest.mark.parametrize("kernel,stride", [(3, 2), (2, 2), (3, 3)])
+@pytest.mark.parametrize("size", [12, 13])
+def test_tie_exact_oracle_routes_every_tie_as_jax(kernel, stride, size):
+    """On ReLU-tied inputs every tied maximum takes the window's gradient,
+    in the port as in the JAX oracle, bit for bit (the same taps added in
+    the same order)."""
+    from singa_tpu.ops.pool import _max_pool_nhwc
+    x = _relu_tied((2, size, size, 4), seed=kernel * 100 + stride * 10 + size)
+    oh = tpool.pooled_size(size, kernel, stride)
+    cot = np.random.default_rng(size).standard_normal(
+        (2, oh, oh, 4)).astype(np.float32)
+    y, dx = _port_vjp(lambda t: tpool.max_pool_tie_exact(t, kernel, stride),
+                      x, cot)
+    jy, jvjp = jax.vjp(lambda t: _max_pool_nhwc(t, kernel, stride),
+                       jnp.asarray(x))
+    np.testing.assert_array_equal(y, np.asarray(jy))
+    np.testing.assert_array_equal(dx, np.asarray(jvjp(jnp.asarray(cot))[0]))
 
 
 def _rgb_net(cropsize=0, mirror=True):
