@@ -290,6 +290,33 @@ non-zero before the last line is printed:
    the centers equal across the processes, and within 1e-6 of the
    in-process `ReplicaSet` on the card on the same seeds and streams;
    the all-gather's ms with host staging.
+20. Tensor and sequence parallelism over processes sharing the card
+   (`[tpsp]` lines; gloo, staged through the host; every step eager).
+   (a) One process: `flash_chunk`, ring attention's local step, at the
+   bench stack's ring chunk (B=8, H=6 and 12, Sq=Sk=512, D=64, bf16),
+   causal and non-causal, forward and backward under a nonzero lse
+   cotangent, against the plain versions of K1, K3 and K4; each
+   launches K1, K3 and K4.  (b) The bench stack at full width and depth
+   (12 layers, E=768, 12 heads of 64, V=32768, S=1024, B=8, bf16, Adam)
+   under `model=2` on 2 processes, 5 steps from numpy seed 0: losses
+   within 3e-4 relative of the single-process eager run on the same
+   batches, both ranks' gathered params equal (sha256) and their move
+   from the init within 0.5 relative of that run's; step ms, the
+   collectives' ms a step (host staging and the wait for the card
+   included), each rank's param and optimizer bytes against one
+   process's, and K1/K2/K3/K4 launches per rank.  (c) As (b) under
+   `seq=2`, ring attention, then Ulysses.  (d) The shipped
+   `examples/transformer/cluster.conf` unedited (data 2 x model 2 x seq
+   2) through `python -m singa_tpu_torch.main` on 8 processes, with the
+   bench stack's config written as text at full width with
+   `seq_parallel: "ring"`, cut to 2 layers (printed): 3 steps, the
+   ranks' `agree` digests equal, losses and the checkpoint's move from
+   the init held to the single-process CLI's on the same config, as
+   (b); the checkpoint rank 0 writes, whole, restored by one process
+   that trains on from it.  (e) `examples/transformer/lm.conf` under
+   `tensor_parallel: 2` through the CLI on 2 processes, 10 steps (its
+   ring layers take the strided K1/K3/K4 route under a seq axis of 1,
+   kMoE stays whole): its losses against the single-process CLI's.
 
 Every result line ends with the card's `nvidia-smi` name and power
 limit.  The last lines are one JSON object listing each kernel with its
@@ -5546,14 +5573,17 @@ if mode == "dp":
     p, o = tr.init(seed=0)
     p, o, m = tr.train_step(p, o, batches[0], 0)
     sync()
-    dp.seconds, dp.calls = 0.0, 0
+    from singa_tpu_torch.parallel import comm
+    comm.reset_stats()
     t0 = time.perf_counter()
     for s in range(1, int(sys.argv[7]) + 1):
         p, o, m = tr.train_step(p, o, batches[s % 4], s)
     float(m["loss"])
     sync()
+    ex = comm.stats(dp.grads)
     res.update(step_ms=(time.perf_counter() - t0) * 1e3 / int(sys.argv[7]),
-               exchange_ms=dp.seconds * 1e3 / dp.calls, calls=dp.calls,
+               exchange_ms=ex["seconds"] * 1e3 / ex["calls"],
+               calls=ex["calls"],
                graphs=tr.graphs, digest=dp.agree(p),
                nbytes=sum(v.numel() * 4 for v in p.values()))
     # the exchange alone, the card idle: staged (a gradient-sized f32
@@ -5600,12 +5630,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def two_line_hostfile(tmp, name):
-    """Two distinct lines on this machine, the first the coordinator on a
+def hostfile_of(tmp, name, n):
+    """n distinct lines on this machine, the first the coordinator on a
     free port (a duplicate host is refused by `parse_hostfile`)."""
     path = os.path.join(tmp, name)
+    lines = [f"127.0.0.1:{free_port()}", "localhost"] + \
+        [f"127.0.0.{i}" for i in range(2, n)]
     with open(path, "w") as f:
-        f.write(f"127.0.0.1:{free_port()}\nlocalhost\n")
+        f.write("\n".join(lines[:n]) + "\n")
     return path
 
 
@@ -5657,7 +5689,7 @@ def dist_cli(dev, tmp):
     cluster = os.path.join(tmp, "dp2.conf")
     with open(cluster, "w") as f:
         f.write("data_parallel: 2\n")
-    hf = two_line_hostfile(tmp, "hostfile_cli")
+    hf = hostfile_of(tmp, "hostfile_cli", 2)
     common = ["-model_conf", conf, "--synthetic", "--steps", str(DP_STEPS)]
     t0 = time.perf_counter()
     outs = run_group([main_cmd(dev) + common + [
@@ -5674,7 +5706,7 @@ def dist_cli(dev, tmp):
     gaps = []
     for out in outs:
         expect_in(out, "mesh: {'data': 2", "training done",
-                  "data-parallel ranks agree")
+                  "ranks agree")
         got = display_losses(out)
         assert len(got) == DP_STEPS, out[-3000:]
         gaps.append(max(abs(a - b) / abs(b) for a, b in zip(got, want)))
@@ -5697,7 +5729,7 @@ def dist_cli(dev, tmp):
 
 
 def dist_child(mode, conf, steps, tmp, dev):
-    hf = two_line_hostfile(tmp, f"hostfile_{mode}")
+    hf = hostfile_of(tmp, f"hostfile_{mode}", 2)
     child = os.path.join(tmp, "dist_child.py")
     with open(child, "w") as f:
         f.write(DIST_CHILD)
@@ -5838,6 +5870,411 @@ def phase_dist(dev, conf=MNIST_CONF, mlp=MLP_CONF, drs_steps=DRS_STEPS):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: tensor and sequence parallelism over processes sharing the card
+
+TPSP_STEPS = 5          # 20b/20c steps of the bench stack
+# losses against one process's on the same batches (bf16 partial sums
+# rounded in another order; measured <= 5.9e-05 on an H100 80GB HBM3)
+TPSP_LOSS_RTOL = 3e-4
+# ||Δp - Δp_one|| / ||Δp_one||, Δ the params' move from their init: Adam's
+# first updates are lr·sign(g), so an element whose gradient rounds
+# across zero moves 2·lr apart, while a gradient averaged over the wrong
+# ranks moves nearly every element so (a gap near sqrt(2))
+TPSP_UPDATE_RTOL = 0.5
+CHUNK_CASES = ((8, 6, 512, 64), (8, 12, 512, 64))     # 20a (B, H, S, D)
+MESH_STEPS = 3          # 20d
+MESH_LAYERS = 2         # 20d's depth cut; the width stays full
+LMTP_STEPS = 10         # 20e
+LMTP_LOSS_RTOL = 1e-2   # bf16 partial sums and kMoE's top-k on them
+CLUSTER_CONF = os.path.join(REPO, "examples", "transformer", "cluster.conf")
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "head_fwd")
+TPSP_CHILD = """
+import json, sys, time
+import torch
+import torch.distributed as dist
+pid, hostfile, out, dev = int(sys.argv[1]), sys.argv[2], sys.argv[3], \\
+    sys.argv[4]
+cfg_kw = json.loads(sys.argv[5])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+from singa_tpu_torch import (Trainer, numpy_params, params_from_numpy,
+                             synthetic_token_batches, transformer_lm)
+from singa_tpu_torch.ops import _kernels
+from singa_tpu_torch.parallel import comm
+from singa_tpu_torch.parallel.bootstrap import distributed_init
+from singa_tpu_torch.parallel.mesh import make_mesh
+from singa_tpu_torch.parallel.partition import DataParallel
+assert distributed_init(pid, hostfile)
+# one process's params after the same steps (written by the parent)
+one = torch.load(f"{out}/one_params.pt")
+data = synthetic_token_batches(cfg_kw["batchsize"], cfg_kw["seq_len"],
+                               cfg_kw["vocab_size"], seed=0)
+batches = [next(data) for _ in range(cs.TPSP_STEPS)]
+shapes = {"data": {"input": (cfg_kw["seq_len"],),
+                   "target": (cfg_kw["seq_len"],)}}
+arrays, res = None, {}
+def sync():
+    if dev == "cuda":
+        torch.cuda.synchronize()
+for run, axes, sp in (("tp", {"model": 2}, "none"),
+                      ("ring", {"seq": 2}, "ring"),
+                      ("ulysses", {"seq": 2}, "ulysses")):
+    dp = DataParallel(make_mesh(**axes))
+    tr = Trainer(transformer_lm(**cfg_kw, precision="bfloat16",
+                                seq_parallel=sp), shapes, device=dev, dp=dp,
+                 log_fn=lambda m: None)
+    if arrays is None:
+        arrays = numpy_params(tr.train_net, seed=0)
+    p = dp.shard_params(params_from_numpy(tr.train_net, arrays, device=dev))
+    o = tr.updater.init(p)
+    sync()
+    dist.barrier()
+    _kernels.reset_launches()
+    comm.reset_stats()
+    losses, times = [], []
+    for step, batch in enumerate(batches):
+        sync()
+        t0 = time.perf_counter()
+        p, o, m = tr.train_step(p, o, batch, step)
+        losses.append(float(m["loss"]))
+        sync()
+        times.append(time.perf_counter() - t0)
+    launches = dict(_kernels.LAUNCHES)
+    n = len(batches)
+    layer = [comm.stats(g) for g in (dp.model, dp.seq_group)]
+    grad = comm.stats(dp.grads)
+    # the gathered params' move from their init against one process's
+    whole = dp.gather_params(p)
+    num = den = 0.0
+    for k, r in one.items():
+        p0 = torch.from_numpy(arrays[k]).to(dev)
+        want = r.to(dev) - p0
+        num += float((whole[k] - p0 - want).square().sum())
+        den += float(want.square().sum())
+    del whole
+    res[run] = dict(
+        losses=losses, first_ms=times[0] * 1e3,
+        step_ms=sum(times[1:]) * 1e3 / (n - 1),
+        layer_ms=sum(x["seconds"] for x in layer) * 1e3 / n,
+        layer_mb=sum(x["bytes"] for x in layer) / 1e6 / n,
+        layer_calls=sum(x["calls"] for x in layer) / n,
+        grad_ms=grad["seconds"] * 1e3 / n, grad_calls=grad["calls"],
+        update_gap=(num / den) ** 0.5,
+        param_bytes=sum(t.numel() * t.element_size() for t in p.values()),
+        opt_bytes=sum(t.numel() * t.element_size()
+                      for d in o.values() for t in d.values()),
+        launches=launches, digest=dp.agree(p))
+    del tr, p, o
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+with open(f"{out}/tpsp_{pid}.json", "w") as f:
+    json.dump(res, f)
+"""
+
+
+def check_flash_chunk(b, h, s, d, causal, dev, seed):
+    """20a: `flash_chunk` (K1; K3 and K4 in its backward, with the lse
+    cotangent folded into delta) against the plain versions on the same
+    bf16 inputs; returns the launches it made."""
+    from singa_tpu_torch.ops import _kernels
+    from singa_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    q, k, v = (randn(b, h, s, d).to(torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    w, wl = randn(b, h, s, d), randn(b, h, s, 1)
+    before = dict(_kernels.LAUNCHES)
+    out, lse = A.flash_chunk(q, k, v, causal)
+    torch.autograd.backward([out, lse], [w, wl])
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    made = {n: _kernels.LAUNCHES[n] - before[n] for n in before}
+    # the plain versions, step for step as `_FlashPacked` takes them
+    packed = [x.detach().reshape(b * h, s, d) for x in (q, k, v)]
+    ref_out, ref_lse = A.flash_forward_plain(*packed, 1, causal)
+    dout = w.to(torch.bfloat16).reshape(b * h, s, d)
+    delta = (dout.float() * ref_out.float()).sum(-1, keepdim=True) \
+        - wl.reshape(b * h, s, 1)
+    args = (*packed, dout, ref_lse, delta, 1, causal)
+    ref = (A.flash_dq_plain(*args), *A.flash_dkv_plain(*args))
+    tag = f"b={b} h={h} s={s} d={d} bf16 causal={causal}"
+    errs = {"out": (out.detach() - ref_out.float().reshape(out.shape))
+            .abs().max().item(),
+            "lse": (lse.detach() - ref_lse.reshape(lse.shape)).abs().max()
+            .item()}
+    # as phases 2 and 5: the forward within 2e-2 and the lse within 1e-3
+    # absolute; a bf16 gradient one ulp (2^-8 relative) apart at its
+    # largest magnitude (tol 2^-7)
+    assert errs["out"] <= 2e-2 and errs["lse"] <= 1e-3, (tag, errs)
+    for name, got, want in zip(("dq", "dk", "dv"), (q.grad, k.grad, v.grad),
+                               ref):
+        want = want.float().reshape(got.shape)
+        top = want.abs().max().item()
+        err = (got.float() - want).abs().max().item()
+        assert torch.isfinite(got.float()).all(), (tag, name)
+        assert err <= 2 ** -7 * top, (tag, name, err, top)
+        errs[name] = err
+    assert all(made[n] > 0 for n in FLASH_KERNELS[:3]) or dev != "cuda", \
+        (tag, made)
+    log(f"[tpsp] 20a flash_chunk {tag}, lse cotangent nonzero: "
+        + ", ".join(f"max|{n} gap| {e:.3g}" for n, e in errs.items())
+        + f"; launches {made}")
+    return made
+
+
+def tpsp_reference(dev, arrays, cfg_kw, tmp):
+    """The single-process eager run of 20b/20c's steps on the same
+    batches: losses, step ms and param and optimizer bytes; its final
+    params go to `tmp`/one_params.pt for the ranks to compare with."""
+    from singa_tpu_torch import Trainer, synthetic_token_batches, \
+        transformer_lm
+    tr = Trainer(transformer_lm(**cfg_kw, precision="bfloat16"),
+                 {"data": {"input": (cfg_kw["seq_len"],),
+                           "target": (cfg_kw["seq_len"],)}},
+                 device=dev, graphs=False, log_fn=trainer_log)
+    p, o = start(tr, arrays, dev)
+    data = synthetic_token_batches(cfg_kw["batchsize"], cfg_kw["seq_len"],
+                                   cfg_kw["vocab_size"], seed=0)
+    losses, times = [], []
+    for step in range(TPSP_STEPS):
+        batch = next(data)
+        sync(dev)
+        t0 = time.perf_counter()
+        p, o, m = tr.train_step(p, o, batch, step)
+        losses.append(float(m["loss"]))
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    res = {"losses": losses,
+           "step_ms": sum(times[1:]) * 1e3 / (TPSP_STEPS - 1),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in p.values()),
+           "opt_bytes": sum(t.numel() * t.element_size()
+                            for d in o.values() for t in d.values())}
+    torch.save({k: v.cpu() for k, v in p.items()},
+               os.path.join(tmp, "one_params.pt"))
+    del tr, p, o
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def tpsp_steps(dev, tmp, arrays, cfg_kw):
+    """20b and 20c: one group of 2 processes runs model=2, then seq=2 with
+    ring attention, then with Ulysses."""
+    child = os.path.join(tmp, "tpsp_child.py")
+    with open(child, "w") as f:
+        f.write(TPSP_CHILD)
+    hf = hostfile_of(tmp, "hostfile_tpsp", 2)
+    one = tpsp_reference(dev, arrays, cfg_kw, tmp)
+    t0 = time.perf_counter()
+    run_group([[sys.executable, child, str(i), hf, tmp, dev,
+                json.dumps(cfg_kw)] for i in range(2)], tmp, "tpsp")
+    wall = time.perf_counter() - t0
+    runs = []
+    for i in range(2):
+        with open(os.path.join(tmp, f"tpsp_{i}.json")) as f:
+            runs.append(json.load(f))
+    out = {}
+    for run in ("tp", "ring", "ulysses"):
+        r = [x[run] for x in runs]
+        assert r[0]["digest"] == r[1]["digest"], (run, r)
+        gap = max(abs(a - b) / abs(b) for x in r
+                  for a, b in zip(x["losses"], one["losses"]))
+        assert gap <= TPSP_LOSS_RTOL, (run, [x["losses"] for x in r],
+                                       one["losses"])
+        assert all(x["update_gap"] <= TPSP_UPDATE_RTOL for x in r), \
+            (run, [x["update_gap"] for x in r])
+        out[run] = {"gap": gap, "ranks": r}
+    return out, one, wall
+
+
+def tpsp_line(tag, run, res, one, cfg_kw):
+    r = res["ranks"]
+    axes = "model=2" if run == "tp" else f"seq=2 ({run})"
+    log(f"[tpsp] {tag} bench stack ({cfg_kw['num_layers']}L, E="
+        f"{cfg_kw['embed_dim']}, {cfg_kw['num_heads']} heads, V="
+        f"{cfg_kw['vocab_size']}, S={cfg_kw['seq_len']}, B="
+        f"{cfg_kw['batchsize']}, bf16, Adam) under {axes}, 2 processes, "
+        f"{TPSP_STEPS} eager steps: losses within {res['gap']:.3g} relative "
+        f"of one process's (tol {TPSP_LOSS_RTOL}); ranks' gathered params "
+        f"equal (sha256 {r[0]['digest'][:16]}...), their move from the "
+        f"init within {r[0]['update_gap']:.3g} relative of one process's "
+        f"(tol {TPSP_UPDATE_RTOL}); step "
+        f"{', '.join(f'{x['step_ms']:.1f}' for x in r)} ms (first "
+        f"{', '.join(f'{x['first_ms']:.1f}' for x in r)} ms) against one "
+        f"process's eager {one['step_ms']:.1f} ms; the layers' collectives "
+        f"{', '.join(f'{x['layer_ms']:.1f}' for x in r)} ms a step "
+        f"({r[0]['layer_calls']:.0f} calls, {r[0]['layer_mb']:.1f} MB sent "
+        f"by a rank), the gradient mean "
+        f"{', '.join(f'{x['grad_ms']:.1f}' for x in r)} ms a step (host "
+        f"staging and the wait for the card included); param bytes "
+        f"{', '.join(str(x['param_bytes']) for x in r)} and optimizer bytes "
+        f"{', '.join(str(x['opt_bytes']) for x in r)} a rank against one "
+        f"process's {one['param_bytes']} and {one['opt_bytes']}; launches "
+        f"per rank "
+        f"{[{k: x['launches'][k] for k in FLASH_KERNELS} for x in r]}")
+
+
+def mesh_cli(dev, tmp, cfg_kw):
+    """20d: the shipped cluster.conf (2 x 2 x 2) through the CLI on 8
+    processes, held to the single-process CLI on the same config; then
+    one process resumes the checkpoint rank 0 wrote."""
+    from singa_tpu_torch import CheckpointManager, build_net, transformer_lm
+    from singa_tpu_torch.config.schema import model_config_to_text
+    cfg = transformer_lm(**{**cfg_kw, "num_layers": MESH_LAYERS},
+                         precision="bfloat16", seq_parallel="ring")
+    cfg.display_frequency = 1
+    conf = os.path.join(tmp, "bench_ring.conf")
+    with open(conf, "w") as f:
+        f.write(model_config_to_text(cfg))
+    ws = os.path.join(tmp, "ws_mesh")
+    hf = hostfile_of(tmp, "hostfile_mesh", 8)
+    t0 = time.perf_counter()
+    outs = run_group([main_cmd(dev) + [
+        "-model_conf", conf, "-cluster_conf", CLUSTER_CONF, "--synthetic",
+        "--steps", str(MESH_STEPS), "--workspace", ws, "-hostfile", hf,
+        "-procsID", str(i)] for i in range(8)], tmp, "mesh")
+    wall = time.perf_counter() - t0
+    digests, losses = set(), set()
+    for out in outs:
+        expect_in(out, "mesh: {'data': 2, 'model': 2, 'pipe': 1, 'seq': 2, "
+                  "'expert': 1}", "training done", "ranks agree")
+        digests.add(re.search(r"params sha256 (\w+)", out).group(1))
+        got = display_losses(out)
+        assert len(got) == MESH_STEPS and all(map(math.isfinite, got)), out
+        losses.add(tuple(got))
+    assert len(digests) == 1 and len(losses) == 1, (digests, losses)
+    losses_of = next(iter(losses))
+    rp, ro, step = CheckpointManager(ws).restore()
+    assert step == MESH_STEPS, step
+    net = build_net(cfg, "kTrain", {"data": {"input": (cfg_kw["seq_len"],),
+                                             "target": (cfg_kw["seq_len"],)}})
+    for k, spec in net.param_specs.items():
+        assert rp[k].shape == spec.shape, (k, rp[k].shape, spec.shape)
+    # the same config, batches and init on one process: the mesh's losses
+    # and its params' move from the init (the CLI's, seed 0) against it
+    ws_one = os.path.join(tmp, "ws_mesh_one")
+    one = run_group([main_cmd(dev) + [
+        "-model_conf", conf, "--synthetic", "--steps", str(MESH_STEPS),
+        "--workspace", ws_one]], tmp, "mesh_one")[0]
+    want = display_losses(one)
+    assert len(want) == MESH_STEPS, one[-3000:]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses_of, want))
+    assert loss_gap <= TPSP_LOSS_RTOL, (losses_of, want)
+    op, _, step = CheckpointManager(ws_one).restore()
+    assert step == MESH_STEPS, step
+    init = net.init_params(0, device=dev)
+    num = den = 0.0
+    for k, p0 in init.items():
+        move = torch.as_tensor(op[k], device=dev) - p0
+        num += float((torch.as_tensor(rp[k], device=dev) - p0 - move)
+                     .square().sum())
+        den += float(move.square().sum())
+    update_gap = (num / den) ** 0.5
+    assert update_gap <= TPSP_UPDATE_RTOL, update_gap
+    del op, init
+    t1 = time.perf_counter()
+    code, text = run_main(["-model_conf", conf, "--synthetic", "--steps",
+                           str(MESH_STEPS + 2), "--workspace", ws,
+                           "--resume"], dev)
+    resume_s = time.perf_counter() - t1
+    assert code == 0, text[-3000:]
+    expect_in(text, f"resumed from step {MESH_STEPS}", "training done")
+    assert CheckpointManager(ws).latest_step() == MESH_STEPS + 2
+    return {"wall": wall, "digest": digests.pop(), "losses": losses_of,
+            "want": want, "loss_gap": loss_gap, "update_gap": update_gap,
+            "resume_s": resume_s, "resumed": display_losses(text)}
+
+
+def lm_tp(dev, tmp, extra=()):
+    """20e: lm.conf under tensor_parallel: 2 through the CLI on 2
+    processes against the single-process CLI."""
+    conf = conf_copy(tmp, LM_CONF, "lm_tp.conf",
+                     [("display_frequency: 50", "display_frequency: 1")])
+    cluster = os.path.join(tmp, "tp2.conf")
+    with open(cluster, "w") as f:
+        f.write("tensor_parallel: 2\n")
+    hf = hostfile_of(tmp, "hostfile_lm", 2)
+    common = ["-model_conf", conf, "--synthetic", "--steps",
+              str(LMTP_STEPS), *extra]
+    t0 = time.perf_counter()
+    outs = run_group([main_cmd(dev) + common + [
+        "-cluster_conf", cluster, "-hostfile", hf, "-procsID", str(i)]
+        for i in range(2)], tmp, "lm_tp")
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = run_group([main_cmd(dev) + common], tmp, "lm_one")[0]
+    one_wall = time.perf_counter() - t0
+    want = display_losses(one)
+    assert len(want) == LMTP_STEPS, one[-3000:]
+    gaps = []
+    for out in outs:
+        expect_in(out, "mesh: {'data': 1, 'model': 2", "training done",
+                  "ranks agree")
+        got = display_losses(out)
+        assert len(got) == LMTP_STEPS, out[-3000:]
+        gaps.append(max(abs(a - b) / abs(b) for a, b in zip(got, want)))
+    assert max(gaps) <= LMTP_LOSS_RTOL, (gaps, want)
+    return {"wall": wall, "one_wall": one_wall, "gap": max(gaps),
+            "losses": display_losses(outs[0]), "want": want}
+
+
+def phase_tpsp(dev, arrays, cfg_kw=BENCH, chunk_cases=CHUNK_CASES,
+               lm_extra=()):
+    """Phase 20; the arguments cut it down for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+    from singa_tpu_torch.ops import _kernels
+    _kernels.reset_launches()
+    for i, (b, h, s, d) in enumerate(chunk_cases):
+        for causal in (True, False):
+            check_flash_chunk(b, h, s, d, causal, dev, 200 + 2 * i + causal)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="tpsp_", dir=os.path.join(REPO, "build"))
+    try:
+        res, one, wall = tpsp_steps(dev, tmp, arrays, cfg_kw)
+        log(f"[tpsp] 20b/20c one group of 2 processes ran the three in "
+            f"{wall:.1f} s wall (process starts included)")
+        tpsp_line("20b", "tp", res["tp"], one, cfg_kw)
+        tpsp_line("20c", "ring", res["ring"], one, cfg_kw)
+        tpsp_line("20c", "ulysses", res["ulysses"], one, cfg_kw)
+        if dev == "cuda":
+            for run in ("tp", "ring", "ulysses"):
+                for x in res[run]["ranks"]:
+                    assert all(x["launches"][k] > 0
+                               for k in FLASH_KERNELS), (run, x["launches"])
+        d = mesh_cli(dev, tmp, cfg_kw)
+        log(f"[tpsp] 20d examples/transformer/cluster.conf unedited (data 2 "
+            f"x model 2 x seq 2) through python -m singa_tpu_torch.main on "
+            f"8 processes: the bench stack's config as text, full width, "
+            f"seq_parallel ring, depth cut from {cfg_kw['num_layers']} to "
+            f"{MESH_LAYERS} layers; {MESH_STEPS} steps in {d['wall']:.1f} s "
+            f"wall (process starts included), losses {d['losses']} equal on "
+            f"all 8 ranks, params sha256 {d['digest'][:16]}... on all 8; "
+            f"against one process's CLI on the same config: losses "
+            f"{d['want']}, within {d['loss_gap']:.3g} relative (tol "
+            f"{TPSP_LOSS_RTOL}), the checkpoint's move from the init within "
+            f"{d['update_gap']:.3g} relative (tol {TPSP_UPDATE_RTOL}); "
+            f"rank 0's checkpoint (whole, spec-shaped) resumed by one "
+            f"process to step {MESH_STEPS + 2} in {d['resume_s']:.1f} s, "
+            f"losses {d['resumed']}")
+        e = lm_tp(dev, tmp, lm_extra)
+        log(f"[tpsp] 20e examples/transformer/lm.conf under "
+            f"tensor_parallel: 2 through the CLI, 2 processes, "
+            f"{LMTP_STEPS} steps in {e['wall']:.1f} s wall (one process "
+            f"{e['one_wall']:.1f} s): losses within {e['gap']:.3g} relative "
+            f"of the single-process CLI's (tol {LMTP_LOSS_RTOL}; the "
+            f"strided K1/K3/K4 under a seq axis of 1, kMoE whole): "
+            f"{e['losses']} "
+            f"against {e['want']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5934,6 +6371,8 @@ def main() -> int:
     took("phase 18")
     phase_dist(dev)
     took("phase 19")
+    phase_tpsp(dev, arrays)
+    took("phase 20")
 
     kernels = []
     for name, res, replaces in (

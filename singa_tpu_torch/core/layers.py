@@ -44,6 +44,11 @@ class ParamSpec:
     shape: Tuple[int, ...]
     fan_in: int
     cfg: ParamConfig
+    # ParamProto.partition_dim: the dim a model axis shards (-1: none)
+    partition_dim: int = -1
+    # the mesh axis that dim shards over; None is the model axis
+    # ("model"); kMoE's stacked experts name "expert"
+    mesh_axis: Optional[str] = None
 
 
 _MASK64 = (1 << 64) - 1
@@ -76,7 +81,14 @@ class Context:
     replays).  `shard` is (index, n) when the batch is one of n equal
     slices of a global batch (data parallelism): a layer that draws over
     the batch draws the global batch's numbers and keeps its slice
-    (`global_rows`)."""
+    (`global_rows`).  `tp` (a `parallel.partition.ModelShards`) is set
+    when the params are this rank's shards over a model axis: a layer
+    that partitions its compute reads its shards and that axis's group
+    from it, and `full` gathers a param whole.  `seq` (a
+    `parallel.comm.AxisGroup`) is set when the batch is this rank's
+    chunk of dim 1 (sequence parallelism): a drawing layer keeps its
+    columns of the global draw (`global_cols`) and kAttention runs over
+    the group."""
     batch: Dict[str, Any]
     train: bool
     compute_dtype: Optional[torch.dtype] = None
@@ -86,6 +98,28 @@ class Context:
     device: Optional[torch.device] = None
     generators: Optional[Dict[int, torch.Generator]] = None
     shard: Optional[Tuple[int, int]] = None
+    tp: Any = None
+    seq: Any = None
+
+    def global_cols(self, s: int) -> Tuple[int, int]:
+        """(columns to draw, first column of this chunk) for a local
+        dim 1 of `s`: (s, 0) unless the batch is a seq chunk."""
+        if self.seq is None:
+            return s, 0
+        return s * self.seq.n, self.seq.index * s
+
+    def shard_dim(self, key: str) -> Optional[int]:
+        """The dim of param `key` that this rank holds a shard of, or
+        None for a whole param."""
+        return None if self.tp is None else self.tp.dims.get(key)
+
+    def full(self, params: Dict[str, torch.Tensor], key: str
+             ) -> torch.Tensor:
+        """Param `key` whole (gathered over the model axis and unpadded
+        where this rank holds a shard); its gradient reaches the shard."""
+        if self.shard_dim(key) is None:
+            return params[key]
+        return self.tp.full(params, key)
 
     def global_rows(self, b: int) -> Tuple[int, int]:
         """(rows to draw, first row of this slice) for a local batch of
@@ -158,11 +192,18 @@ class Layer:
             return self.cfg.param[i]
         return ParamConfig(name=default_name)
 
+    # True where `apply` partitions its own compute over a model axis
+    # (it reads `ctx.tp`); every other layer is handed its params whole
+    tp_aware = False
+
     def _declare(self, i: int, default_name: str, shape,
-                 fan_in: int) -> str:
+                 fan_in: int, partition_dim: int = -1) -> str:
         pcfg = self._param_cfg(i, default_name)
         key = f"{self.name}/{pcfg.name or default_name}"
-        self.param_specs.append(ParamSpec(key, tuple(shape), fan_in, pcfg))
+        if pcfg.partition_dim != -1:      # the config's dim wins
+            partition_dim = pcfg.partition_dim
+        self.param_specs.append(ParamSpec(key, tuple(shape), fan_in, pcfg,
+                                          partition_dim))
         return key
 
 
@@ -387,7 +428,11 @@ def _as_nhwc(x: torch.Tensor) -> torch.Tensor:
 @register_layer("kConvolution")
 class ConvolutionLayer(Layer):
     """layer.cc:26-123.  Weight in the reference layout (num_filters,
-    C·k·k); compute is one `F.conv2d` (ops/conv.py)."""
+    C·k·k); compute is one `F.conv2d` (ops/conv.py).  Weight and bias
+    shard their filters (dim 0) over a model axis: each rank convolves
+    with its filters and the output channels are gathered."""
+
+    tp_aware = True
 
     def setup(self, src_shapes):
         p = self.cfg.convolution_param
@@ -401,16 +446,37 @@ class ConvolutionLayer(Layer):
                           conv.conv_out_size(w, p.kernel, p.stride, p.pad),
                           p.num_filters)
         col_height = c * p.kernel * p.kernel
+        self.num_filters = p.num_filters
         self.w_key = self._declare(0, "weight", (p.num_filters, col_height),
-                                   fan_in=col_height)
+                                   fan_in=col_height, partition_dim=0)
         if self.bias_term:
-            self.b_key = self._declare(1, "bias", (p.num_filters,), fan_in=0)
+            self.b_key = self._declare(1, "bias", (p.num_filters,), fan_in=0,
+                                       partition_dim=0)
 
     def apply(self, params, srcs, ctx):
-        bias = params[self.b_key] if self.bias_term else None
-        return conv.conv2d(_as_nhwc(srcs[0]), params[self.w_key], bias,
-                           kernel=self.kernel, stride=self.stride,
-                           pad=self.pad, channels=self.channels)
+        keys = [self.w_key] + ([self.b_key] if self.bias_term else [])
+        return _column_parallel(
+            ctx, params, keys, 0, _as_nhwc(srcs[0]), self.num_filters,
+            lambda x, w, b: conv.conv2d(
+                x, w, b, kernel=self.kernel, stride=self.stride,
+                pad=self.pad, channels=self.channels))
+
+
+def _column_parallel(ctx, params, keys, w_dim: int, x, width: int, fn):
+    """`fn(x, weight, bias)` with its output features (the last dim)
+    split over the model axis where the weight holds dim `w_dim` and the
+    bias dim 0 as shards: each rank computes its (padded) share from the
+    replicated input and the shares are gathered and unpadded to
+    `width`.  Else on the params whole."""
+    if ctx.tp is not None and [ctx.shard_dim(k) for k in keys] == \
+            [w_dim] + [0] * (len(keys) - 1):
+        from ..parallel import comm
+        g = ctx.tp.group
+        bias = params[keys[1]] if len(keys) > 1 else None
+        y = fn(comm.copy_to(x, g), params[keys[0]], bias)
+        return comm.all_gather(y, -1, g)[..., :width]
+    bias = ctx.full(params, keys[1]) if len(keys) > 1 else None
+    return fn(x, ctx.full(params, keys[0]), bias)
 
 
 @register_layer("kPooling")
@@ -462,7 +528,11 @@ class InnerProductLayer(Layer):
     reference passes fan_in = vdim·hdim to Param::Setup (layer.cc:174),
     kept for init parity.  vdim's element order is the NHWC activation's
     (H, W, C), as in the JAX package, so an fc weight carries across
-    unchanged."""
+    unchanged.  The weight shards its outputs (dim 1) and the bias its
+    only dim over a model axis: each rank computes its features and
+    they are gathered."""
+
+    tp_aware = True
 
     def setup(self, src_shapes):
         p = self.cfg.inner_product_param
@@ -473,14 +543,17 @@ class InnerProductLayer(Layer):
         vdim, hdim = int(math.prod(s[1:])), p.num_output
         self.bias_term = p.bias_term
         self.out_shape = (s[0], hdim)
+        self.hdim = hdim
         self.w_key = self._declare(0, "weight", (vdim, hdim),
-                                   fan_in=vdim * hdim)
+                                   fan_in=vdim * hdim, partition_dim=1)
         if self.bias_term:
-            self.b_key = self._declare(1, "bias", (hdim,), fan_in=0)
+            self.b_key = self._declare(1, "bias", (hdim,), fan_in=0,
+                                       partition_dim=0)
 
     def apply(self, params, srcs, ctx):
-        bias = params[self.b_key] if self.bias_term else None
-        return linear.linear(srcs[0], params[self.w_key], bias)
+        keys = [self.w_key] + ([self.b_key] if self.bias_term else [])
+        return _column_parallel(ctx, params, keys, 1, srcs[0], self.hdim,
+                                linear.linear)
 
 
 @register_layer("kReLU")
@@ -532,8 +605,11 @@ class DropoutLayer(Layer):
     def apply(self, params, srcs, ctx):
         if not ctx.train or self.rate <= 0.0:
             return srcs[0]
-        return dropout.dropout(srcs[0], self.rate, ctx.layer_rng(),
-                               rows=ctx.global_rows(srcs[0].shape[0]))
+        x = srcs[0]
+        return dropout.dropout(x, self.rate, ctx.layer_rng(),
+                               rows=ctx.global_rows(x.shape[0]),
+                               cols=(ctx.global_cols(x.shape[1])
+                                     if x.dim() > 1 else None))
 
 
 # ---------------------------------------------------------------------------

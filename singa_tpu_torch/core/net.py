@@ -12,8 +12,17 @@ takes the call's seed and step (`rng`, `step`), from which each layer
 that draws (dropout, the RGB crop and mirror, the MNIST distortion)
 seeds its own generator (`Context.layer_rng`), or the caller's
 generators, seeded by the caller (`generators`, keyed by topological
-index: the trainer's).  Mesh constraints, partition padding and remat
-wait for the parallel slice.
+index: the trainer's).  Under a process mesh (`apply(par=)`, a
+`parallel.partition.DataParallel`) the params are this rank's shards:
+a layer that partitions its own compute (`Layer.tp_aware`) reads them
+through `Context.tp`, and every other layer is handed its sharded
+params gathered whole (`_layer_params`).  Padded storage
+(`parallel.partition.pad_params`) is sliced off at use
+(`_resolve_params`, `:217-240`) and at the save (`unpad_params`,
+`:242-257`).  The per-layer partition_type constraints of the JAX
+package (`_constrain`) only place activations for GSPMD and have no
+counterpart here; `layer_partition` still reports them.  Remat is not
+ported.
 """
 
 from __future__ import annotations
@@ -30,6 +39,18 @@ from .init import init_param
 from .layers import (Context, Layer, LayerError, LRNLayer, ParamSpec,
                      ReLULayer, SliceLayer, create_layer)
 from .updater import Multipliers
+
+
+def _pad_excess(spec: ParamSpec, arr) -> bool:
+    """Whether `arr` is `spec` plus a pad-to-divisible tail on the
+    partition dim (`parallel.partition.pad_params`): the one shape
+    mismatch that slicing at use and unpadding at the save absorb."""
+    d = spec.partition_dim
+    return (d is not None and 0 <= d < len(spec.shape)
+            and len(arr.shape) == len(spec.shape)
+            and arr.shape[d] > spec.shape[d]
+            and all(a == s for i, (a, s) in
+                    enumerate(zip(arr.shape, spec.shape)) if i != d))
 
 
 def _to_device(batch, device: torch.device):
@@ -51,6 +72,9 @@ class NeuralNet:
         batch dim), e.g. {"data": {"input": (S,), "target": (S,)}}.
         `batchsize` overrides the data layers' batchsize."""
         self.phase = phase
+        # NetProto.partition_type is the per-layer default; a layer's
+        # LayerProto.partition_type overrides it (neuralnet.cc:45-56)
+        self.default_partition = net_cfg.partition_type
         self.cfgs = [l for l in net_cfg.layer if phase not in l.exclude]
         self.input_shapes = input_shapes or {}
         self.batchsize_override = batchsize
@@ -164,6 +188,18 @@ class NeuralNet:
                                   spec.cfg.weight_decay_multiplier)
                 for name, spec in self.param_specs.items()}
 
+    def partition_dims(self) -> Dict[str, int]:
+        """ParamProto.partition_dim per param (with the layers' defaults),
+        which `parallel.partition.param_shardings` places."""
+        return {name: spec.partition_dim
+                for name, spec in self.param_specs.items()}
+
+    def layer_partition(self, name: str) -> str:
+        """Effective partition_type of a layer: LayerProto override,
+        else the NetProto default (neuralnet.cc:45-56)."""
+        lp = self.layers[name].cfg.partition_type
+        return lp if lp is not None else self.default_partition
+
     def drawing_layers(self) -> Dict[int, str]:
         """Topological index → name of each layer whose training forward
         draws."""
@@ -182,11 +218,42 @@ class NeuralNet:
 
     def _resolve_params(self, params: Dict[str, torch.Tensor]):
         full = dict(params)
+        # padded storage: a param larger than its spec in the partition
+        # dim (and equal in every other) is sliced to its spec at use;
+        # the slice's transpose keeps the pad's gradients zero
+        for name, spec in self.param_specs.items():
+            arr = full.get(name)
+            if arr is not None and _pad_excess(spec, arr):
+                full[name] = arr[tuple(slice(0, n) for n in spec.shape)]
         for alias, owner in self.param_aliases.items():
             if owner not in full:
                 raise LayerError(f"share_param target {owner!r} not found")
             full[alias] = full[owner]
         return full
+
+    def unpad_params(self, params: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """Padded-storage params sliced back to their spec shapes (the
+        save boundary: checkpoints stay spec-shaped); any other shape
+        is left for the caller's checks to refuse."""
+        out = {}
+        for name, arr in params.items():
+            spec = self.param_specs.get(name)
+            if spec is not None and _pad_excess(spec, arr):
+                arr = arr[tuple(slice(0, n) for n in spec.shape)]
+            out[name] = arr
+        return out
+
+    def _layer_params(self, layer: Layer, full, tp):
+        """`full` with each sharded param of `layer` gathered whole, for
+        a layer that does not partition its compute."""
+        view = full
+        for spec in layer.param_specs:
+            if spec.name in tp.dims:
+                if view is full:
+                    view = dict(full)
+                view[spec.name] = tp.full(full, spec.name)
+        return view
 
     # -- forward -----------------------------------------------------------
     def apply(self, params: Dict[str, torch.Tensor], batch: Dict[str, Any],
@@ -195,7 +262,7 @@ class NeuralNet:
               rng: Optional[int] = None, step: Optional[int] = None,
               generators: Optional[Dict[int, torch.Generator]] = None,
               layer_subset: Optional[List[str]] = None,
-              shard: Optional[Tuple[int, int]] = None
+              shard: Optional[Tuple[int, int]] = None, par=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                          Dict[str, Any]]:
         """Run the net on the params' device.  Returns (total_loss,
@@ -211,10 +278,15 @@ class NeuralNet:
         slices of a global batch: layers that draw over the batch keep
         this slice's rows of the global draw.  A layer that leaves an
         auxiliary loss in `_aux` (kMoE) adds it to total_loss and to
-        metrics as "<layer>/aux"."""
+        metrics as "<layer>/aux".  `par` (a bound `DataParallel`) runs
+        the net over its mesh: `params` are this rank's shards, and with
+        `par.seq_sharding` the batch is this rank's chunk of dim 1."""
         if train is None:
             train = self.phase == "kTrain"
         full = self._resolve_params(params)
+        tp = par.view() if par is not None else None
+        seq = par.seq_group if par is not None and par.seq_sharding \
+            else None
         dev = params_device(params)
         batch = _to_device(batch, dev)
         outputs: Dict[str, Any] = {}
@@ -235,8 +307,12 @@ class NeuralNet:
             ctx = Context(batch=batch, train=train,
                           compute_dtype=compute_dtype, rng=rng,
                           layer_index=idx, step=step, device=dev,
-                          generators=generators, shard=shard)
-            out = layer.apply(full, srcs, ctx)
+                          generators=generators, shard=shard, tp=tp,
+                          seq=seq)
+            view = full
+            if tp is not None and not layer.tp_aware:
+                view = self._layer_params(layer, full, tp)
+            out = layer.apply(view, srcs, ctx)
             outputs[name] = out
             aux = getattr(layer, "_aux", None)
             if aux is not None:

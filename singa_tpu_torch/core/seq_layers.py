@@ -1,14 +1,31 @@
 """Sequence-model layer family of the port: the transformer LM's layers.
 
-Port of `singa_tpu/core/seq_layers.py` without the mesh branches (one
-card; the parallel slice brings them, and with them the expert axis
-that kMoE's stacked params shard over).
-kAttention keeps the JAX package's three routes and their predicates:
+Port of `singa_tpu/core/seq_layers.py`, with the JAX package's default
+partition dims (kEmbed's table on E, wq/wk/wv and w1/w3 on their
+outputs, wo and w2 on their inputs, the LM heads' (E, V) weight on V,
+kMoE's stacked experts on the "expert" axis; a ParamProto's
+partition_dim wins).
+kAttention keeps the JAX package's routes and their predicates:
 the packed flash route (K1 on the card) when seq_parallel is "none",
-S % 128 == 0 and head_dim % 8 == 0; the strided flash route (K1 with one
-head per row) when only the shape rule holds; and the dense
-`attention_reference` otherwise, which is the JAX package's own
-behaviour for short or odd sequences.  kLMHeadLoss takes the fused head
+S % 128 == 0 and head_dim % 8 == 0; ring or Ulysses attention over the
+seq axis (`parallel/sequence.py`) for seq_parallel "ring" or "ulysses"
+under a mesh; the strided flash route (K1 with one head per row) when
+only the shape rule holds; and the dense `attention_reference`
+otherwise, which is the JAX package's own behaviour for short or odd
+sequences.
+
+Under a mesh (`Context.tp`, `Context.seq`) each layer computes what
+GSPMD computes from the params' shardings, with explicit collectives
+(`parallel/comm.py`), and every layer's output is whole on every rank
+of the model axis (GSPMD's global view): kAttention and kFeedForward
+are Megatron pairs (column-parallel wq/wk/wv or w1/w3 on the rank's
+heads or hidden units, row-parallel wo or w2, whose partial sums are
+all-reduced); kEmbed gathers its E-sharded lookup; kLMHead gathers its
+V-sharded logits; kLMHeadLoss gathers its weight at use (K2 needs whole
+rows).  On a seq chunk RoPE takes the chunk's absolute positions, and
+seq_parallel "none" attends over the gathered kv.
+
+kLMHeadLoss takes the fused head
 (K2) when the head is tied, top-1, kernel-legal and on the card, where
 the JAX package asks for a TPU; elsewhere `chunked_lm_xent`.
 
@@ -40,16 +57,37 @@ _dense_warned: set = set()
 
 
 def _declare_with_default(layer: Layer, i: int, name: str, shape,
-                          init_std: float) -> str:
+                          init_std: float, partition_dim: int = -1,
+                          mesh_axis: Optional[str] = None) -> str:
     """Declare a param with a Gaussian default when the config gives no
-    explicit ParamProto (transformer configs usually don't)."""
+    explicit ParamProto (transformer configs usually don't), with its
+    default partition dim and mesh axis."""
     if i < len(layer.cfg.param):
-        return layer._declare(i, name, shape, fan_in=shape[0])
+        key = layer._declare(i, name, shape, fan_in=shape[0],
+                             partition_dim=partition_dim)
+        layer.param_specs[-1].mesh_axis = mesh_axis
+        return key
     key = f"{layer.name}/{name}"
     layer.param_specs.append(ParamSpec(
         key, tuple(shape), shape[0],
-        ParamConfig(init_method="kGaussain", mean=0.0, std=init_std)))
+        ParamConfig(init_method="kGaussain", mean=0.0, std=init_std),
+        partition_dim, mesh_axis))
     return key
+
+
+def _split(ctx, dims) -> bool:
+    """Whether this rank holds each param of `dims` (key → dim) as a
+    shard of that dim over the model axis."""
+    return ctx.tp is not None and all(ctx.shard_dim(k) == d
+                                      for k, d in dims.items())
+
+
+def _positions(ctx, s: int, device) -> torch.Tensor:
+    """The absolute positions of a local sequence of `s`: on a seq chunk
+    they start at its first global position (`jnp.arange(S)` under
+    GSPMD is global)."""
+    first = ctx.seq.index * s if ctx.seq is not None else 0
+    return torch.arange(first, first + s, device=device)
 
 
 @register_layer("kSequenceData")
@@ -78,7 +116,11 @@ class SequenceDataLayer(Layer):
 
 @register_layer("kEmbed")
 class EmbedLayer(Layer):
-    """Token embedding: (B, S) int → (B, S, E)."""
+    """Token embedding: (B, S) int → (B, S, E).  The table shards E
+    over a model axis: each rank looks up its columns and they are
+    gathered."""
+
+    tp_aware = True
 
     def setup(self, src_shapes):
         p = self.cfg.embed_param
@@ -90,12 +132,19 @@ class EmbedLayer(Layer):
         self.out_shape = tuple(shape) + (p.embed_dim,)
         self.w_key = _declare_with_default(
             self, 0, "embedding", (p.vocab_size, p.embed_dim),
-            init_std=1.0 / math.sqrt(p.embed_dim))
+            init_std=1.0 / math.sqrt(p.embed_dim), partition_dim=1)
+        self.embed_dim = p.embed_dim
 
     def apply(self, params, srcs, ctx):
         src = srcs[0]
         tokens = src["input"] if isinstance(src, dict) else src
-        emb = _cast(params[self.w_key], ctx.compute_dtype)
+        if _split(ctx, {self.w_key: 1}):
+            from ..parallel import comm
+            emb = _cast(params[self.w_key], ctx.compute_dtype)
+            out = comm.all_gather(F.embedding(tokens.long(), emb), -1,
+                                  ctx.tp.group)
+            return out[..., :self.embed_dim]
+        emb = _cast(ctx.full(params, self.w_key), ctx.compute_dtype)
         return F.embedding(tokens.long(), emb)
 
 
@@ -131,7 +180,12 @@ class RMSNormLayer(Layer):
 
 @register_layer("kAttention")
 class AttentionLayer(Layer):
-    """Multi-head (GQA) causal self-attention with RoPE."""
+    """Multi-head (GQA) causal self-attention with RoPE.  Over a model
+    axis that splits both head counts, each rank attends with its heads
+    (column-parallel wq, wk, wv) and the partial products with its rows
+    of wo are all-reduced."""
+
+    tp_aware = True
 
     def setup(self, src_shapes):
         p = self.cfg.attention_param
@@ -149,10 +203,10 @@ class AttentionLayer(Layer):
         hd = self.heads * self.head_dim
         kvd = self.kv_heads * self.head_dim
         std = 1.0 / math.sqrt(e)
-        self.wq = _declare_with_default(self, 0, "wq", (e, hd), std)
-        self.wk = _declare_with_default(self, 1, "wk", (e, kvd), std)
-        self.wv = _declare_with_default(self, 2, "wv", (e, kvd), std)
-        self.wo = _declare_with_default(self, 3, "wo", (hd, e), std)
+        self.wq = _declare_with_default(self, 0, "wq", (e, hd), std, 1)
+        self.wk = _declare_with_default(self, 1, "wk", (e, kvd), std, 1)
+        self.wv = _declare_with_default(self, 2, "wv", (e, kvd), std, 1)
+        self.wo = _declare_with_default(self, 3, "wo", (hd, e), std, 0)
 
     def _proj(self, params, key, x):
         """x @ w in x's dtype, which is the compute dtype (the embedding
@@ -160,64 +214,116 @@ class AttentionLayer(Layer):
         preferred_element_type einsum."""
         return torch.matmul(x, params[key].to(x.dtype))
 
-    def qkv(self, params, x, positions):
+    def qkv(self, params, x, positions, heads: int = 0, kv_heads: int = 0):
         """Projection + head split + RoPE, shared by `apply`'s strided
         routes and the KV-cache decode path (models/generate.py).
-        `positions`: (S,) absolute token positions.  Returns q
-        (B, H, S, D) and k, v (B, Hkv, S, D), before GQA expansion."""
+        `positions`: (S,) absolute token positions; `heads` and
+        `kv_heads` (default: the layer's) are the head counts `params`
+        project to.  Returns q (B, H, S, D) and k, v (B, Hkv, S, D),
+        before GQA expansion."""
+        heads, kv_heads = heads or self.heads, kv_heads or self.kv_heads
         b, s, e = x.shape
         q = self._proj(params, self.wq, x).reshape(
-            b, s, self.heads, self.head_dim).transpose(1, 2)
+            b, s, heads, self.head_dim).transpose(1, 2)
         k = self._proj(params, self.wk, x).reshape(
-            b, s, self.kv_heads, self.head_dim).transpose(1, 2)
+            b, s, kv_heads, self.head_dim).transpose(1, 2)
         v = self._proj(params, self.wv, x).reshape(
-            b, s, self.kv_heads, self.head_dim).transpose(1, 2)
+            b, s, kv_heads, self.head_dim).transpose(1, 2)
         if self.use_rope:
             q = attn_ops.rope(q, positions, self.rope_theta)
             k = attn_ops.rope(k, positions, self.rope_theta)
         return q, k, v
 
-    def _packed_eligible(self, s: int) -> bool:
-        """The zero-transpose packed flash route (seq_layers.py:201-203)."""
+    def _packed_eligible(self, s: int, ctx=None) -> bool:
+        """The zero-transpose packed flash route (seq_layers.py:190-212):
+        also under a mesh, on the rank's heads, where the sequence is
+        whole on the rank."""
         return (self.seq_parallel == "none"
                 and self.heads % self.kv_heads == 0
-                and attn_ops.flash_legal(s, self.head_dim))
+                and attn_ops.flash_legal(s, self.head_dim)
+                and (ctx is None or ctx.seq is None))
 
     def apply(self, params, srcs, ctx):
         x = srcs[0]
         b, s, e = x.shape
-        positions = torch.arange(s, device=x.device)
-        if self._packed_eligible(s):
-            # (B, S, H·D) end to end: the projections feed K1 directly
-            # and its output feeds wo directly
-            q = self._proj(params, self.wq, x)
-            k = self._proj(params, self.wk, x)
-            v = self._proj(params, self.wv, x)
-            if self.use_rope:
-                q = attn_ops.rope_packed(q, positions, self.heads,
-                                         self.rope_theta)
-                k = attn_ops.rope_packed(k, positions, self.kv_heads,
-                                         self.rope_theta)
-            out = attn_ops.flash_attention_packed(
-                q, k, v, self.heads, self.causal, self.kv_heads)
-            return self._proj(params, self.wo, out.to(x.dtype))
-        q, k, v = self.qkv(params, x, positions)
-        k = attn_ops.expand_kv_heads(k, self.heads)
-        v = attn_ops.expand_kv_heads(v, self.heads)
-        if attn_ops.flash_legal(s, self.head_dim):
-            out = attn_ops.flash_attention(q, k, v, self.causal)
+        keys = {self.wq: 1, self.wk: 1, self.wv: 1, self.wo: 0}
+        n = ctx.tp.group.n if ctx.tp is not None else 1
+        group = None
+        if (n > 1 and self.heads % n == 0 and self.kv_heads % n == 0
+                and _split(ctx, keys)):
+            from ..parallel import comm
+            group = ctx.tp.group
+            w, heads, kv_heads = params, self.heads // n, self.kv_heads // n
+            x = comm.copy_to(x, group)
         else:
-            key = (self.cfg.name, s, self.head_dim)
-            if key not in _dense_warned:
-                _dense_warned.add(key)
-                print(f"warning: attention layer {self.cfg.name!r} "
-                      f"(seq_len={s}, head_dim={self.head_dim}) takes "
-                      f"dense O(S^2)-memory attention — the flash kernel "
-                      f"route needs seq_len % 128 == 0 and head_dim % 8 "
-                      f"== 0", file=sys.stderr)
-            out = attn_ops.attention_reference(q, k, v, self.causal)
-        out = out.transpose(1, 2).reshape(b, s, -1)
-        return self._proj(params, self.wo, out.to(x.dtype))
+            w = {k: ctx.full(params, k) for k in keys}
+            heads, kv_heads = self.heads, self.kv_heads
+        out = self._attend(w, x, heads, kv_heads, ctx)
+        y = self._proj(w, self.wo, out.to(x.dtype))
+        if group is not None:
+            from ..parallel import comm
+            y = comm.all_reduce(y, group)
+        return y
+
+    def _attend(self, w, x, heads: int, kv_heads: int, ctx):
+        """(B, S, heads·D) attention output of this rank's heads."""
+        b, s, e = x.shape
+        positions = _positions(ctx, s, x.device)
+        if self._packed_eligible(s, ctx):
+            # (B, S, H·D) end to end: the projections feed K1 directly
+            # and its output feeds wo directly.  Over a model axis these
+            # are the rank's heads (the JAX package's
+            # packed_attention_sharded): head groups stay aligned, since
+            # both head counts divide by the axis
+            q = self._proj(w, self.wq, x)
+            k = self._proj(w, self.wk, x)
+            v = self._proj(w, self.wv, x)
+            if self.use_rope:
+                q = attn_ops.rope_packed(q, positions, heads,
+                                         self.rope_theta)
+                k = attn_ops.rope_packed(k, positions, kv_heads,
+                                         self.rope_theta)
+            return attn_ops.flash_attention_packed(q, k, v, heads,
+                                                   self.causal, kv_heads)
+        q, k, v = self.qkv(w, x, positions, heads, kv_heads)
+        if ctx.seq is not None and self.seq_parallel in ("ring",
+                                                          "ulysses"):
+            # kv stays at Hkv width: the ring rotates (and Ulysses
+            # all-to-alls) unexpanded kv.  Without a seq axis the layer
+            # takes the strided route below, whole-sequence attention
+            # as the JAX package's dense one under a seq axis of 1
+            from ..parallel import sequence
+            fn = (sequence.ring_attention if self.seq_parallel == "ring"
+                  else sequence.ulysses_attention)
+            out = fn(q, k, v, ctx.seq, self.causal)
+        elif ctx.seq is not None:
+            # a seq chunk without a seq-parallel route: attend over the
+            # whole sequence's kv, gathered (every rank's q reaches every
+            # rank's kv, so their gradients are summed over the axis)
+            from ..parallel import comm
+            kk = comm.all_gather(k, 2, ctx.seq, reduce_grad=True)
+            vv = comm.all_gather(v, 2, ctx.seq, reduce_grad=True)
+            out, _ = attn_ops.chunk_attention(
+                q, attn_ops.expand_kv_heads(kk, heads),
+                attn_ops.expand_kv_heads(vv, heads), self.causal,
+                ctx.seq.index * s, 0)
+            out = out.to(q.dtype)
+        else:
+            k = attn_ops.expand_kv_heads(k, heads)
+            v = attn_ops.expand_kv_heads(v, heads)
+            if attn_ops.flash_legal(s, self.head_dim):
+                out = attn_ops.flash_attention(q, k, v, self.causal)
+            else:
+                key = (self.cfg.name, s, self.head_dim)
+                if key not in _dense_warned:
+                    _dense_warned.add(key)
+                    print(f"warning: attention layer {self.cfg.name!r} "
+                          f"(seq_len={s}, head_dim={self.head_dim}) takes "
+                          f"dense O(S^2)-memory attention — the flash "
+                          f"kernel route needs seq_len % 128 == 0 and "
+                          f"head_dim % 8 == 0", file=sys.stderr)
+                out = attn_ops.attention_reference(q, k, v, self.causal)
+        return out.transpose(1, 2).reshape(b, s, -1)
 
 
 _ACTIVATIONS = {
@@ -230,7 +336,12 @@ _ACTIVATIONS = {
 
 @register_layer("kFeedForward")
 class FeedForwardLayer(Layer):
-    """Gated (SwiGLU) or plain MLP over (B, S, E)."""
+    """Gated (SwiGLU) or plain MLP over (B, S, E).  Over a model axis
+    each rank computes its hidden units (column-parallel w1, w3) and the
+    partial products with its rows of w2 are all-reduced; a hidden dim
+    the axis does not divide is zero-padded, which adds exact zeros."""
+
+    tp_aware = True
 
     def setup(self, src_shapes):
         p = self.cfg.ffn_param
@@ -245,21 +356,33 @@ class FeedForwardLayer(Layer):
         self.gated = p.gated
         self.out_shape = (b, s, e)
         std = 1.0 / math.sqrt(e)
-        self.w1 = _declare_with_default(self, 0, "w1", (e, f), std)
+        self.w1 = _declare_with_default(self, 0, "w1", (e, f), std, 1)
         self.w2 = _declare_with_default(self, 1, "w2", (f, e),
-                                        1.0 / math.sqrt(f))
+                                        1.0 / math.sqrt(f), 0)
         if self.gated:
-            self.w3 = _declare_with_default(self, 2, "w3", (e, f), std)
+            self.w3 = _declare_with_default(self, 2, "w3", (e, f), std, 1)
 
     def apply(self, params, srcs, ctx):
         x = srcs[0]
+        keys = {self.w1: 1, self.w2: 0}
+        if self.gated:
+            keys[self.w3] = 1
+        group = ctx.tp.group if _split(ctx, keys) else None
+        if group is not None:
+            from ..parallel import comm
+            x = comm.copy_to(x, group)
 
         def w(key):     # x is in the compute dtype (see AttentionLayer)
-            return params[key].to(x.dtype)
+            t = params[key] if group is not None else ctx.full(params, key)
+            return t.to(x.dtype)
         h = _ACTIVATIONS[self.activation](torch.matmul(x, w(self.w1)))
         if self.gated:
             h = h * torch.matmul(x, w(self.w3))
-        return torch.matmul(h, w(self.w2))
+        y = torch.matmul(h, w(self.w2))
+        if group is not None:
+            from ..parallel import comm
+            y = comm.all_reduce(y, group)
+        return y
 
 
 @register_layer("kMoE")
@@ -281,11 +404,16 @@ class MoELayer(Layer):
         std = 1.0 / math.sqrt(e)
         n = self.n_exp
         self.router = _declare_with_default(self, 0, "router", (e, n), std)
-        self.w1 = _declare_with_default(self, 1, "w1", (n, e, f), std)
-        self.b1 = _declare_with_default(self, 2, "b1", (n, f), 0.0)
+        # the stacked experts shard over the "expert" axis (A9 step 4);
+        # under a model axis alone they stay whole
+        self.w1 = _declare_with_default(self, 1, "w1", (n, e, f), std, 0,
+                                        "expert")
+        self.b1 = _declare_with_default(self, 2, "b1", (n, f), 0.0, 0,
+                                        "expert")
         self.w2 = _declare_with_default(self, 3, "w2", (n, f, e),
-                                        1.0 / math.sqrt(f))
-        self.b2 = _declare_with_default(self, 4, "b2", (n, e), 0.0)
+                                        1.0 / math.sqrt(f), 0, "expert")
+        self.b2 = _declare_with_default(self, 4, "b2", (n, e), 0.0, 0,
+                                        "expert")
         self._aux = None
 
     def apply(self, params, srcs, ctx):
@@ -330,7 +458,11 @@ class _HeadProjection:
 @register_layer("kLMHead")
 class LMHeadLayer(Layer, _HeadProjection):
     """(B, S, E) → (B, S, V) logits; optionally tied to the embedding via
-    share_param."""
+    share_param.  An untied (E, V) weight shards V over a model axis:
+    each rank projects onto its vocab columns and the logits are
+    gathered; a tied one is gathered whole at use."""
+
+    tp_aware = True
 
     def setup(self, src_shapes):
         p = self.cfg.embed_param
@@ -339,11 +471,19 @@ class LMHeadLayer(Layer, _HeadProjection):
         b, s, e = tuple(src_shapes[0])
         self.out_shape = (b, s, p.vocab_size)
         self.tied = bool(self.cfg.share_param)
+        self.vocab_size = p.vocab_size
         self.w_key = _declare_with_default(
-            self, 0, "w", (e, p.vocab_size), 1.0 / math.sqrt(e))
+            self, 0, "w", (e, p.vocab_size), 1.0 / math.sqrt(e), 1)
 
     def apply(self, params, srcs, ctx):
-        return self.project_logits(params, srcs[0], ctx.compute_dtype)
+        if not self.tied and _split(ctx, {self.w_key: 1}):
+            from ..parallel import comm
+            group = ctx.tp.group
+            logits = self.project_logits(params, comm.copy_to(srcs[0], group),
+                                         ctx.compute_dtype)
+            return comm.all_gather(logits, -1, group)[..., :self.vocab_size]
+        return self.project_logits({self.w_key: ctx.full(params, self.w_key)},
+                                   srcs[0], ctx.compute_dtype)
 
 
 @register_layer("kLMHeadLoss")
@@ -364,7 +504,7 @@ class LMHeadLossLayer(Layer, _HeadProjection):
         self.chunk = p.loss_chunk or 4096
         self.tied = bool(self.cfg.share_param)
         self.w_key = _declare_with_default(
-            self, 0, "w", (e, p.vocab_size), 1.0 / math.sqrt(e))
+            self, 0, "w", (e, p.vocab_size), 1.0 / math.sqrt(e), 1)
         self.flops_shape = (b, s, e, p.vocab_size)   # for utils.flops
         self.out_shape = (2,)
 

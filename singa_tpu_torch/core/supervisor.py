@@ -136,7 +136,9 @@ class Supervisor:
 
     # -- state machine -----------------------------------------------------
     def _fresh_state(self, seed: int):
-        """INIT: the deterministic step-0 state (same seed, same init)."""
+        """INIT: the deterministic step-0 state (same seed, same init),
+        this rank's shards of it over a model axis (`Trainer.init`
+        shards, as the JAX supervisor shards after init)."""
         return self.trainer.init(seed=seed)
 
     def _restore(self, params, opt, seed: int,
@@ -144,7 +146,9 @@ class Supervisor:
         """RESTORE: latest valid snapshot, with its own (small) retry
         budget — a flaky restore read is not a training failure.  After
         a divergence the restore also skips snapshots with a bad health
-        verdict (rollback PAST the unhealthy window)."""
+        verdict (rollback PAST the unhealthy window).  A snapshot is whole
+        and spec-shaped; `Trainer.resume` re-shards it over a model
+        axis."""
         if not self.workspace:
             return params, opt, 0
         with obs.span("supervisor.restore", corr=corr,

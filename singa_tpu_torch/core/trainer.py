@@ -68,14 +68,19 @@ steps.  The center is not checkpointed: it seeds lazily from the first
 post-warmup params of the process, so a resumed run seeds it anew.
 Several replica groups train through `parallel.elastic.ReplicaSet`.
 
-Data parallelism over processes (`dp=`, a `parallel.partition.
-DataParallel`): every rank is handed the same global batch, trains on
-its slice of dim 0 (drawing layers keep their rows of the global draw)
-and averages the gradients and the step's metrics over the data axis
-through gloo before the update, so every rank applies the same update.
-A gloo collective cannot be captured, so such a trainer's train step
-runs eagerly; evaluation runs the whole global batch on every rank, and
-only rank 0 writes checkpoints.
+Training over a process mesh (`dp=`, a `parallel.partition.
+DataParallel`): every rank is handed the same global batch and trains
+on its slice of dim 0 (and for a sequence-parallel net its chunk of
+dim 1; drawing layers keep their part of the global draw).  Over a
+model axis the params and optimizer state are the rank's shards
+(`init` and `resume` shard them) and the layers run their collectives
+over the axis; the gradients and the step's metrics are averaged over
+the data × seq ranks through gloo before the update, so every rank of
+a model shard applies the same update.  A gloo collective cannot be
+captured, so such a trainer's steps run eagerly, the evaluation's too;
+evaluation runs the whole global batch on every rank (its seq chunk
+under sequence parallelism), and only rank 0 writes checkpoints, whole
+and spec-shaped (`_ckpt_state` gathers them over the model axis).
 
 Not ported yet (ROADMAP.md A9): pipeline nets.
 """
@@ -214,10 +219,11 @@ class Trainer:
         holds the choice.
 
         `dp` (a `parallel.partition.DataParallel` over more than one
-        process) trains on this rank's slice of each global batch and
-        averages gradients and metrics over the data axis; its train step
-        runs eagerly (a gloo collective cannot be captured), so `graphs`
-        must not be True, and the net must not compute over the whole
+        process) trains on this rank's part of each global batch with its
+        shards of the params, and averages gradients and metrics over
+        the data × seq ranks; its steps run eagerly (a gloo collective
+        cannot be captured), so `graphs` must not be True, and under a
+        data or seq axis above 1 the net must not compute over the whole
         batch at once (`parallel.partition.batch_coupling`)."""
         self.cfg = model_cfg
         self.seed = seed
@@ -225,15 +231,18 @@ class Trainer:
         self.log = log_fn if log_fn is not None \
             else (lambda msg: print(f"[trainer] {msg}", flush=True))
         self.device = resolve_device(device)
-        self.dp = dp if dp is not None and dp.n > 1 else None
+        self.dp = (dp if dp is not None and (dp.n > 1 or dp.world > 1)
+                   else None)
         if self.dp is not None and graphs:
-            raise ValueError("graphs=True cannot capture the data-parallel "
-                             "step: its gloo collective runs on the host")
-        if self.dp is not None:
+            raise ValueError("graphs=True cannot capture a step over "
+                             "several processes: its gloo collectives run "
+                             "on the host")
+        if self.dp is not None and (self.dp.n > 1
+                                    or self.dp.seq_group.n > 1):
             from ..parallel.partition import batch_coupling
             coupled = batch_coupling(model_cfg)
             if coupled:
-                raise ValueError(f"data parallelism over "
+                raise ValueError(f"data or sequence parallelism over "
                                  f"{'; '.join(coupled)} is not in the port "
                                  f"yet (ROADMAP.md A9)")
         self.compute_dtype = (torch.bfloat16
@@ -241,12 +250,22 @@ class Trainer:
         self.train_net = build_net(model_cfg, "kTrain", input_shapes)
         self.test_net = self._maybe_net("kTest", input_shapes)
         self.val_net = self._maybe_net("kValidation", input_shapes)
+        if self.dp is not None:
+            from ..parallel.partition import uses_sequence_parallel
+            self.dp.bind(self.train_net, uses_sequence_parallel(model_cfg))
+            if model_cfg.alg == "kContrastiveDivergence" and any(
+                    self.dp.sharded(k) for k in self.train_net.param_specs):
+                raise ValueError("contrastive divergence over sharded params "
+                                 "is not in the port yet (ROADMAP.md A9)")
         self.updater = make_updater(model_cfg.updater)
         self.multipliers = self.train_net.multipliers()
         from ..parallel.elastic import ElasticController, async_active
         self.elastic = (ElasticController(model_cfg.updater, ngroups,
                                           log_fn=self.log)
                         if async_active(model_cfg.updater) else None)
+        # a step over several processes (a data, model or seq axis) runs
+        # eager: its gloo collectives, staged through the host, cannot be
+        # captured
         self.graphs = self._pick_graphs(False if self.dp else graphs)
         # one generator per drawing layer of the train net, keyed by its
         # topological index, seeded before every step (`_seed_layers`)
@@ -323,8 +342,8 @@ class Trainer:
         if net is None:
             return None
         # the trainer holds these closures: they must not hold it
-        compute_dtype, seed, state = self.compute_dtype, self.seed, \
-            self._state
+        compute_dtype, seed, state, dp = self.compute_dtype, self.seed, \
+            self._state, self.dp
         program = f"eval_step[{net.phase}]"
         harvested = []
 
@@ -332,10 +351,14 @@ class Trainer:
             if not harvested:   # at the capture, or the first eager call
                 perf.harvest(program, flops=net_forward_flops(net))
                 harvested.append(program)
+            if dp is not None:  # every row; a seq chunk under SP
+                batch = dp.shard(batch, rows=False)
             with torch.no_grad():
                 _, metrics, _ = net.apply(params, batch, train=False,
                                           compute_dtype=compute_dtype,
-                                          rng=seed)
+                                          rng=seed, par=dp)
+            if dp is not None and dp.seq_sharding:
+                metrics = dp.mean_dict(metrics, group=dp.seq_group)[0]
             return metrics
         if not self.graphs:
             return forward
@@ -347,7 +370,12 @@ class Trainer:
 
     # -- init --------------------------------------------------------------
     def init(self, seed: int = 0):
+        """Params from `seed` and their optimizer state; over a model
+        axis this rank's shards of them (every rank draws the whole
+        params from the same seed)."""
         params = self.train_net.init_params(seed, device=self.device)
+        if self.dp is not None:
+            params = self.dp.shard_params(params)
         return params, self.updater.init(params)
 
     # -- steps -------------------------------------------------------------
@@ -365,11 +393,15 @@ class Trainer:
         self._seed_layers(step)
         return self._grads(params, batch, step)[:2]
 
-    def _grads(self, params, batch, step: Optional[int],
-               shard=None) -> tuple:
+    def _grads(self, params, batch, step: Optional[int]) -> tuple:
         """`gradients` with the generators as they stand, and the layer
-        outputs: (metrics, grads, outputs).  `shard` (index, n) marks
-        `batch` as a slice of the global batch."""
+        outputs: (metrics, grads, outputs).  Under `dp` `batch` is the
+        global batch, of which this rank takes its part (drawing layers
+        keep their part of the global draw), and the gradients are this
+        rank's, not yet averaged."""
+        shard = None
+        if self.dp is not None:
+            batch, shard = self.dp.shard(batch), self.dp.shard_spec
         names = sorted(params)
         tensors = [params[k] for k in names]
         for p in tensors:
@@ -379,7 +411,8 @@ class Trainer:
                 loss, metrics, outputs = self.train_net.apply(
                     params, batch, train=True,
                     compute_dtype=self.compute_dtype, rng=self.seed,
-                    step=step, generators=self._gens, shard=shard)
+                    step=step, generators=self._gens, shard=shard,
+                    par=self.dp)
             grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         finally:
             for p in tensors:
@@ -392,22 +425,19 @@ class Trainer:
         """Forward, backward and the update of the step last written by
         `Updater.set_step`, drawing from the generators as seeded: the
         device work of one train step, eager or captured.  Under `dp`
-        the global `batch` is sliced here and the gradients and metrics
-        are averaged over the data axis before the update.  `poison` (a
+        the global `batch` is sliced in `_grads`, and the gradients and
+        metrics are averaged over the data × seq ranks before the
+        update.  `poison` (a
         `step.grad` fault's scale) multiplies the gradients first.  With a
         health monitor the metrics gain the probes, over a copy of the
         params taken before the update (the updater writes them in
         place)."""
-        if self.dp is None:
-            metrics, grads, _ = self._grads(params, batch, step)
-        else:
-            # this rank's slice of the global batch; the mean over the
-            # data axis of the slices' gradients is the global batch's
-            metrics, grads, _ = self._grads(params, self.dp.shard(batch),
-                                            step, shard=self.dp.shard_spec)
+        metrics, grads, _ = self._grads(params, batch, step)
         grads = {k: g if g is not None else torch.zeros_like(params[k])
                  for k, g in grads.items()}
         if self.dp is not None:
+            # the mean over data × seq of the ranks' gradients is the
+            # global batch's; the model axis holds other shards
             grads, metrics = self.dp.mean_dict(grads, metrics)
         if poison is not None:
             grads = {k: g * poison for k, g in grads.items()}
@@ -422,7 +452,10 @@ class Trainer:
                                multipliers=self.multipliers)
         if old is not None:
             from ..utils.health import health_probes
-            metrics = {**metrics, **health_probes(grads, old, params)}
+            metrics = {**metrics, **health_probes(
+                grads, old, params,
+                model=(self.dp if self.dp is not None
+                       and self.dp.model.n > 1 else None))}
         return metrics
 
     def _train_body(self, state, batch, step: int):
@@ -939,7 +972,7 @@ class Trainer:
         with torch.no_grad():
             _, _, outputs = net.apply(
                 params, batch, train=False, compute_dtype=self.compute_dtype,
-                layer_subset=net.topo[:net.topo.index(name)])
+                layer_subset=net.topo[:net.topo.index(name)], par=self.dp)
         v = outputs[net.layers[name].cfg.srclayers[0]]
         return v.reshape(v.shape[0], -1).float()
 
@@ -1143,6 +1176,9 @@ class Trainer:
         `skip_unhealthy` restore walks past it."""
         if ckpt is None:
             return False
+        params, opt_state = self._ckpt_state(params, opt_state)
+        if ckpt is _GATHER_ONLY:
+            return False
         if self.health is None:
             ckpt.save(step, params, opt_state)
             self._publish(step, None)
@@ -1160,6 +1196,17 @@ class Trainer:
         self.health.mark_snapshot()
         self._publish(step, rec.get("verdict"))
         return True
+
+    def _ckpt_state(self, params, opt_state):
+        """(params, opt_state) as a snapshot holds them: whole and
+        spec-shaped, gathered over the model axis (a collective every
+        rank joins) and unpadded, so a snapshot restores under any mesh
+        or none."""
+        if self.dp is not None:
+            params, opt_state = self.dp.gather_state(params, opt_state)
+        net = self.train_net
+        return (net.unpad_params(params),
+                {k: net.unpad_params(t) for k, t in opt_state.items()})
 
     def _publish(self, step: int, verdict) -> None:
         """Run `on_checkpoint(step, verdict)` after the snapshot and its
@@ -1192,10 +1239,14 @@ class Trainer:
         signal, installed only on the main thread.  Pair with
         `_ckpt_unguard(old_handlers)`."""
         saving = bool(workspace) and self.cfg.checkpoint_frequency > 0
-        ckpt = (CheckpointManager(workspace, log_fn=self.log)
-                # every rank holds the same state: rank 0 writes it
-                if saving and (self.dp is None or self.dp.rank == 0)
-                else None)
+        ckpt = None
+        if saving and (self.dp is None or self.dp.rank == 0):
+            # every rank holds the same state (or its shard of it):
+            # rank 0 writes it whole
+            ckpt = CheckpointManager(workspace, log_fn=self.log)
+        elif saving and self.dp.model.n > 1:
+            # the other ranks join the gather of every save
+            ckpt = _GATHER_ONLY
         interrupted: List[int] = []
         old_handlers: Dict[Any, Any] = {}
         # under dp every rank notes a signal, and `_interrupt` stops them
@@ -1253,11 +1304,18 @@ class Trainer:
                    opt_state_from_numpy(self.train_net, ro,
                                         device=self.device),
                    step)
+            if self.dp is not None:     # a snapshot is whole: re-shard it
+                out = (*self.dp.shard_state(out[0], out[1]), step)
         if self.dp is not None:
             self.dp.agree(out[0], out[1], step=out[2],
                           what=f" on resuming from {workspace} (every "
                           f"rank must see the one workspace rank 0 writes)")
         return out
+
+
+# the checkpoint manager of a rank that writes nothing but joins the
+# gather of every save (`_ckpt_guard`)
+_GATHER_ONLY = object()
 
 
 def _own(state: Dict[str, Any], params, opt_state=None) -> Dict[str, Any]:

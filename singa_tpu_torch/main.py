@@ -72,22 +72,28 @@ Several processes (`_run`, `:758-797`): the reference's launch,
 joins one gloo process group per run (`parallel/bootstrap.py`; the
 first hostfile line is the coordinator, `start_port` its port unless
 the line says `host:port`; a one-line hostfile is a single-process
-run).  With more than one process the cluster config's data axis
-(`data_parallel: N`, or the legacy worker groups under kDataPartition
-or kNone) spans the group: every process builds the same global batch
-and trains on its slice, gradients averaged over the group
-(`parallel/partition.py`).  Only rank 0 writes checkpoints, so the
-processes must share one workspace: `--resume` fails on every rank,
-naming each rank's step, where the ranks took up different states.
+run).  With more than one process the cluster config's mesh spans the
+group (`parallel/mesh.py`): its data axis (`data_parallel: N`, or the
+legacy worker groups under kDataPartition or kNone), its model axis
+(`tensor_parallel: N`, or kLayerPartition over a group of several
+executors) and its seq axis (`sequence_parallel: N`).  Every process
+builds the same global batch and trains on its part, with its shards of
+the params and optimizer state, gradients averaged over the data × seq
+ranks (`parallel/partition.py`, `parallel/sequence.py`); such a run is
+eager.  Only rank 0 writes checkpoints, whole, so the processes must
+share one workspace: `--resume` fails on every rank, naming each rank's
+step, where the ranks took up different states.  A mesh that does not
+fit the process count raises, and a cluster config's mesh over one
+process is not used, as in the JAX CLI.
 
 A workspace holding orbax steps that cannot be read here (no
 `tensorstore`) ends any subcommand with exit 1 and the reason, never a
 run from step 0.  The CLI runs on the card and has no device flag;
 `main(argv, device="cpu")` is the Python entry that runs it on the CPU.
 What the port does not have yet exits 2, naming its ROADMAP.md item: a
-cluster config that asks for a tensor, pipeline, sequence or expert
-axis above 1, and a data axis above 1 under a net that computes over
-the whole batch at once (a kMoE layer, contrastive divergence) (A9).
+cluster config that asks for a pipeline or expert axis above 1, and a
+data or seq axis above 1 under a net that computes over the whole batch
+at once (a kMoE layer, contrastive divergence) (A9).
 """
 
 from __future__ import annotations
@@ -789,10 +795,18 @@ def _run(args, device: DeviceLike) -> int:
                if args.cluster_conf else None)
     from .parallel.mesh import unported_axes
     ptype = model.neuralnet.partition_type if model.neuralnet else "kNone"
-    lacking = unported_axes(cluster, ptype)
+    lacking = unported_axes(cluster)
     if lacking:
-        return _lacking(f"a cluster config with {lacking} (tensor, "
-                        f"pipeline, sequence or expert parallelism)", "A9")
+        return _lacking(f"a cluster config with {lacking} (pipeline or "
+                        f"expert parallelism)", "A9")
+    from .parallel.partition import batch_coupling
+    coupled = batch_coupling(model)
+    if cluster is not None and coupled and max(
+            cluster.data_parallel or 0, cluster.sequence_parallel or 0) > 1:
+        # refused on any process count (the legacy worker groups' data
+        # axis, which follows the count, is checked under the mesh)
+        return _lacking(f"data or sequence parallelism over "
+                        f"{'; '.join(coupled)}", "A9")
     # the multi-process bootstrap comes before any device is chosen:
     # -procsID/-hostfile are the reference's launch (run.sh:20-37)
     joined = False
@@ -845,8 +859,10 @@ def _train(args, device: DeviceLike, model, cluster, ptype, log) -> int:
             "monitor is disabled and the spec only configures the "
             "supervisor's divergence policy")
     # the mesh over the group's processes, when there are several: its
-    # data axis splits every global batch (the JAX CLI's mesh over the
-    # devices, `:788-797`)
+    # data axis splits every global batch, its model axis the params and
+    # its seq axis a sequence-parallel net's tokens (the JAX CLI's mesh
+    # over the devices, `:788-797`, and its shard_params after init,
+    # `:950-957`, which `Trainer.init` and `resume` do here)
     from .parallel.bootstrap import process_count
     dp = None
     from .parallel.elastic import async_active
@@ -862,8 +878,8 @@ def _train(args, device: DeviceLike, model, cluster, ptype, log) -> int:
         else:
             from .parallel.partition import batch_coupling
             coupled = batch_coupling(model)
-            if mesh.shape["data"] > 1 and coupled:
-                return _lacking(f"data parallelism over "
+            if max(mesh.shape["data"], mesh.shape["seq"]) > 1 and coupled:
+                return _lacking(f"data or sequence parallelism over "
                                 f"{'; '.join(coupled)}", "A9")
             dp = DataParallel(mesh)
     trainer = Trainer(model, input_shapes, log_fn=obs.get_logger("trainer"),
@@ -961,9 +977,12 @@ def _train(args, device: DeviceLike, model, cluster, ptype, log) -> int:
         finally:
             train_iter.close()
         if dp is not None:
-            log(f"data-parallel ranks agree: params sha256 "
+            from .parallel.comm import stats
+            ex = stats(dp.grads)
+            log(f"ranks agree: params sha256 "
                 f"{dp.agree(params)} (rank {dp.rank} of {dp.n}); "
-                f"{dp.calls} exchanges, {dp.seconds * 1e3:.3f} ms in all")
+                f"{ex['calls']} exchanges, {ex['seconds'] * 1e3:.3f} ms in "
+                f"all")
     final = trainer.perf.to_string()
     log("training done" + (f": {final}" if final else
                            f" at step {model.train_steps}"))

@@ -27,6 +27,15 @@ in O and lse), `flash_attention_packed` and the strided
 `flash_attention` (K1 with one head per row, `:135-160`) all go
 through it.
 
+Ring attention's helpers (`:48-73`, `:174-266`, `:725-751`), for
+`parallel/sequence.py`: `chunk_attention` and `merge_attention` (partial
+results with absolute-position masks, merged in log-sum-exp space),
+`chunk_attention_blockwise` and `blockwise_attention` (the same in
+kv sub-blocks), `flash_chunk` (K1 forward, K3 and K4 backward, with one
+head per row and a differentiable lse), `flash_chunk_legal` and the
+JAX package's block table (`flash_blocks`, `set_flash_blocks`), which
+decides the routes, not the kernels' tiles.
+
 The TPU block geometry (`flash_blocks`, `_fit_block`) is not carried
 over: the CUDA kernels tile on their own terms and take any S and any
 head_dim (in bf16 a multiple of 8, as the route rule asks).  What stays is the shape rule that decides the route in
@@ -473,3 +482,135 @@ def flash_attention(q, k, v, causal: bool = True):
         k.reshape(b * h, sk, d).contiguous(),
         v.reshape(b * h, sk, d).contiguous(), 1, causal)
     return out.reshape(b, h, sq, d)
+
+
+# ---------------------------------------------------------------------------
+# ring-attention helpers (`:48-73`, `:174-266`, `:725-751`): the local
+# steps of `parallel/sequence.py`
+
+# (block_q, block_k) pinned by `set_flash_blocks`, None for the table
+_FLASH_BLOCK_OVERRIDE: Optional[tuple] = None
+
+
+def set_flash_blocks(override: Optional[tuple]) -> None:
+    """Pin what `flash_blocks` returns (None: the table).  In the port
+    only the blockwise route reads it (its `block_k`, through the ring's
+    caller); the CUDA kernels' tiles are fixed by their own design
+    (`FLASH_BLOCK_Q`, `FLASH_BLOCK_K`) and take no block argument."""
+    global _FLASH_BLOCK_OVERRIDE
+    _FLASH_BLOCK_OVERRIDE = override
+
+
+def flash_blocks(seq_len: int) -> tuple:
+    """The JAX package's (block_q, block_k) table for a sequence length:
+    (512, 1024) from 1024 on, else (512, 512), unless pinned."""
+    if _FLASH_BLOCK_OVERRIDE is not None:
+        return _FLASH_BLOCK_OVERRIDE
+    if seq_len >= 1024:
+        return (512, 1024)
+    return (512, 512)
+
+
+def chunk_attention(q, k, v, causal: bool, q_off: int, kv_off: int):
+    """Partial attention of a q chunk (B, H, Sq, D) against a kv chunk
+    (B, H, Sk, D) under an absolute-position causal mask (q_off and
+    kv_off are the chunks' first positions).  Returns (normalized out
+    f32, lse (B, H, Sq, 1)), the form `merge_attention` merges; a row
+    that sees no key gives zeros and lse NEG_INF, and no NaN in either
+    direction."""
+    d = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    if causal:
+        qpos = torch.arange(q.shape[2], device=q.device)[:, None] + q_off
+        kpos = torch.arange(k.shape[2], device=q.device)[None, :] + kv_off
+        s = torch.where(qpos >= kpos, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.clamp_min(m, NEG_INF / 2)    # guard fully masked rows
+    p = torch.exp(s - m_safe)
+    p = torch.where(s <= NEG_INF / 2, torch.zeros_like(p), p)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    out = out / torch.clamp_min(l, 1e-30)
+    lse = torch.where(l > 0, m_safe + torch.log(torch.clamp_min(l, 1e-30)),
+                      torch.full_like(l, NEG_INF))
+    return out, lse
+
+
+def merge_attention(out1, lse1, out2, lse2):
+    """Merge two partial (normalized out, lse) attention results."""
+    lse = torch.logaddexp(torch.clamp_min(lse1, NEG_INF),
+                          torch.clamp_min(lse2, NEG_INF))
+    return (out1 * torch.exp(lse1 - lse) + out2 * torch.exp(lse2 - lse),
+            lse)
+
+
+def _blockwise_scan(q, k, v, causal: bool, q_off: int, kv_off: int,
+                    block_k: int):
+    """The kv chunk in `block_k` sub-blocks, merged online, each
+    sub-block recomputed in the backward (`jax.checkpoint`)."""
+    from torch.utils.checkpoint import checkpoint
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.full(q.shape[:3] + (1,), NEG_INF, dtype=torch.float32,
+                     device=q.device)
+    for i in range(k.shape[2] // block_k):
+        sl = slice(i * block_k, (i + 1) * block_k)
+        o_new, l_new = checkpoint(chunk_attention, q, k[:, :, sl],
+                                  v[:, :, sl], causal, q_off,
+                                  kv_off + i * block_k, use_reentrant=False)
+        out, lse = merge_attention(out, lse, o_new, l_new)
+    return out, lse
+
+
+def chunk_attention_blockwise(q, k, v, causal: bool, q_off: int,
+                              kv_off: int, block_k: int = 512):
+    """`chunk_attention` with flash-style memory: a kv chunk longer than
+    `block_k` (and a multiple of it) is taken in `block_k` sub-blocks
+    merged online, so the score matrix is O(Sq·block_k).  Same contract
+    as `chunk_attention`."""
+    sk = k.shape[2]
+    if sk <= block_k or sk % block_k:
+        return chunk_attention(q, k, v, causal, q_off, kv_off)
+    return _blockwise_scan(q, k, v, causal, q_off, kv_off, block_k)
+
+
+def blockwise_attention(q, k, v, causal: bool = True, block_k: int = 512):
+    """O(S·block_k)-memory attention of (B, H, S, D) q, k, v: kv blocks
+    merged in log-sum-exp space, each recomputed in the backward; the
+    dense reference when the blocks do not tile S.  Out in q's dtype."""
+    sk = k.shape[2]
+    bk = min(block_k, sk)
+    if sk % bk:
+        return attention_reference(q, k, v, causal)
+    out, _ = _blockwise_scan(q, k, v, causal, 0, 0, bk)
+    return out.to(q.dtype)
+
+
+def flash_chunk(q, k, v, causal: bool):
+    """Ring attention's local step on K1 (K3 and K4 backward): strided
+    (B, H, Sq, D) × (B, H, Sk, D) → (normalized out f32, natural lse
+    (B, H, Sq, 1)), `chunk_attention`'s contract, through
+    `flash_attention_packed_lse` with one head per row.  Legal for the
+    diagonal rotation (equal q and kv offsets) or causal=False (a fully
+    visible rotation); the ring picks the case per rotation.  The lse is
+    differentiable: `merge_attention` gives it a cotangent, which joins
+    delta in the backward."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    out, lse = flash_attention_packed_lse(
+        q.reshape(b * h, sq, d).contiguous(),
+        k.reshape(b * h, sk, d).contiguous(),
+        v.reshape(b * h, sk, d).contiguous(), 1, causal)
+    return (out.reshape(b, h, sq, d).float(), lse.reshape(b, h, sq, 1))
+
+
+def flash_chunk_legal(sq: int, sk: int, d: int) -> bool:
+    """The JAX package's rule for whether `flash_chunk` tiles these local
+    chunk shapes (a block of at most 512 dividing each length that is a
+    multiple of 8, and head_dim % 8 == 0), so both packages take the
+    same route; the CUDA kernels themselves take any length."""
+    def ok(n):
+        c = min(512, n)
+        while n % c:
+            c //= 2
+        return c % 8 == 0
+    return sq >= 8 and sk >= 8 and d % 8 == 0 and ok(sq) and ok(sk)

@@ -18,9 +18,12 @@ import torch
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
             train: bool = True,
-            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+            rows: Optional[Tuple[int, int]] = None,
+            cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """`rows` (global rows, first row) draws the mask of a global batch
-    and keeps x's rows of it (x is one slice under data parallelism)."""
+    and keeps x's rows of it (x is one slice under data parallelism);
+    `cols` does the same for dim 1 (x is one chunk of the sequence under
+    sequence parallelism)."""
     if not train or rate <= 0.0:
         return x
     pkeep = 1.0 - rate
@@ -30,6 +33,12 @@ def dropout(x: torch.Tensor, rate: float,
                 / torch.tensor(pkeep, dtype=x.dtype))
     b = x.shape[0]
     gb, lo = rows if rows is not None else (b, 0)
-    u = torch.rand((gb,) + tuple(x.shape[1:]), generator=generator,
-                   device=x.device)[lo:lo + b]
+    if x.dim() > 1:
+        s = x.shape[1]
+        gs, c0 = cols if cols is not None else (s, 0)
+        u = torch.rand((gb, gs) + tuple(x.shape[2:]), generator=generator,
+                       device=x.device)[lo:lo + b, c0:c0 + s]
+    else:
+        u = torch.rand((gb,), generator=generator,
+                       device=x.device)[lo:lo + b]
     return x * ((u < pkeep).to(x.dtype) * inv)

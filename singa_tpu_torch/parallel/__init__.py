@@ -1,18 +1,22 @@
 """Parallelism of the port (`singa_tpu/parallel/`): the multi-process
 bootstrap on `torch.distributed` (`bootstrap.py`: `distributed_init`,
-`coordinator_address`, `parse_hostfile`), the process mesh
-(`mesh.py`), the data axis of the partitioner (`partition.py`:
-`shard_batch`, `DataParallel`), and the elastic tier (`elastic.py`:
-EASGD, RandomSync, `ElasticController`, `ReplicaSet`, and
-`DistributedReplicaSet` over the process group), exported lazily as the
-JAX package exports it.  Tensor, pipeline, sequence and expert
+`coordinator_address`, `parse_hostfile`), the process mesh and its
+subgroups (`mesh.py`), the collectives of an axis (`comm.py`), the
+partitioner's data, model and seq axes (`partition.py`: `shard_batch`,
+`param_shardings`, `pad_params`, `shard_params`, `shard_opt_state`,
+`DataParallel`), ring and Ulysses attention (`sequence.py`), and the
+elastic tier (`elastic.py`: EASGD, RandomSync, `ElasticController`,
+`ReplicaSet`, and `DistributedReplicaSet` over the process group),
+exported lazily as the JAX package exports it.  Pipeline and expert
 parallelism are ROADMAP.md A9.
 """
 
 from .bootstrap import (DEFAULT_PORT, coordinator_address, distributed_init,
                         parse_hostfile)
 from .mesh import AXES, Mesh, make_mesh, mesh_from_cluster
-from .partition import DataParallel, shard_batch
+from .partition import (DataParallel, pad_params, param_shardings,
+                        shard_batch, shard_opt_state, shard_params)
+from .sequence import ring_attention, ulysses_attention
 
 _LAZY = {
     "ElasticController": ("elastic", "ElasticController"),

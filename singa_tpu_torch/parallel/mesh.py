@@ -13,8 +13,11 @@ include/utils/cluster.h) becomes named axes, as in the JAX package:
 
 Here the mesh is topology arithmetic over ranks: its "devices" are the
 processes of the `torch.distributed` group, one card each (or a share
-of one).  The port runs the data axis (`parallel/partition.py`); the
-other axes are ROADMAP.md A9 (`unported_axes` names them).
+of one).  The port runs the data, model and seq axes
+(`parallel/partition.py`, `parallel/sequence.py`); the pipe and expert
+axes are ROADMAP.md A9 (`unported_axes` names them).  `axis_groups`
+makes the process subgroups that the collectives of an axis run over
+(`parallel/comm.py`).
 """
 
 from __future__ import annotations
@@ -22,11 +25,12 @@ from __future__ import annotations
 import math
 import sys
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..config.schema import ClusterConfig
+from .comm import AxisGroup
 
 AXES = ("data", "model", "pipe", "seq", "expert")
 
@@ -126,24 +130,49 @@ def mesh_from_cluster(cluster: Optional[ClusterConfig],
     return make_mesh(devices)
 
 
-def unported_axes(cluster: Optional[ClusterConfig],
-                  net_partition_type: str = "kNone") -> Dict[str, int]:
-    """The axes other than `data` that `cluster` asks to be above 1
-    (tensor, pipeline, sequence and expert parallelism, and
-    kLayerPartition over a group of several executors), by name: what
-    the port cannot run yet (ROADMAP.md A9)."""
+def unported_axes(cluster: Optional[ClusterConfig]) -> Dict[str, int]:
+    """The axes that `cluster` asks to be above 1 and the port cannot run
+    yet (pipeline and expert parallelism, ROADMAP.md A9), by name.
+    kLayerPartition over a group of several executors maps to the model
+    axis (`mesh_from_cluster`) and runs."""
     if cluster is None:
         return {}
-    out = {name: int(v) for name, v in (
-        ("tensor_parallel", cluster.tensor_parallel),
+    return {name: int(v) for name, v in (
         ("pipeline_parallel", cluster.pipeline_parallel),
-        ("sequence_parallel", cluster.sequence_parallel),
         ("expert_parallel", cluster.expert_parallel)) if (v or 1) > 1}
-    group_size = cluster.nprocs_per_group * cluster.nthreads_per_procs
-    if (net_partition_type == "kLayerPartition" and group_size > 1
-            and not any((cluster.data_parallel, cluster.tensor_parallel,
-                         cluster.pipeline_parallel,
-                         cluster.sequence_parallel,
-                         cluster.expert_parallel))):
-        out["kLayerPartition group_size"] = group_size
+
+
+def _group_order(mesh: Mesh, axes: Tuple[str, ...]):
+    """The rank tuples of every group that varies `axes` (the other
+    coordinates fixed), in one order on every rank; each tuple lists
+    its ranks in the axes' order."""
+    names = list(mesh.axis_names)
+    moved = np.moveaxis(mesh.devices, [names.index(a) for a in axes],
+                        list(range(-len(axes), 0)))
+    width = int(np.prod([mesh.shape[a] for a in axes]))
+    return [tuple(int(r) for r in row)
+            for row in moved.reshape(-1, width)]
+
+
+def axis_groups(mesh: Mesh, rank: int,
+                specs: Sequence[Tuple[str, ...]]) -> List[AxisGroup]:
+    """This rank's `AxisGroup` for each tuple of axes in `specs` (a group
+    varies those axes and fixes the others).  In a process group of
+    several processes every rank must make the same calls in the same
+    order, since `torch.distributed.new_group` is collective: each rank
+    creates every group of every spec, in one order, and keeps its own.
+    A group of one needs no process group."""
+    import torch.distributed as dist
+    out = []
+    for axes in specs:
+        mine = None
+        for ranks in _group_order(mesh, axes):
+            pg = (dist.new_group(list(ranks), backend="gloo")
+                  if len(ranks) > 1 and dist.is_initialized() else None)
+            if rank in ranks:
+                mine = AxisGroup(ranks, ranks.index(rank), pg,
+                                 "×".join(axes))
+        if mine is None:
+            raise ValueError(f"rank {rank} is not in the mesh")
+        out.append(mine)
     return out

@@ -1,40 +1,58 @@
-"""Data parallelism over the processes of the group: the data half of
-`singa_tpu/parallel/partition.py`.
+"""The partitioner over the processes of the group: the port of
+`singa_tpu/parallel/partition.py`, both halves.
 
 Under XLA a batch is `jax.device_put` under a `NamedSharding` that
-splits dim 0 over the mesh's "data" axis (`batch_shardings`,
-`shard_batch`), and XLA inserts the gradient psum.  Here every process
-builds the same global batch and keeps its rank's slice of dim 0
-(`shard_batch`, `DataParallel.shard`); the gradients, and the step's
-metrics, are averaged over the data axis (`DataParallel.mean`), so every
-rank applies the same update to the same params.  A batch the data axis
-does not divide is an error, as it is under XLA.  A layer that draws
-over the batch draws the global batch's numbers and keeps its rank's
-rows (`core.layers.Context.shard`), so a step over N processes is the
-single-process step on the global batch.
+splits dim 0 over the mesh's "data" axis (and, for a sequence-parallel
+net, dim 1 over "seq": `seq_batch_shardings`), a param under one that
+splits its `partition_dim` over "model" (`param_shardings`), and GSPMD
+inserts every collective.  Here each process keeps its rank's shard of
+each, and the collectives are explicit:
 
-That equality needs a net whose step is a mean of per-sample terms.
-A net that computes over the whole batch at once (`batch_coupling`: a
+- **Batches.**  Every process builds the same global batch and keeps
+  its rank's rows (and with sequence parallelism its chunk of dim 1):
+  `shard_batch`, `DataParallel.shard`.  A layer that draws over the
+  batch draws the global batch's numbers and keeps its slice
+  (`core.layers.Context.global_rows`, `global_cols`).
+- **Params.**  A param's placement is a record (axis, dim), or None
+  where it is replicated (`param_shardings`).  A dim the axis does not
+  divide is zero-padded to a multiple of it (`pad_params`) and the
+  padded array is split, so an uneven dim (a 10-wide classifier on a
+  model axis of 4) still shards; the pad's gradients are exactly zero,
+  so Adam and weight decay keep it zero.  `shard_params` and
+  `shard_opt_state` return this rank's slice of the padded arrays;
+  `gather_params` is the inverse, which gathers the shards over the
+  axis and unpads, so checkpoints stay spec-shaped and mesh-portable.
+  Layers that partition their compute read their shards through
+  `ModelShards` (`core.layers.Context.tp`); the rest gather their
+  params whole at use.
+- **Gradients.**  Each rank's gradients are those of its tokens' loss;
+  their mean over the data × seq ranks (`DataParallel.mean`) is the
+  global batch's, so every rank applies the same update.  The model
+  axis is never averaged: a sharded param's gradient is its shard's,
+  and a replicated param's is the same on every model rank.
+
+That equality needs a net whose step is a mean of per-token terms.  A
+net that computes over the whole batch at once (`batch_coupling`: a
 kMoE layer sizes its experts' capacity, routes, and takes its router's
 aux loss over the tokens it is given; contrastive divergence trains on
 the whole batch on every rank) would train another function on a
-rank's slice, so it is refused under a data axis above 1 until that
-computation spans the group (ROADMAP.md A9).
+rank's slice, so it is refused under a data or seq axis above 1 until
+that computation spans the group (ROADMAP.md A9).
 
-The collective runs over gloo (`parallel/bootstrap.py`): the tensors
-are packed into one f32 buffer per call, copied to the host, summed over
-the ranks by one all-reduce (which hands every rank the same bits) and
-copied back.  Tensor parallelism (`param_shardings`, `pad_params`,
-`shard_params`, `shard_opt_state`) is ROADMAP.md A9.
+The collectives run over gloo (`parallel/bootstrap.py`), staged through
+the host.  A step that runs one runs eagerly: a gloo collective cannot
+be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from .mesh import Mesh
+from .mesh import Mesh, axis_groups
+
+Placement = Optional[Tuple[str, int]]
 
 
 def batch_coupling(model_cfg) -> List[str]:
@@ -53,91 +71,286 @@ def batch_coupling(model_cfg) -> List[str]:
     return out
 
 
-def _rows(x, index: int, n: int):
-    b = x.shape[0]
-    if b % n:
-        raise ValueError(f"batch dim {b} is not divisible by the data "
-                         f"axis {n}")
-    k = b // n
-    return x[index * k:(index + 1) * k]
+def uses_sequence_parallel(model_cfg) -> bool:
+    """Whether any attention layer of `model_cfg` asks for ring or
+    Ulysses attention: then token batches shard dim 1 over "seq" too."""
+    return any(l.attention_param and l.attention_param.seq_parallel != "none"
+               for l in (model_cfg.neuralnet.layer
+                         if model_cfg.neuralnet else []))
+
+
+# -- params ------------------------------------------------------------------
+
+def _placement(spec, shape: Dict[str, int], pad_uneven: bool) -> Placement:
+    axis = spec.mesh_axis or "model"
+    n = shape.get(axis, 1)
+    dim = spec.partition_dim
+    if n > 1 and dim >= 0 and (spec.shape[dim] % n == 0 or pad_uneven):
+        return (axis, dim)
+    return None
+
+
+def param_shardings(mesh: Mesh, net, pad_uneven: bool = False
+                    ) -> Dict[str, Placement]:
+    """Each param's placement, (axis, dim) or None for replicated, from
+    its partition_dim and mesh_axis (by default "model"): the JAX
+    package's NamedShardings as records.  A dim the axis does not divide is replicated, or with
+    `pad_uneven` (arrays padded by `pad_params`) sharded over the padded
+    dim, which is how the port stores it."""
+    shape = mesh.shape
+    return {name: _placement(spec, shape, pad_uneven)
+            for name, spec in net.param_specs.items()}
+
+
+def pad_params(mesh: Mesh, net, params: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+    """Zero-pad every uneven partition dim of a spec-shaped param up to
+    the next multiple of its mesh axis (an already padded one is left
+    as it is)."""
+    out = dict(params)
+    shape = mesh.shape
+    for name, spec in net.param_specs.items():
+        if name not in out:
+            continue
+        n = shape.get(spec.mesh_axis or "model", 1)
+        dim = spec.partition_dim
+        t = out[name]
+        if (n > 1 and dim >= 0 and spec.shape[dim] % n
+                and t.shape[dim] == spec.shape[dim]):
+            pad = [0, 0] * t.dim()
+            # F.pad counts dims from the last
+            pad[2 * (t.dim() - 1 - dim) + 1] = -spec.shape[dim] % n
+            out[name] = torch.nn.functional.pad(t, pad)
+    return out
+
+
+def _slice(t: torch.Tensor, dim: int, index: int, n: int) -> torch.Tensor:
+    k = t.shape[dim] // n
+    return t.narrow(dim, index * k, k).clone()
+
+
+def shard_params(mesh: Mesh, net, params: Dict[str, torch.Tensor],
+                 rank: int) -> Dict[str, torch.Tensor]:
+    """`rank`'s slice of each padded param (`pad_params`) over its axis;
+    a replicated param as it is."""
+    placed = param_shardings(mesh, net, pad_uneven=True)
+    padded = pad_params(mesh, net, params)
+    coords = mesh.coords(rank)
+    out = {}
+    for name, t in padded.items():
+        where = placed.get(name)
+        if where is None:
+            out[name] = t
+        else:
+            axis, dim = where
+            out[name] = _slice(t, dim, coords[axis], mesh.shape[axis])
+    return out
+
+
+def shard_opt_state(mesh: Mesh, net, opt_state, rank: int):
+    """The optimizer state's slots sharded as their params are (param
+    history lives with its shard), padded layout included."""
+    return {slot: shard_params(mesh, net, tree, rank)
+            for slot, tree in opt_state.items()}
+
+
+class ModelShards:
+    """This rank's shards over the model axis as a layer sees them in one
+    forward: the axis's group, each sharded param's dim and spec shape
+    (share_param aliases under their owners'), and `full`, which gathers
+    a param whole (differentiably: its gradient is this rank's slice)."""
+
+    def __init__(self, group, dims: Dict[str, int],
+                 shapes: Dict[str, Tuple[int, ...]],
+                 owners: Dict[str, str]):
+        self.group, self.dims, self.shapes = group, dims, shapes
+        self._owners = owners
+        self._cache: Dict[str, torch.Tensor] = {}
+
+    def full(self, params: Dict[str, torch.Tensor], key: str
+             ) -> torch.Tensor:
+        owner = self._owners.get(key, key)
+        got = self._cache.get(owner)
+        if got is None:
+            from .comm import all_gather
+            dim, shape = self.dims[key], self.shapes[key]
+            got = all_gather(params[key], dim, self.group)
+            got = self._cache[owner] = got.narrow(dim, 0, shape[dim])
+        return got
+
+
+# -- batches -----------------------------------------------------------------
+
+def _part(x, dim: int, index: int, n: int, what: str):
+    size = x.shape[dim]
+    if size % n:
+        raise ValueError(f"{what} dim {size} is not divisible by the "
+                         f"{'data' if dim == 0 else 'seq'} axis {n}")
+    k = size // n
+    return x[index * k:(index + 1) * k] if dim == 0 \
+        else x[:, index * k:(index + 1) * k]
 
 
 def shard_batch(mesh: Mesh, batch: Any, rank: int,
-                data_axis: str = "data") -> Any:
+                data_axis: Optional[str] = "data",
+                seq_axis: Optional[str] = None) -> Any:
     """`rank`'s slice of dim 0 of every leaf of `batch` (a nested dict of
-    arrays or tensors), over the mesh's `data_axis`."""
-    n = mesh.shape[data_axis]
-    index = mesh.coords(rank)[data_axis]
-    if n == 1:
+    arrays or tensors) over `data_axis`, and with `seq_axis` its chunk
+    of dim 1 of every leaf of rank >= 2: the layout the JAX package's
+    `batch_shardings` and `seq_batch_shardings` place."""
+    coords = mesh.coords(rank)
+    cuts = [(0, a, "batch") for a in (data_axis,) if a] + \
+        [(1, a, "sequence") for a in (seq_axis,) if a]
+    cuts = [(d, coords[a], mesh.shape[a], w) for d, a, w in cuts
+            if mesh.shape[a] > 1]
+    if not cuts:
         return batch
 
     def one(x):
         if isinstance(x, dict):
             return {k: one(v) for k, v in x.items()}
-        return _rows(x, index, n)
+        for dim, index, n, what in cuts:
+            if dim < getattr(x, "ndim", 0):
+                x = _part(x, dim, index, n, what)
+        return x
     return one(batch)
 
 
 class DataParallel:
-    """The data axis of `mesh` as seen from this process: its slice of
-    each batch and the mean over the axis.  Every other axis of the mesh
-    must be 1, and the data axis must span the whole group."""
+    """The process mesh as seen from this process: its coordinates, the
+    groups of its model axis (`model`), its seq axis (`seq_group`) and
+    its data × seq ranks (`grads`, which average the gradients); its
+    shard of each batch and of each param; the mean over data × seq; and
+    the gathers that take sharded state whole.  The pipe and expert axes
+    must be 1 (ROADMAP.md A9) and the mesh must span the process group.
+    Every rank constructs it at once: the subgroups are made
+    collectively."""
 
     def __init__(self, mesh: Mesh):
         from .bootstrap import process_count, process_index
         self.mesh = mesh
         self.rank = process_index()
-        self.n = mesh.shape["data"]
-        self.index = mesh.coords(self.rank)["data"]
+        self.world = process_count()
         others = {a: s for a, s in mesh.shape.items()
-                  if a != "data" and s > 1}
+                  if a in ("pipe", "expert") and s > 1}
         if others:
-            raise ValueError(f"only the data axis runs in the port; the "
-                             f"mesh also asks for {others} (ROADMAP.md A9)")
-        if self.n != process_count():
-            raise ValueError(f"the data axis ({self.n}) must span the "
-                             f"process group ({process_count()})")
-        # seconds spent in the collective (host staging included), and
-        # calls made: what `chip_smoke.py` reports as the exchange cost
-        self.seconds = 0.0
-        self.calls = 0
+            raise ValueError(f"the port runs the data, model and seq axes; "
+                             f"the mesh also asks for {others} (ROADMAP.md "
+                             f"A9)")
+        if mesh.size != self.world:
+            raise ValueError(f"the mesh ({mesh.size} ranks) must span the "
+                             f"process group ({self.world})")
+        self.coords = mesh.coords(self.rank)
+        self.n = mesh.shape["data"]
+        self.index = self.coords["data"]
+        self.model, self.seq_group, self.grads = axis_groups(
+            mesh, self.rank, (("model",), ("seq",), ("data", "seq")))
+        # set by `bind`: the net's placements, and whether its token
+        # batches shard dim 1 over the seq axis
+        self.placements: Dict[str, Placement] = {}
+        self._shapes: Dict[str, Tuple[int, ...]] = {}
+        self._owners: Dict[str, str] = {}
+        self.seq_sharding = False
+
+    def bind(self, net, uses_sp: bool = False) -> "DataParallel":
+        """Take `net`'s param placements (and its share_param aliases) and
+        whether it is sequence-parallel (`uses_sequence_parallel`)."""
+        self.net = net
+        self.placements = param_shardings(self.mesh, net, pad_uneven=True)
+        self._shapes = {k: s.shape for k, s in net.param_specs.items()}
+        self._owners = dict(net.param_aliases)
+        self.seq_sharding = uses_sp and self.seq_group.n > 1
+        return self
 
     @property
     def shard_spec(self):
         """(index, n) along the data axis, for `NeuralNet.apply(shard=)`."""
         return (self.index, self.n) if self.n > 1 else None
 
-    def shard(self, batch: Any) -> Any:
-        """This rank's slice of dim 0 of every leaf of `batch`."""
-        return shard_batch(self.mesh, batch, self.rank)
+    def shard(self, batch: Any, rows: bool = True) -> Any:
+        """This rank's slice of dim 0 of every leaf of `batch` (all rows
+        with `rows` False), and of a sequence-parallel net's batch its
+        chunk of dim 1."""
+        return shard_batch(self.mesh, batch, self.rank,
+                           "data" if rows else None,
+                           "seq" if self.seq_sharding else None)
 
-    def mean(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The mean of each tensor over the data axis, in new tensors of
-        the same dtype on the same device, the same bits on every rank."""
-        if self.n == 1 or not tensors:
+    def view(self) -> Optional[ModelShards]:
+        """The bound net's shards for one forward, or None without a
+        model axis."""
+        if self.model.n == 1:
+            return None
+        dims = {k: p[1] for k, p in self.placements.items() if p}
+        shapes = dict(self._shapes)
+        for alias, owner in self._owners.items():
+            if owner in dims:
+                dims[alias], shapes[alias] = dims[owner], shapes[owner]
+        return ModelShards(self.model, dims, shapes, self._owners)
+
+    def shard_params(self, params: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """This rank's shards of whole, spec-shaped params (or optimizer
+        slot) of the bound net."""
+        return shard_params(self.mesh, self.net, params, self.rank)
+
+    def shard_state(self, params, opt_state):
+        """(params, opt_state) whole → this rank's shards."""
+        return (self.shard_params(params),
+                {slot: self.shard_params(t) for slot, t in opt_state.items()})
+
+    def gather_params(self, params: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """The bound net's params (or an optimizer slot) whole and
+        spec-shaped from this rank's shards: gathered over their axis
+        and unpadded.  Collective over the model axis; not
+        differentiable."""
+        from .comm import gather
+        out = {}
+        for name, t in params.items():
+            where = self.placements.get(name)
+            if where is None or self.model.n == 1:
+                out[name] = t
+            else:
+                dim = where[1]
+                out[name] = gather(t, dim, self.model).narrow(
+                    dim, 0, self._shapes[name][dim])
+        return out
+
+    def gather_state(self, params, opt_state):
+        """(params, opt_state) from shards → whole, spec-shaped."""
+        return (self.gather_params(params),
+                {slot: self.gather_params(t)
+                 for slot, t in opt_state.items()})
+
+    def sharded(self, name: str) -> bool:
+        """Whether this rank holds param `name` as a shard."""
+        return self.model.n > 1 and self.placements.get(name) is not None
+
+    def mean(self, tensors: List[torch.Tensor],
+             group=None) -> List[torch.Tensor]:
+        """The mean of each tensor over the data × seq ranks (or over
+        `group`), in new tensors of the same dtype on the same device,
+        the same bits on every rank of the group: one `comm.reduce_sum`
+        of them all as one f32 buffer, counted in `comm.STATS` under the
+        group's name."""
+        group = group or self.grads
+        if group.n == 1 or not tensors:
             return list(tensors)
-        import time
-
-        import torch.distributed as dist
-        t0 = time.perf_counter()
+        from .comm import reduce_sum
         flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-        host = flat.cpu()
-        dist.all_reduce(host)
-        host /= self.n
-        out = host.to(flat.device)
+        out = reduce_sum(flat, group) / group.n
         res, off = [], 0
         for t in tensors:
             k = t.numel()
             res.append(out[off:off + k].view(t.shape).to(t.dtype))
             off += k
-        self.seconds += time.perf_counter() - t0
-        self.calls += 1
         return res
 
     def agree(self, *trees: Dict[str, Any], step: int = 0,
               what: str = "") -> str:
         """The sha256 of `step` and the bytes of `trees` (nested dicts of
-        tensors, keys sorted), which every rank must hold alike: raises
+        tensors, keys sorted; sharded params and slots are gathered
+        whole first), which every rank must hold alike: raises
         RuntimeError on every rank, naming each rank's step and digest,
         when they differ.  A check for the start and the end of a run:
         it copies the trees to the host."""
@@ -155,11 +368,15 @@ class DataParallel:
                 else:
                     h.update(v.detach().contiguous().cpu().view(-1)
                              .view(torch.uint8).numpy().tobytes())
+        def whole(tree):
+            if any(isinstance(v, dict) for v in tree.values()):
+                return {k: whole(v) for k, v in tree.items()}
+            return self.gather_params(tree)
         for tree in trees:
-            feed(tree)
+            feed(whole(tree))
         mine = torch.frombuffer(bytearray(np.int64(step).tobytes()
                                           + h.digest()), dtype=torch.uint8)
-        parts = [torch.empty_like(mine) for _ in range(self.n)]
+        parts = [torch.empty_like(mine) for _ in range(self.world)]
         dist.all_gather(parts, mine)
         steps = [int(np.frombuffer(bytes(p[:8].tolist()), np.int64)[0])
                  for p in parts]
@@ -173,24 +390,25 @@ class DataParallel:
 
     def barrier(self) -> None:
         """Wait until every rank of the group reaches this call."""
-        if self.n > 1:
+        if self.world > 1:
             import torch.distributed as dist
             dist.barrier()
 
     def any(self, flag: bool) -> bool:
-        """Whether `flag` is set on any rank of the data axis."""
-        if self.n == 1:
+        """Whether `flag` is set on any rank of the group."""
+        if self.world == 1:
             return flag
         import torch.distributed as dist
         t = torch.tensor([int(flag)], dtype=torch.int32)
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return bool(t.item())
 
-    def mean_dict(self, *trees: Dict[str, torch.Tensor]
+    def mean_dict(self, *trees: Dict[str, torch.Tensor], group=None
                   ) -> List[Dict[str, torch.Tensor]]:
         """`mean` over the tensors of several flat dicts in one call."""
         keys = [sorted(t) for t in trees]
-        flat = self.mean([t[k] for t, ks in zip(trees, keys) for k in ks])
+        flat = self.mean([t[k] for t, ks in zip(trees, keys) for k in ks],
+                         group)
         out, off = [], 0
         for ks in keys:
             out.append(dict(zip(ks, flat[off:off + len(ks)])))

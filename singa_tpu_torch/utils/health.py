@@ -160,19 +160,34 @@ def _sqsum(tensors) -> torch.Tensor:
 
 def health_probes(grads: Dict[str, torch.Tensor],
                   old_params: Dict[str, torch.Tensor],
-                  new_params: Dict[str, torch.Tensor]
-                  ) -> Dict[str, torch.Tensor]:
+                  new_params: Dict[str, torch.Tensor],
+                  model=None) -> Dict[str, torch.Tensor]:
     """Numeric probes of one train step, as 0-d f32 device tensors and
     with no host sync: global grad L2 norm, post-update param norm, and
     update ratio ||new - old|| / (||new|| + eps).  `old_params` holds
     the params before the update (the updater writes `new_params` in
-    place, so the caller keeps a copy)."""
+    place, so the caller keeps a copy).  `model` (a bound
+    `parallel.partition.DataParallel` with a model axis) makes the norms
+    global: the sums of squares of the params this rank holds as shards
+    are summed over the model axis (their zero pads add nothing)."""
     names = sorted(new_params)
-    new = [new_params[k] for k in names]
-    gn = torch.sqrt(_sqsum([grads[k] for k in sorted(grads)]))
-    pn = torch.sqrt(_sqsum(new))
-    un = torch.sqrt(_sqsum(torch._foreach_sub(
-        new, [old_params[k] for k in names])))
+
+    def sq(tree):
+        keys = sorted(tree)
+        if model is None:
+            return _sqsum([tree[k] for k in keys])
+        mine = [tree[k] for k in keys if model.sharded(k)]
+        total = _sqsum([tree[k] for k in keys if not model.sharded(k)] or
+                       [torch.zeros((), device=tree[keys[0]].device)])
+        if not mine:
+            return total
+        from ..parallel.comm import reduce_sum
+        return total + reduce_sum(_sqsum(mine), model.model)
+    diff = dict(zip(names, torch._foreach_sub(
+        [new_params[k] for k in names], [old_params[k] for k in names])))
+    gn = torch.sqrt(sq(grads))
+    pn = torch.sqrt(sq(new_params))
+    un = torch.sqrt(sq(diff))
     return {GRAD_NORM: gn, PARAM_NORM: pn,
             UPDATE_RATIO: un / (pn + 1e-12)}
 

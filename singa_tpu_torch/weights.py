@@ -9,6 +9,11 @@ against the port net's `param_specs`, and a missing, extra or misshaped
 entry raises.  `opt_state_from_numpy` does the same for the optimizer
 state, `{"history": {name: array}, "update": {...}}` in both packages,
 and `state_to_numpy` takes the port's params and state back to numpy.
+Over a model axis a rank holds shards: the JAX package's params as
+numpy reach them through `params_from_numpy` and then
+`parallel.partition.DataParallel.shard_params` (or `shard_params` of the
+same module, for any rank of a mesh), which pad and slice as the JAX
+package's `shard_params` places.
 """
 
 from __future__ import annotations

@@ -293,7 +293,11 @@ def test_make_mesh_refuses_what_xla_refuses():
     "expert_parallel: 2", "data_parallel: 2\ntensor_parallel: 2\n"
     "sequence_parallel: 2", "kLayerPartition"])
 def test_cli_refuses_the_axes_it_lacks(tmp_path, capsys, text):
+    """The pipeline and expert axes exit 2 naming A9.  The tensor and seq
+    axes run: on one process a cluster config's mesh is not used, as the
+    JAX CLI uses none over one device, and the run trains."""
     conf = CONV
+    lacking = text.split(":")[0] in ("pipeline_parallel", "expert_parallel")
     if text == "kLayerPartition":
         conf = str(tmp_path / "conv.conf")
         with open(CONV) as f:
@@ -305,11 +309,34 @@ def test_cli_refuses_the_axes_it_lacks(tmp_path, capsys, text):
         text = "nworkers: 1\nnprocs_per_group: 2"
     cluster = tmp_path / "cluster.conf"
     cluster.write_text(text + "\n")
-    assert tmain.main(["-model_conf", conf, "-cluster_conf", str(cluster),
-                       "--synthetic", "--steps", "1"], device="cpu") == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md A9" in err
+    rc = tmain.main(["-model_conf", conf, "-cluster_conf", str(cluster),
+                     "--synthetic", "--steps", "1", "--batchsize", "8"],
+                    device="cpu")
+    out = capsys.readouterr()
+    if lacking:
+        assert rc == 2 and "ROADMAP.md A9" in out.err
+        assert unported_axes(JCluster(**dict([(
+            text.split(":")[0], 2)]))) == {text.split(":")[0]: 2}
+    else:
+        assert rc == 0 and "training done" in out.out + out.err
+        assert unported_axes(ClusterConfig(**dict(
+            (k.strip(), int(v)) for k, v in (
+                line.split(":") for line in text.splitlines())))) == {}
     assert unported_axes(None) == {}
+
+
+@pytest.mark.parametrize("axis", ["data_parallel", "sequence_parallel"])
+def test_cli_refuses_data_or_seq_over_kmoe(tmp_path, axis):
+    """kMoE routes over a rank's own tokens, so a data or seq axis above 1
+    over lm.conf still exits 2 naming A9 on every rank."""
+    cluster = tmp_path / "cluster.conf"
+    cluster.write_text(f"{axis}: 2\n")
+    outs = _spawn(tmp_path, "cli", "-model_conf",
+                  os.path.join(REPO, "examples", "transformer", "lm.conf"),
+                  "-cluster_conf", str(cluster), "--synthetic", "--steps",
+                  "1", "--batchsize", "2", rc=2)
+    for out in outs:
+        assert "kMoE" in out and "ROADMAP.md A9" in out, out
 
 
 # -- data parallelism ------------------------------------------------------
