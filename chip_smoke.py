@@ -6275,6 +6275,587 @@ def phase_tpsp(dev, arrays, cfg_kw=BENCH, chunk_cases=CHUNK_CASES,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: pipeline parallelism over processes sharing the card
+
+ALEXP_BATCH = 256       # 21d: AlexNet-CIFAR10's batch, cut from 1024
+ALEXP_STEPS = 3
+ALEXP_LOSS_RTOL = 1e-4  # f32, TF32 off: microbatched convs sum in another order
+ALEXP_UPDATE_RTOL = 1e-2  # kSGD: a lost or doubled gradient part moves O(1)
+PIPECLI_STEPS = 3       # 21e
+PIPECLI_LAYERS = 2      # 21e's depth cut; the width stays full
+STAGE_CHILD = """
+import json, sys, time
+import torch
+import torch.distributed as dist
+pid, hostfile, out, dev = int(sys.argv[1]), sys.argv[2], sys.argv[3], \\
+    sys.argv[4]
+runs = json.loads(sys.argv[5])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+from singa_tpu_torch import (Trainer, load_model_config, numpy_params,
+                             params_from_numpy, synthetic_image_batches,
+                             synthetic_token_batches, transformer_lm)
+from singa_tpu_torch.ops import _kernels
+from singa_tpu_torch.parallel import comm
+from singa_tpu_torch.parallel.bootstrap import distributed_init
+from singa_tpu_torch.parallel.mesh import make_mesh
+from singa_tpu_torch.parallel.partition import DataParallel
+assert distributed_init(pid, hostfile)
+def sync():
+    if dev == "cuda":
+        torch.cuda.synchronize()
+res = {}
+for run in runs:
+    dp = DataParallel(make_mesh(**run["axes"]))
+    if run["net"] == "bench":
+        kw = run["cfg_kw"]
+        cfg = transformer_lm(**kw, precision="bfloat16",
+                             pipeline_stages=run["stages"])
+        shapes = {"data": {"input": (kw["seq_len"],),
+                           "target": (kw["seq_len"],)}}
+        data = synthetic_token_batches(kw["batchsize"], kw["seq_len"],
+                                       kw["vocab_size"], seed=0)
+    else:
+        cfg = cs.alexnet_stage_config(run["batch"])
+        shapes = cs.RGB_SHAPES
+        data = synthetic_image_batches(run["batch"], (3, 32, 32), seed=0,
+                                       stream_seed=1)
+    batches = [next(data) for _ in range(run["steps"])]
+    tr = Trainer(cfg, shapes, device=dev, dp=dp, log_fn=lambda m: None)
+    pnet = tr._pipeline_nets[id(tr.train_net)]
+    arrays = numpy_params(tr.train_net, seed=0)
+    p = dp.shard_params(params_from_numpy(tr.train_net, arrays, device=dev))
+    o = tr.updater.init(p)
+    sync()
+    dist.barrier()
+    _kernels.reset_launches()
+    comm.reset_stats()
+    losses, times = [], []
+    for step, batch in enumerate(batches):
+        sync()
+        t0 = time.perf_counter()
+        p, o, m = tr.train_step(p, o, batch, step)
+        losses.append(float(m["loss"]))
+        sync()
+        times.append(time.perf_counter() - t0)
+        if step == 0:   # the collectives of the steps after the first
+            comm.reset_stats()
+    launches = dict(_kernels.LAUNCHES)
+    n = len(batches) - 1
+    shift = comm.stats(dp.pipe, "shift")
+    psum = comm.stats(dp.pipe)
+    grad = comm.stats(dp.grads)
+    one = torch.load(f"{out}/{run['one']}")
+    whole = dp.gather_params(p)
+    num = den = 0.0
+    for k, r in one.items():
+        p0 = torch.from_numpy(arrays[k]).to(dev)
+        want = r.to(dev) - p0
+        num += float((whole[k] - p0 - want).square().sum())
+        den += float(want.square().sum())
+    del whole
+    res[run["tag"]] = dict(
+        losses=losses, first_ms=times[0] * 1e3,
+        step_ms=sum(times[1:]) * 1e3 / n,
+        shift_ms=shift["seconds"] * 1e3 / n,
+        shift_mb=shift["bytes"] / 1e6 / n, shift_calls=shift["calls"] / n,
+        psum_ms=psum["seconds"] * 1e3 / n, grad_ms=grad["seconds"] * 1e3 / n,
+        update_gap=(num / den) ** 0.5, form=type(pnet).__name__,
+        held=len(p), param_bytes=sum(t.numel() * t.element_size()
+                                     for t in p.values()),
+        launches=launches, digest=dp.agree(p))
+    del tr, p, o
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+with open(f"{out}/pipe_{pid}.json", "w") as f:
+    json.dump(res, f)
+"""
+
+
+def alexnet_stage_config(batch):
+    """AlexNet-CIFAR10 cut by locationid into 2 stages of different
+    shapes, each with its kLRN: conv1-relu1-norm1-pool1 and conv2-relu2-
+    norm2-pool2; in f32, the dtype the JAX package's heterogeneous form
+    takes for it (its transport carries the staged input's dtype, and
+    the rgb layer's output is f32 while bf16 stages produce bf16)."""
+    from singa_tpu_torch import load_model_config
+    cfg = load_model_config(ALEX_CONF)
+    cfg.precision = "float32"
+    for layer in cfg.neuralnet.layer:
+        if layer.data_param is not None:
+            layer.data_param.batchsize = batch
+        stage = {"conv1": 1, "relu1": 1, "norm1": 1, "pool1": 1,
+                 "conv2": 2, "relu2": 2, "norm2": 2, "pool2": 2}
+        layer.locationid = stage.get(layer.name, 0)
+    return cfg
+
+
+def alexnet_stage_reference(dev, tmp, batch):
+    """21d's single-process run on the same batches: losses, step ms,
+    its final params to `tmp`/alex_one.pt."""
+    from singa_tpu_torch import (Trainer, numpy_params, params_from_numpy,
+                                 synthetic_image_batches)
+    tr = Trainer(alexnet_stage_config(batch), RGB_SHAPES, device=dev,
+                 graphs=False, log_fn=trainer_log)
+    arrays = numpy_params(tr.train_net, seed=0)
+    p = params_from_numpy(tr.train_net, arrays, device=dev)
+    o = tr.updater.init(p)
+    data = synthetic_image_batches(batch, (3, 32, 32), seed=0,
+                                   stream_seed=1)
+    losses, times = [], []
+    for step in range(ALEXP_STEPS):
+        batch = next(data)
+        sync(dev)
+        t0 = time.perf_counter()
+        p, o, m = tr.train_step(p, o, batch, step)
+        losses.append(float(m["loss"]))
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    torch.save({k: v.cpu() for k, v in p.items()},
+               os.path.join(tmp, "alex_one.pt"))
+    del tr, p, o
+    return {"losses": losses,
+            "step_ms": sum(times[1:]) * 1e3 / (ALEXP_STEPS - 1)}
+
+
+def stage_groups(dev, tmp, arrays, cfg_kw, alex_batch):
+    """21a, 21b and 21d in one group of 2 processes, 21c in a group of 4;
+    the single-process references first."""
+    child = os.path.join(tmp, "pipe_child.py")
+    with open(child, "w") as f:
+        f.write(STAGE_CHILD)
+    one = tpsp_reference(dev, arrays, cfg_kw, tmp)
+    alex = alexnet_stage_reference(dev, tmp, alex_batch)
+    bench = dict(net="bench", cfg_kw=cfg_kw, steps=TPSP_STEPS,
+                 one="one_params.pt")
+    two = [dict(bench, tag="21a", axes={"pipe": 2}, stages=2),
+           dict(bench, tag="21b", axes={"pipe": 2}, stages=4),
+           dict(net="alex", tag="21d", axes={"pipe": 2}, batch=alex_batch,
+                steps=ALEXP_STEPS, one="alex_one.pt")]
+    four = [dict(bench, tag="21c", axes={"data": 2, "pipe": 2}, stages=2)]
+    out, walls = {}, {}
+    for runs, n in ((two, 2), (four, 4)):
+        hf = hostfile_of(tmp, f"hostfile_pipe{n}", n)
+        t0 = time.perf_counter()
+        run_group([[sys.executable, child, str(i), hf, tmp, dev,
+                    json.dumps(runs)] for i in range(n)], tmp, f"pipe{n}")
+        walls[n] = time.perf_counter() - t0
+        ranks = []
+        for i in range(n):
+            with open(os.path.join(tmp, f"pipe_{i}.json")) as f:
+                ranks.append(json.load(f))
+        for run in runs:
+            r = [x[run["tag"]] for x in ranks]
+            assert len({x["digest"] for x in r}) == 1, (run["tag"], r)
+            ref = alex if run["net"] == "alex" else one
+            gap = max(abs(a - b) / abs(b) for x in r
+                      for a, b in zip(x["losses"], ref["losses"]))
+            tol, utol = ((ALEXP_LOSS_RTOL, ALEXP_UPDATE_RTOL)
+                         if run["net"] == "alex"
+                         else (TPSP_LOSS_RTOL, TPSP_UPDATE_RTOL))
+            assert gap <= tol, (run["tag"], [x["losses"] for x in r],
+                                ref["losses"])
+            assert all(x["update_gap"] <= utol for x in r), \
+                (run["tag"], [x["update_gap"] for x in r])
+            out[run["tag"]] = {"gap": gap, "ranks": r, "ref": ref}
+    return out, walls
+
+
+def stage_line(tag, what, res):
+    r = res["ranks"]
+    log(f"[pipe] {tag} {what}: losses within {res['gap']:.3g} relative of "
+        f"one process's ({r[0]['losses']} against {res['ref']['losses']}); "
+        f"ranks' params equal (sha256 {r[0]['digest'][:16]}...), their "
+        f"move from the init within "
+        f"{', '.join(f'{x['update_gap']:.3g}' for x in r)} relative of one "
+        f"process's; {r[0]['form']}; params held a rank "
+        f"{[x['held'] for x in r]} ({[x['param_bytes'] for x in r]} "
+        f"bytes); step {', '.join(f'{x['step_ms']:.1f}' for x in r)} ms "
+        f"(first {', '.join(f'{x['first_ms']:.1f}' for x in r)} ms) "
+        f"against one process's eager {res['ref']['step_ms']:.1f} ms; the "
+        f"pipe shifts {', '.join(f'{x['shift_ms']:.1f}' for x in r)} ms "
+        f"and {', '.join(f'{x['shift_mb']:.2f}' for x in r)} MB sent a "
+        f"step a rank ({', '.join(f'{x['shift_calls']:.0f}' for x in r)} "
+        f"calls), the gradient sum over pipe "
+        f"{', '.join(f'{x['psum_ms']:.1f}' for x in r)} ms, the data mean "
+        f"{', '.join(f'{x['grad_ms']:.1f}' for x in r)} ms a step after the "
+        f"first (host staging and the wait for the card included); "
+        f"launches per rank "
+        f"{[{k: v for k, v in x['launches'].items() if v} for x in r]}")
+
+
+def stage_cli(dev, tmp, cfg_kw):
+    """21e: a locationid-marked config (the bench stack at full width,
+    depth cut, 2 stages) through the CLI with `pipeline_parallel: 2` on
+    2 processes, against the one-process CLI on the same config; one
+    process resumes rank 0's checkpoint."""
+    from singa_tpu_torch import CheckpointManager, build_net, transformer_lm
+    from singa_tpu_torch.config.schema import model_config_to_text
+    cfg = transformer_lm(**{**cfg_kw, "num_layers": PIPECLI_LAYERS},
+                         precision="bfloat16", pipeline_stages=2)
+    cfg.display_frequency = 1
+    conf = os.path.join(tmp, "bench_pipe.conf")
+    with open(conf, "w") as f:
+        f.write(model_config_to_text(cfg))
+    cluster = os.path.join(tmp, "pipe2.conf")
+    with open(cluster, "w") as f:
+        f.write("pipeline_parallel: 2\n")
+    ws = os.path.join(tmp, "ws_pipe")
+    hf = hostfile_of(tmp, "hostfile_pipecli", 2)
+    t0 = time.perf_counter()
+    outs = run_group([main_cmd(dev) + [
+        "-model_conf", conf, "-cluster_conf", cluster, "--synthetic",
+        "--steps", str(PIPECLI_STEPS), "--workspace", ws, "-hostfile", hf,
+        "-procsID", str(i)] for i in range(2)], tmp, "pipecli")
+    wall = time.perf_counter() - t0
+    losses, shifts = set(), []
+    for out in outs:
+        expect_in(out, "mesh: {'data': 1, 'model': 1, 'pipe': 2",
+                  "training done", "ranks agree", "pipe shifts:")
+        got = display_losses(out)
+        assert len(got) == PIPECLI_STEPS and all(map(math.isfinite, got)), \
+            out[-3000:]
+        losses.add(tuple(got))
+        shifts.append(re.search(r"pipe shifts: .*", out).group(0))
+    assert len(losses) == 1, losses
+    got = next(iter(losses))
+    one = run_group([main_cmd(dev) + [
+        "-model_conf", conf, "--synthetic", "--steps", str(PIPECLI_STEPS)]],
+        tmp, "pipecli_one")[0]
+    want = display_losses(one)
+    assert len(want) == PIPECLI_STEPS, one[-3000:]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    assert gap <= TPSP_LOSS_RTOL, (got, want)
+    rp, _, step = CheckpointManager(ws).restore()
+    assert step == PIPECLI_STEPS, step
+    net = build_net(cfg, "kTrain", {"data": {"input": (cfg_kw["seq_len"],),
+                                             "target": (cfg_kw["seq_len"],)}})
+    for k, spec in net.param_specs.items():
+        assert rp[k].shape == spec.shape, (k, rp[k].shape, spec.shape)
+    t1 = time.perf_counter()
+    code, text = run_main(["-model_conf", conf, "--synthetic", "--steps",
+                           str(PIPECLI_STEPS + 2), "--workspace", ws,
+                           "--resume"], dev)
+    resume_s = time.perf_counter() - t1
+    assert code == 0, text[-3000:]
+    expect_in(text, f"resumed from step {PIPECLI_STEPS}", "training done")
+    return {"wall": wall, "losses": got, "want": want, "gap": gap,
+            "shifts": shifts, "resume_s": resume_s,
+            "resumed": display_losses(text)}
+
+
+def phase_stages(dev, arrays, cfg_kw=BENCH, alex_batch=ALEXP_BATCH):
+    """Phase 21; the arguments cut it down for a rehearsal on the CPU.
+    Returns the K1-K6 launches of one rank of each run, by run."""
+    import shutil
+    import tempfile
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="pipe_", dir=os.path.join(REPO, "build"))
+    try:
+        res, walls = stage_groups(dev, tmp, arrays, cfg_kw, alex_batch)
+        log(f"[pipe] 21a-21d: a group of 2 processes ran 21a, 21b and 21d "
+            f"in {walls[2]:.1f} s wall, a group of 4 ran 21c in "
+            f"{walls[4]:.1f} s (process starts included)")
+        stack = (f"bench stack ({cfg_kw['num_layers']}L, E="
+                 f"{cfg_kw['embed_dim']}, {cfg_kw['num_heads']} heads, V="
+                 f"{cfg_kw['vocab_size']}, S={cfg_kw['seq_len']}, B="
+                 f"{cfg_kw['batchsize']}, bf16, Adam, tied head)")
+        stage_line("21a", f"{stack}, 2 stages on pipe=2, 4 microbatches, "
+                  f"{TPSP_STEPS} eager steps", res["21a"])
+        stage_line("21b", f"{stack}, 4 stages on pipe=2 (the circular "
+                  f"schedule), {TPSP_STEPS} eager steps", res["21b"])
+        stage_line("21c", f"{stack}, 2 stages on data=2 x pipe=2, 4 "
+                  f"processes, {TPSP_STEPS} eager steps", res["21c"])
+        stage_line("21d", f"AlexNet-CIFAR10 (alexnet.conf, f32, kSGD, batch "
+                  f"{alex_batch}) cut into 2 stages of different shapes "
+                  f"(conv1-norm1-pool1, conv2-norm2-pool2) on pipe=2, "
+                  f"{ALEXP_STEPS} eager steps", res["21d"])
+        if dev == "cuda":
+            per_micro = cfg_kw["num_layers"] // 2
+            for tag in ("21a", "21b", "21c"):
+                for i, x in enumerate(res[tag]["ranks"]):
+                    got = x["launches"]
+                    # forward and the backward's recompute of each cell,
+                    # then one K3 and K4 a layer a microbatch
+                    n_cells = 4 * TPSP_STEPS * per_micro
+                    assert got["flash_fwd"] == 2 * n_cells, (tag, got)
+                    assert got["flash_dq"] == got["flash_dkv"] == n_cells, \
+                        (tag, got)
+                    last = tag == "21c" and i in (1, 3) or \
+                        tag != "21c" and i == 1
+                    assert got["head_fwd"] == (TPSP_STEPS if last else 0), \
+                        (tag, i, got)
+            for x in res["21d"]["ranks"]:
+                got = x["launches"]
+                assert got["lrn_fwd"] == 2 * 4 * ALEXP_STEPS and \
+                    got["lrn_bwd"] == 4 * ALEXP_STEPS, got
+        e = stage_cli(dev, tmp, cfg_kw)
+        log(f"[pipe] 21e a locationid-marked config (the bench stack's, full "
+            f"width, depth cut to {PIPECLI_LAYERS} layers, 2 stages) through "
+            f"python -m singa_tpu_torch.main with pipeline_parallel: 2 on 2 "
+            f"processes: {PIPECLI_STEPS} steps in {e['wall']:.1f} s wall "
+            f"(process starts included), losses {e['losses']} on both "
+            f"ranks, within {e['gap']:.3g} relative of the one-process "
+            f"CLI's {e['want']} (tol {TPSP_LOSS_RTOL}); {e['shifts']}; rank "
+            f"0's checkpoint (whole, spec-shaped) resumed by one process to "
+            f"step {PIPECLI_STEPS + 2} in {e['resume_s']:.1f} s, losses "
+            f"{e['resumed']}")
+        return {tag: res[tag]["ranks"][-1]["launches"] for tag in res}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the expert axis and global-token kMoE
+
+MOE_STEPS = 5           # 22b, 22c
+MOE_MESH_STEPS = 3      # 22a
+MOE_LOSS_RTOL = 2e-3    # the first step's loss: bf16 sums over a half batch
+MOE_LOW_CF = 0.5        # a capacity factor at which moe1 drops tokens
+MOE_DROP_SLACK = 0.005  # of T·k: one process's own bf16 forward may flip a
+                        # few near-tied choices against the ranks'
+MOE_CHILD = """
+import json, sys, time
+import torch
+import torch.distributed as dist
+pid, hostfile, out, dev = int(sys.argv[1]), sys.argv[2], sys.argv[3], \\
+    sys.argv[4]
+axes = json.loads(sys.argv[5])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+from singa_tpu_torch import (Trainer, load_model_config, numpy_params,
+                             params_from_numpy, synthetic_token_batches)
+from singa_tpu_torch.core.net import token_split
+from singa_tpu_torch.ops import _kernels, moe
+from singa_tpu_torch.parallel import comm
+from singa_tpu_torch.parallel.bootstrap import distributed_init
+from singa_tpu_torch.parallel.mesh import make_mesh
+from singa_tpu_torch.parallel.partition import DataParallel
+assert distributed_init(pid, hostfile)
+def sync():
+    if dev == "cuda":
+        torch.cuda.synchronize()
+dp = DataParallel(make_mesh(**axes))
+cfg = load_model_config(cs.LM_CONF)
+tr = Trainer(cfg, cs.LM_SHAPES, device=dev, dp=dp, log_fn=lambda m: None)
+arrays = numpy_params(tr.train_net, seed=0)
+p = dp.shard_params(params_from_numpy(tr.train_net, arrays, device=dev))
+o = tr.updater.init(p)
+data = synthetic_token_batches(8, cs.LM_SEQ, 4096, seed=0)
+batches = [next(data) for _ in range(cs.MOE_STEPS)]
+# the first step's routing at moe1: the split's kept assignments against
+# one process's ranking of the ranks' own inputs, gathered
+layer = tr.train_net.layers["moe1"]
+with torch.no_grad():
+    outs = tr.train_net.apply(p, dp.shard(batches[0]), train=True,
+                              compute_dtype=tr.compute_dtype, rng=0, step=0,
+                              shard=dp.shard_spec, par=dp)[2]
+x = outs["ln1b"].to(tr.compute_dtype)
+router = p["moe1/router"].to(tr.compute_dtype)
+b, s, e = x.shape
+split = token_split(dp, dp.shard_spec)
+t = b * s * split.rows * split.cols
+probs = torch.softmax(x.reshape(b * s, e).float() @ router.float(), dim=-1)
+gate, expert = moe.top_k(probs, layer.k)
+whole = comm.gather(x, 0, split.group)
+drops = {}
+# lm.conf's own capacity factor, and one at which tokens are dropped
+for cf in (layer.capacity_factor, cs.MOE_LOW_CF):
+    cap = moe.capacity(t, layer.k, layer.n_exp, cf)
+    keep, _ = moe.global_routing(expert, (b, s), layer.n_exp, cap, split)
+    dropped = int(comm.reduce_sum(
+        (~keep).sum().float().reshape(1), split.group).item())
+    r = moe.route(whole.reshape(-1, e), router, layer.k, cap)
+    drops[str(cf)] = (dropped, int((r.slot == layer.n_exp * cap).sum()))
+sync()
+dist.barrier()
+_kernels.reset_launches()
+comm.reset_stats()
+losses, times = [], []
+for step, batch in enumerate(batches):
+    sync()
+    t0 = time.perf_counter()
+    p, o, m = tr.train_step(p, o, batch, step)
+    losses.append(float(m["loss"]))
+    sync()
+    times.append(time.perf_counter() - t0)
+    if step == 0:       # the collectives of the steps after the first
+        comm.reset_stats()
+n = len(batches) - 1
+route = [comm.stats(g) for g in (split.group, dp.expert)]
+res = dict(losses=losses, aux=float(m["moe1/aux"]),
+           first_ms=times[0] * 1e3,
+           step_ms=sum(times[1:]) * 1e3 / n,
+           route_ms=sum(x["seconds"] for x in route) * 1e3 / n,
+           route_mb=sum(x["bytes"] for x in route) / 1e6 / n,
+           route_calls=sum(x["calls"] for x in route) / n,
+           grad_ms=comm.stats(dp.grads)["seconds"] * 1e3 / n,
+           experts=list(p["moe1/w1"].shape), drops=drops,
+           dropped=drops[str(layer.capacity_factor)][0],
+           assignments=t * layer.k,
+           launches=dict(_kernels.LAUNCHES), digest=dp.agree(p))
+with open(f"{out}/moe_{pid}.json", "w") as f:
+    json.dump(res, f)
+"""
+
+
+def moe_reference(dev):
+    """lm.conf on one process, eager, on 22b/22c's batches: losses, step
+    ms and the first step's dropped assignments at moe1."""
+    from singa_tpu_torch import (Trainer, load_model_config, numpy_params,
+                                 params_from_numpy, synthetic_token_batches)
+    from singa_tpu_torch.ops import moe
+    tr = Trainer(load_model_config(LM_CONF), LM_SHAPES, device=dev,
+                 graphs=False, log_fn=trainer_log)
+    arrays = numpy_params(tr.train_net, seed=0)
+    p = params_from_numpy(tr.train_net, arrays, device=dev)
+    o = tr.updater.init(p)
+    data = synthetic_token_batches(8, LM_SEQ, 4096, seed=0)
+    batches = [next(data) for _ in range(MOE_STEPS)]
+    layer = tr.train_net.layers["moe1"]
+    with torch.no_grad():
+        outs = tr.train_net.apply(p, batches[0], train=True,
+                                  compute_dtype=tr.compute_dtype, rng=0,
+                                  step=0)[2]
+    x = outs["ln1b"].to(tr.compute_dtype)
+    b, s, e = x.shape
+    cap = moe.capacity(b * s, layer.k, layer.n_exp, layer.capacity_factor)
+    r = moe.route(x.reshape(b * s, e), p["moe1/router"].to(x.dtype),
+                  layer.k, cap)
+    dropped = int((r.slot == layer.n_exp * cap).sum())
+    losses, times = [], []
+    for step, batch in enumerate(batches):
+        sync(dev)
+        t0 = time.perf_counter()
+        p, o, m = tr.train_step(p, o, batch, step)
+        losses.append(float(m["loss"]))
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    del tr, p, o
+    return {"losses": losses, "dropped": dropped,
+            "step_ms": sum(times[1:]) * 1e3 / (MOE_STEPS - 1)}
+
+
+def moe_groups(dev, tmp):
+    """22b (data=2 x expert=2, 4 processes) and 22c (data=2, 2
+    processes) against one process."""
+    child = os.path.join(tmp, "moe_child.py")
+    with open(child, "w") as f:
+        f.write(MOE_CHILD)
+    one = moe_reference(dev)
+    out = {}
+    for tag, axes in (("22b", {"data": 2, "expert": 2}),
+                      ("22c", {"data": 2})):
+        n = int(np.prod(list(axes.values())))
+        hf = hostfile_of(tmp, f"hostfile_moe{n}", n)
+        t0 = time.perf_counter()
+        run_group([[sys.executable, child, str(i), hf, tmp, dev,
+                    json.dumps(axes)] for i in range(n)], tmp, f"moe{n}")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for i in range(n):
+            with open(os.path.join(tmp, f"moe_{i}.json")) as f:
+                ranks.append(json.load(f))
+        assert len({x["digest"] for x in ranks}) == 1, ranks
+        for x in ranks:
+            # the split's routing is one process's on the same inputs, at
+            # lm.conf's capacity factor and at one that drops tokens
+            assert all(a == b for a, b in x["drops"].values()), x
+            assert x["drops"][str(MOE_LOW_CF)][0] > 0, x
+            assert x["experts"][0] == 4 // axes.get("expert", 1), x
+        r0 = ranks[0]
+        gap = abs(r0["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+        assert gap <= MOE_LOSS_RTOL, (r0["losses"], one["losses"])
+        assert abs(r0["dropped"] - one["dropped"]) <= \
+            MOE_DROP_SLACK * r0["assignments"], (r0["dropped"], one)
+        assert all(map(math.isfinite, r0["losses"])), r0
+        out[tag] = {"ranks": ranks, "gap": gap, "wall": wall}
+    return out, one
+
+
+def moe_mesh_cli(dev, tmp):
+    """22a: lm.conf under the shipped cluster.conf (data 2 x model 2 x seq
+    2) through the CLI on 8 processes, against the one-process CLI."""
+    conf = conf_copy(tmp, LM_CONF, "lm_mesh.conf",
+                     [("display_frequency: 50", "display_frequency: 1")])
+    hf = hostfile_of(tmp, "hostfile_moemesh", 8)
+    common = ["-model_conf", conf, "--synthetic", "--steps",
+              str(MOE_MESH_STEPS)]
+    t0 = time.perf_counter()
+    outs = run_group([main_cmd(dev) + common + [
+        "-cluster_conf", CLUSTER_CONF, "-hostfile", hf, "-procsID", str(i)]
+        for i in range(8)], tmp, "moemesh")
+    wall = time.perf_counter() - t0
+    one = run_group([main_cmd(dev) + common], tmp, "moemesh_one")[0]
+    want = display_losses(one)
+    assert len(want) == MOE_MESH_STEPS, one[-3000:]
+    digests, losses = set(), set()
+    for out in outs:
+        expect_in(out, "mesh: {'data': 2, 'model': 2, 'pipe': 1, 'seq': 2, "
+                  "'expert': 1}", "training done", "ranks agree")
+        digests.add(re.search(r"params sha256 (\w+)", out).group(1))
+        losses.add(tuple(display_losses(out)))
+    assert len(digests) == 1 and len(losses) == 1, (digests, losses)
+    got = next(iter(losses))
+    assert len(got) == MOE_MESH_STEPS, got
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    assert gap <= LMTP_LOSS_RTOL, (got, want)
+    return {"wall": wall, "losses": got, "want": want, "gap": gap}
+
+
+def phase_moe(dev):
+    """Phase 22.  Returns the K1-K6 launches of one rank of 22b."""
+    import shutil
+    import tempfile
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="moe_", dir=os.path.join(REPO, "build"))
+    try:
+        a = moe_mesh_cli(dev, tmp)
+        log(f"[moe] 22a examples/transformer/lm.conf under the shipped "
+            f"cluster.conf (data 2 x model 2 x seq 2, ring attention, kMoE "
+            f"over the global tokens of data x seq) through python -m "
+            f"singa_tpu_torch.main on 8 processes: {MOE_MESH_STEPS} steps in "
+            f"{a['wall']:.1f} s wall (process starts included), losses "
+            f"{a['losses']} on all 8 ranks, params equal; within "
+            f"{a['gap']:.3g} relative of the one-process CLI's {a['want']} "
+            f"(tol {LMTP_LOSS_RTOL})")
+        res, one = moe_groups(dev, tmp)
+        for tag, what in (("22b", "data=2 x expert=2, 4 processes"),
+                          ("22c", "data=2, 2 processes")):
+            r = res[tag]["ranks"]
+            log(f"[moe] {tag} lm.conf (bf16, Adam, B=8, S=512) under {what}, "
+                f"{MOE_STEPS} eager steps in {res[tag]['wall']:.1f} s wall: "
+                f"the first step's loss {r[0]['losses'][0]:.6f} against one "
+                f"process's {one['losses'][0]:.6f} on the global batch "
+                f"({res[tag]['gap']:.3g} relative, tol {MOE_LOSS_RTOL}); moe1 "
+                f"dropped {r[0]['dropped']} of {r[0]['assignments']} "
+                f"assignments at lm.conf's capacity factor (one process's "
+                f"own forward: {one['dropped']}) and "
+                f"{r[0]['drops'][str(MOE_LOW_CF)][0]} at {MOE_LOW_CF}, each "
+                f"exactly what one process ranking the ranks' gathered "
+                f"inputs drops; experts a rank "
+                f"{[x['experts'][0] for x in r]} of 4; losses "
+                f"{[round(v, 5) for v in r[0]['losses']]} against "
+                f"{[round(v, 5) for v in one['losses']]}; ranks' params "
+                f"equal (sha256 {r[0]['digest'][:16]}...); step "
+                f"{', '.join(f'{x['step_ms']:.1f}' for x in r)} ms (first "
+                f"{', '.join(f'{x['first_ms']:.1f}' for x in r)}) against one "
+                f"process's eager {one['step_ms']:.1f} ms; the routing's "
+                f"collectives {', '.join(f'{x['route_ms']:.1f}' for x in r)} "
+                f"ms a step after the first ({r[0]['route_calls']:.0f} calls, "
+                f"{r[0]['route_mb']:.3f} MB sent a rank), the gradient mean "
+                f"{', '.join(f'{x['grad_ms']:.1f}' for x in r)} ms; launches "
+                f"per rank "
+                f"{[{k: v for k, v in x['launches'].items() if v} for x in r]}")
+        return res["22b"]["ranks"][0]["launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6373,6 +6954,12 @@ def main() -> int:
     took("phase 19")
     phase_tpsp(dev, arrays)
     took("phase 20")
+    pipe = phase_stages(dev, arrays)
+    log(f"[pipe] phase 21's launches on the last pipe rank: {pipe}")
+    took("phase 21")
+    experts = phase_moe(dev)
+    log(f"[moe] phase 22's launches on rank 0 of 22b: {experts}")
+    took("phase 22")
 
     kernels = []
     for name, res, replaces in (

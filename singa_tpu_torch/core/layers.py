@@ -88,7 +88,11 @@ class Context:
     `parallel.comm.AxisGroup`) is set when the batch is this rank's
     chunk of dim 1 (sequence parallelism): a drawing layer keeps its
     columns of the global draw (`global_cols`) and kAttention runs over
-    the group."""
+    the group.  `tokens` (an `ops.moe.TokenSplit`) is set when the
+    batch's tokens are one block of a global batch split over several
+    ranks, and `experts` (an `AxisGroup`) when the params hold this
+    rank's experts of an expert axis: kMoE routes the global tokens and
+    runs its own experts."""
     batch: Dict[str, Any]
     train: bool
     compute_dtype: Optional[torch.dtype] = None
@@ -100,6 +104,8 @@ class Context:
     shard: Optional[Tuple[int, int]] = None
     tp: Any = None
     seq: Any = None
+    tokens: Any = None
+    experts: Any = None
 
     def global_cols(self, s: int) -> Tuple[int, int]:
         """(columns to draw, first column of this chunk) for a local

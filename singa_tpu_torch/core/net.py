@@ -262,7 +262,8 @@ class NeuralNet:
               rng: Optional[int] = None, step: Optional[int] = None,
               generators: Optional[Dict[int, torch.Generator]] = None,
               layer_subset: Optional[List[str]] = None,
-              shard: Optional[Tuple[int, int]] = None, par=None
+              shard: Optional[Tuple[int, int]] = None, par=None,
+              outputs: Optional[Dict[str, Any]] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                          Dict[str, Any]]:
         """Run the net on the params' device.  Returns (total_loss,
@@ -273,23 +274,29 @@ class NeuralNet:
         raises in training when `rng` is None.  `generators` (topological
         index → generator) replaces a drawing layer's own with the
         caller's, which the caller has seeded.  `layer_subset` runs only
-        the named layers (in topological order; a prefix of the net, as
-        the CD trainer's).  `shard` (index, n) marks `batch` as one of n
+        the named layers (in topological order), reading and extending
+        the caller's `outputs` where given: the CD trainer runs a prefix
+        of the net, and a pipeline (`parallel/pipeline_net.py`) its pre
+        and post groups.  `shard` (index, n) marks `batch` as one of n
         slices of a global batch: layers that draw over the batch keep
         this slice's rows of the global draw.  A layer that leaves an
         auxiliary loss in `_aux` (kMoE) adds it to total_loss and to
         metrics as "<layer>/aux".  `par` (a bound `DataParallel`) runs
         the net over its mesh: `params` are this rank's shards, and with
-        `par.seq_sharding` the batch is this rank's chunk of dim 1."""
+        `par.seq_sharding` the batch is this rank's chunk of dim 1; kMoE
+        then routes the tokens of the global batch (`token_split`)."""
         if train is None:
             train = self.phase == "kTrain"
         full = self._resolve_params(params)
         tp = par.view() if par is not None else None
         seq = par.seq_group if par is not None and par.seq_sharding \
             else None
+        tokens = token_split(par, shard)
+        experts = par.expert if par is not None and par.expert.n > 1 \
+            else None
         dev = params_device(params)
         batch = _to_device(batch, dev)
-        outputs: Dict[str, Any] = {}
+        outputs = {} if outputs is None else outputs
         metrics: Dict[str, torch.Tensor] = {}
         total_loss = torch.zeros((), dtype=torch.float32, device=dev)
         n_loss = len(self._loss_layers())
@@ -308,7 +315,7 @@ class NeuralNet:
                           compute_dtype=compute_dtype, rng=rng,
                           layer_index=idx, step=step, device=dev,
                           generators=generators, shard=shard, tp=tp,
-                          seq=seq)
+                          seq=seq, tokens=tokens, experts=experts)
             view = full
             if tp is not None and not layer.tp_aware:
                 view = self._layer_params(layer, full, tp)
@@ -354,6 +361,23 @@ class NeuralNet:
                 line += f" grad {_mean_abs(grads[pname]):.6f}"
             lines.append(line)
         return "\n".join(lines)
+
+
+def token_split(par, shard: Optional[Tuple[int, int]]):
+    """The `ops.moe.TokenSplit` of a forward over `par`'s mesh, or None
+    where this rank holds the whole batch: its rows are one slice of the
+    global batch's when `shard` says so (training under a data axis),
+    and its columns one chunk under sequence parallelism."""
+    if par is None:
+        return None
+    rows = par.n if shard is not None and shard[1] > 1 else 1
+    cols = par.seq_group.n if par.seq_sharding else 1
+    if rows == 1 and cols == 1:
+        return None
+    from ..ops.moe import TokenSplit
+    group = (par.grads if rows > 1 and cols > 1
+             else par.data_group if rows > 1 else par.seq_group)
+    return TokenSplit(group, rows, cols)
 
 
 def _mean_abs(t: torch.Tensor) -> float:

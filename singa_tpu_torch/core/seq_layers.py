@@ -404,8 +404,8 @@ class MoELayer(Layer):
         std = 1.0 / math.sqrt(e)
         n = self.n_exp
         self.router = _declare_with_default(self, 0, "router", (e, n), std)
-        # the stacked experts shard over the "expert" axis (A9 step 4);
-        # under a model axis alone they stay whole
+        # the stacked experts shard over the "expert" axis
+        # (`ops/moe.py`); under a model axis alone they stay whole
         self.w1 = _declare_with_default(self, 1, "w1", (n, e, f), std, 0,
                                         "expert")
         self.b1 = _declare_with_default(self, 2, "b1", (n, f), 0.0, 0,
@@ -423,7 +423,8 @@ class MoELayer(Layer):
              for name, key in (("router", self.router), ("w1", self.w1),
                                ("b1", self.b1), ("w2", self.w2),
                                ("b2", self.b2))}
-        out, aux = moe_ops.moe_ffn(srcs[0], p, self.k, self.capacity_factor)
+        out, aux = moe_ops.moe_ffn(srcs[0], p, self.k, self.capacity_factor,
+                                   split=ctx.tokens, experts=ctx.experts)
         self._aux = self.aux_coef * aux
         return out
 

@@ -82,7 +82,16 @@ evaluation runs the whole global batch on every rank (its seq chunk
 under sequence parallelism), and only rank 0 writes checkpoints, whole
 and spec-shaped (`_ckpt_state` gathers them over the model axis).
 
-Not ported yet (ROADMAP.md A9): pipeline nets.
+Pipeline nets (`:209-242`): when the config marks stages with
+`locationid` and the mesh has a pipe axis above 1, the train, test and
+validation steps run through `parallel.pipeline_net.PipelineNet` (or
+`HeteroPipelineNet` for stages of different structure) with `n_micro`
+microbatches (2·pipe by default, `ClusterProto.pipeline_microbatches`);
+a uniform pipeline's stage params live on their pipe rank only, and the
+gradient of every param whole on every pipe rank is summed over the
+pipe axis before the data mean.  Over an expert axis kMoE holds its
+rank's experts, and under a data or seq axis it routes the global
+tokens (`ops/moe.py`).
 """
 
 from __future__ import annotations
@@ -196,7 +205,7 @@ class Trainer:
                  log_fn: Optional[Callable[[str], None]] = None,
                  device: DeviceLike = None, seed: int = 0,
                  graphs: Optional[bool] = None, health=None,
-                 ngroups: int = 1, dp=None):
+                 ngroups: int = 1, dp=None, n_micro: int = 0):
         """`seed` seeds the per-step generators of the layers that draw
         (see `Context.layer_rng`); params come from `init(seed)`.
 
@@ -224,7 +233,9 @@ class Trainer:
         the data × seq ranks; its steps run eagerly (a gloo collective
         cannot be captured), so `graphs` must not be True, and under a
         data or seq axis above 1 the net must not compute over the whole
-        batch at once (`parallel.partition.batch_coupling`)."""
+        batch at once (`parallel.partition.batch_coupling`).  Under a pipe
+        axis above 1 a net with `locationid` stages runs pipelined with
+        `n_micro` microbatches (0: 2·pipe)."""
         self.cfg = model_cfg
         self.seed = seed
         self.health = health
@@ -250,9 +261,13 @@ class Trainer:
         self.train_net = build_net(model_cfg, "kTrain", input_shapes)
         self.test_net = self._maybe_net("kTest", input_shapes)
         self.val_net = self._maybe_net("kValidation", input_shapes)
+        self._pipeline_nets = self._maybe_pipeline(n_micro)
         if self.dp is not None:
             from ..parallel.partition import uses_sequence_parallel
-            self.dp.bind(self.train_net, uses_sequence_parallel(model_cfg))
+            pnet = self._pipeline_nets.get(id(self.train_net))
+            self.dp.bind(self.train_net, uses_sequence_parallel(model_cfg),
+                         stage_owner=(pnet.owners(self.dp.pipe.n)
+                                      if pnet is not None else None))
             if model_cfg.alg == "kContrastiveDivergence" and any(
                     self.dp.sharded(k) for k in self.train_net.param_specs):
                 raise ValueError("contrastive divergence over sharded params "
@@ -311,6 +326,37 @@ class Trainer:
                          f"is 0 — no {nm} net is built and {nm} "
                          f"evaluation will not run (worker.cc:16-27)")
 
+    def _maybe_pipeline(self, n_micro: int) -> Dict[int, Any]:
+        """{id(net): PipelineNet} when the config marks stages AND the
+        mesh has a pipe axis > 1; {} otherwise (locationid marks are
+        inert on a flat mesh, matching the reference running a
+        location-annotated net on a single worker)."""
+        has_pipe = self.dp is not None and self.dp.pipe.n > 1
+        staged = any(l.locationid > 0 for l in self.cfg.neuralnet.layer)
+        if not (has_pipe and staged):
+            return {}
+        from ..parallel.pipeline_net import (HeteroPipelineNet,
+                                             NonUniformStages, PipelineNet)
+        n_micro = n_micro or 2 * self.dp.pipe.n
+        nets = {}
+        for net in (self.train_net, self.test_net, self.val_net):
+            if net is not None:
+                try:
+                    nets[id(net)] = PipelineNet(net, n_micro)
+                except NonUniformStages as e:
+                    # the reference pipelines arbitrary locationid
+                    # layouts (neuralnet.cc:198-323); stages of other
+                    # structure take the heterogeneous form
+                    self.log(f"pipeline: stages not uniform ({e}); using "
+                             f"HeteroPipelineNet")
+                    nets[id(net)] = HeteroPipelineNet(net, n_micro)
+        return nets
+
+    def _net_apply(self, net):
+        """net.apply, or the pipelined equivalent when configured."""
+        pnet = self._pipeline_nets.get(id(net))
+        return net.apply if pnet is None else pnet.apply
+
     def _pick_graphs(self, graphs: Optional[bool]) -> bool:
         if graphs and self.device.type != "cuda":
             raise ValueError(f"graphs=True needs a CUDA device, not "
@@ -344,6 +390,7 @@ class Trainer:
         # the trainer holds these closures: they must not hold it
         compute_dtype, seed, state, dp = self.compute_dtype, self.seed, \
             self._state, self.dp
+        apply = self._net_apply(net)
         program = f"eval_step[{net.phase}]"
         harvested = []
 
@@ -354,9 +401,9 @@ class Trainer:
             if dp is not None:  # every row; a seq chunk under SP
                 batch = dp.shard(batch, rows=False)
             with torch.no_grad():
-                _, metrics, _ = net.apply(params, batch, train=False,
-                                          compute_dtype=compute_dtype,
-                                          rng=seed, par=dp)
+                _, metrics, _ = apply(params, batch, train=False,
+                                      compute_dtype=compute_dtype,
+                                      rng=seed, par=dp)
             if dp is not None and dp.seq_sharding:
                 metrics = dp.mean_dict(metrics, group=dp.seq_group)[0]
             return metrics
@@ -408,7 +455,7 @@ class Trainer:
             p.requires_grad_(True)
         try:
             with profiler.phase("fwd"):
-                loss, metrics, outputs = self.train_net.apply(
+                loss, metrics, outputs = self._net_apply(self.train_net)(
                     params, batch, train=True,
                     compute_dtype=self.compute_dtype, rng=self.seed,
                     step=step, generators=self._gens, shard=shard,
@@ -436,8 +483,10 @@ class Trainer:
         grads = {k: g if g is not None else torch.zeros_like(params[k])
                  for k, g in grads.items()}
         if self.dp is not None:
-            # the mean over data × seq of the ranks' gradients is the
-            # global batch's; the model axis holds other shards
+            # a param whole on every pipe rank has its parts on several
+            # ranks; the mean over data × seq of the ranks' gradients is
+            # the global batch's; the model and expert axes hold shards
+            grads = self.dp.pipe_sum(grads)
             grads, metrics = self.dp.mean_dict(grads, metrics)
         if poison is not None:
             grads = {k: g * poison for k, g in grads.items()}
@@ -455,7 +504,7 @@ class Trainer:
             metrics = {**metrics, **health_probes(
                 grads, old, params,
                 model=(self.dp if self.dp is not None
-                       and self.dp.model.n > 1 else None))}
+                       and self.dp.gathers else None))}
         return metrics
 
     def _train_body(self, state, batch, step: int):
@@ -1199,9 +1248,9 @@ class Trainer:
 
     def _ckpt_state(self, params, opt_state):
         """(params, opt_state) as a snapshot holds them: whole and
-        spec-shaped, gathered over the model axis (a collective every
-        rank joins) and unpadded, so a snapshot restores under any mesh
-        or none."""
+        spec-shaped, gathered over the model and expert axes and from
+        the pipe ranks (a collective every rank joins) and unpadded, so
+        a snapshot restores under any mesh or none."""
         if self.dp is not None:
             params, opt_state = self.dp.gather_state(params, opt_state)
         net = self.train_net
@@ -1244,7 +1293,7 @@ class Trainer:
             # every rank holds the same state (or its shard of it):
             # rank 0 writes it whole
             ckpt = CheckpointManager(workspace, log_fn=self.log)
-        elif saving and self.dp.model.n > 1:
+        elif saving and self.dp.gathers:
             # the other ranks join the gather of every save
             ckpt = _GATHER_ONLY
         interrupted: List[int] = []

@@ -76,11 +76,16 @@ run).  With more than one process the cluster config's mesh spans the
 group (`parallel/mesh.py`): its data axis (`data_parallel: N`, or the
 legacy worker groups under kDataPartition or kNone), its model axis
 (`tensor_parallel: N`, or kLayerPartition over a group of several
-executors) and its seq axis (`sequence_parallel: N`).  Every process
-builds the same global batch and trains on its part, with its shards of
-the params and optimizer state, gradients averaged over the data × seq
-ranks (`parallel/partition.py`, `parallel/sequence.py`); such a run is
-eager.  Only rank 0 writes checkpoints, whole, so the processes must
+executors), its seq axis (`sequence_parallel: N`), its pipe axis
+(`pipeline_parallel: N`: a net with `locationid` stages runs as a GPipe
+schedule, or the circular one where the stages are a multiple of N,
+with `pipeline_microbatches` microbatches, 2·N by default) and its
+expert axis (`expert_parallel: N`: kMoE's experts split over N ranks).
+Every process builds the same global batch and trains on its part, with
+its shards of the params and optimizer state, gradients averaged over
+the data × seq ranks (`parallel/partition.py`, `parallel/sequence.py`,
+`parallel/pipeline_net.py`, `ops/moe.py`); such a run is eager.  Only
+rank 0 writes checkpoints, whole, so the processes must
 share one workspace: `--resume` fails on every rank, naming each rank's
 step, where the ranks took up different states.  A mesh that does not
 fit the process count raises, and a cluster config's mesh over one
@@ -91,9 +96,9 @@ A workspace holding orbax steps that cannot be read here (no
 run from step 0.  The CLI runs on the card and has no device flag;
 `main(argv, device="cpu")` is the Python entry that runs it on the CPU.
 What the port does not have yet exits 2, naming its ROADMAP.md item: a
-cluster config that asks for a pipeline or expert axis above 1, and a
-data or seq axis above 1 under a net that computes over the whole batch
-at once (a kMoE layer, contrastive divergence) (A9).
+cluster config that asks for a pipeline axis together with a tensor,
+sequence or expert axis above 1, and a data or seq axis above 1 under
+contrastive divergence, which trains on the whole batch at once (A9).
 """
 
 from __future__ import annotations
@@ -797,8 +802,8 @@ def _run(args, device: DeviceLike) -> int:
     ptype = model.neuralnet.partition_type if model.neuralnet else "kNone"
     lacking = unported_axes(cluster)
     if lacking:
-        return _lacking(f"a cluster config with {lacking} (pipeline or "
-                        f"expert parallelism)", "A9")
+        return _lacking(f"a cluster config with {lacking} (a pipeline "
+                        f"axis together with another model axis)", "A9")
     from .parallel.partition import batch_coupling
     coupled = batch_coupling(model)
     if cluster is not None and coupled and max(
@@ -884,7 +889,9 @@ def _train(args, device: DeviceLike, model, cluster, ptype, log) -> int:
             dp = DataParallel(mesh)
     trainer = Trainer(model, input_shapes, log_fn=obs.get_logger("trainer"),
                       device=dev, seed=args.seed, health=health,
-                      ngroups=ngroups, dp=dp)
+                      ngroups=ngroups, dp=dp,
+                      n_micro=(cluster.pipeline_microbatches
+                               if cluster else 0))
     trainer.phase_profile = args.phase_profile
     reg = obs.registry()
     if reg is not None and health is not None:
@@ -983,6 +990,12 @@ def _train(args, device: DeviceLike, model, cluster, ptype, log) -> int:
                 f"{dp.agree(params)} (rank {dp.rank} of {dp.n}); "
                 f"{ex['calls']} exchanges, {ex['seconds'] * 1e3:.3f} ms in "
                 f"all")
+            if dp.pipe.n > 1:
+                px = stats(dp.pipe, "shift")
+                log(f"pipe shifts: {px['calls']} calls, "
+                    f"{px['bytes'] / 1e6:.3f} MB sent, "
+                    f"{px['seconds'] * 1e3:.3f} ms in all (rank "
+                    f"{dp.pipe.index} of the pipe)")
     final = trainer.perf.to_string()
     log("training done" + (f": {final}" if final else
                            f" at step {model.train_steps}"))

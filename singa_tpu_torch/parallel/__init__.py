@@ -4,11 +4,14 @@ bootstrap on `torch.distributed` (`bootstrap.py`: `distributed_init`,
 subgroups (`mesh.py`), the collectives of an axis (`comm.py`), the
 partitioner's data, model and seq axes (`partition.py`: `shard_batch`,
 `param_shardings`, `pad_params`, `shard_params`, `shard_opt_state`,
-`DataParallel`), ring and Ulysses attention (`sequence.py`), and the
-elastic tier (`elastic.py`: EASGD, RandomSync, `ElasticController`,
-`ReplicaSet`, and `DistributedReplicaSet` over the process group),
-exported lazily as the JAX package exports it.  Pipeline and expert
-parallelism are ROADMAP.md A9.
+`DataParallel`), ring and Ulysses attention (`sequence.py`), pipeline
+parallelism (`pipeline.py`: `pipeline_apply`, `pipeline_apply_hetero`,
+`stack_stage_params`; `pipeline_net.py`: `PipelineNet`,
+`HeteroPipelineNet`, `stage_assignment`), and the elastic tier
+(`elastic.py`: EASGD, RandomSync, `ElasticController`, `ReplicaSet`,
+and `DistributedReplicaSet` over the process group), exported lazily as
+the JAX package exports it.  Expert parallelism lives in kMoE
+(`ops/moe.py`) over the mesh's expert axis.
 """
 
 from .bootstrap import (DEFAULT_PORT, coordinator_address, distributed_init,
@@ -16,6 +19,8 @@ from .bootstrap import (DEFAULT_PORT, coordinator_address, distributed_init,
 from .mesh import AXES, Mesh, make_mesh, mesh_from_cluster
 from .partition import (DataParallel, pad_params, param_shardings,
                         shard_batch, shard_opt_state, shard_params)
+from .pipeline import (pipeline_apply, pipeline_apply_hetero,
+                       stack_stage_params)
 from .sequence import ring_attention, ulysses_attention
 
 _LAZY = {

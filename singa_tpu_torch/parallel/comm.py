@@ -36,15 +36,25 @@ backward collectives in the same order: a ring's rotations are one
 node even where a rank leaves a rotation unused (its gradient is then
 zeros).  Reductions travel in f32; other transports keep the bits
 (16-bit floats travel as bytes).  `STATS` counts, for each group by
-its axes' name ("model", "seq", "data×seq", ...), the calls, the bytes
-this rank sent and the seconds spent, host staging included.
+its axes' name ("model", "seq", "data×seq", "pipe", ...), the calls,
+the bytes this rank sent and the seconds spent, host staging included
+(the pipe's shifts apart, as "pipe:shift").
+
+`shift` is the pipe's `jax.lax.ppermute(x, axis, [(i, i + 1)])` (with
+`cyclic`, the ring `[(i, (i + 1) % n)]` of the circular schedule),
+where a rank with no source gets nothing (the JAX package's zeros).  The
+pipeline schedule (`parallel/pipeline.py`) calls it in the forward of
+one `autograd.Function` and the reverse shift (`step=-1`) in its
+backward, with each side's flags saying whether this tick's cell sends
+and receives: the sender's and the receiver's flags come from one
+schedule, so they always pair, and fill and drain ticks move nothing.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,10 +67,12 @@ def reset_stats() -> None:
     STATS.clear()
 
 
-def stats(g: "AxisGroup") -> Dict[str, float]:
+def stats(g: "AxisGroup", part: str = "") -> Dict[str, float]:
     """The calls, bytes and seconds counted for `g`'s axes since the
-    last `reset_stats`."""
-    return dict(STATS.get(g.name, {"calls": 0, "bytes": 0, "seconds": 0.0}))
+    last `reset_stats`; with `part` ("shift") those of that kind of call
+    alone, which `STATS` keeps apart as "<axes>:<part>"."""
+    key = f"{g.name}:{part}" if part else g.name
+    return dict(STATS.get(key, {"calls": 0, "bytes": 0, "seconds": 0.0}))
 
 
 @dataclass(frozen=True)
@@ -92,8 +104,9 @@ def _unwire(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return h.to(like.device)
 
 
-def _count(g: AxisGroup, t0: float, nbytes: int) -> None:
-    s = STATS.setdefault(g.name, {"calls": 0, "bytes": 0, "seconds": 0.0})
+def _count(g: AxisGroup, t0: float, nbytes: int, part: str = "") -> None:
+    key = f"{g.name}:{part}" if part else g.name
+    s = STATS.setdefault(key, {"calls": 0, "bytes": 0, "seconds": 0.0})
     s["calls"] += 1
     s["bytes"] += int(nbytes)
     s["seconds"] += time.perf_counter() - t0
@@ -141,6 +154,54 @@ def _permute(x: torch.Tensor, g: AxisGroup, shift: int) -> torch.Tensor:
         r.wait()
     _count(g, t0, h.numel() * h.element_size())
     return _unwire(buf, x)
+
+
+def _wire_empty(shape, dtype) -> torch.Tensor:
+    """A host buffer that receives what `_wire` sends of a tensor of
+    `shape` and `dtype`."""
+    if dtype in (torch.bfloat16, torch.float16):
+        shape = tuple(shape[:-1]) + (2 * shape[-1],)
+        dtype = torch.uint8
+    return torch.empty(tuple(shape), dtype=dtype)
+
+
+def shift(x: Optional[torch.Tensor], g: AxisGroup, like, *,
+          send: bool = True, recv: bool = True, step: int = 1,
+          cyclic: bool = False) -> Optional[torch.Tensor]:
+    """Send `x` to the rank `step` places on and receive from the rank
+    `step` places back, in one `batch_isend_irecv`: a send only where
+    `send` and such a rank exists (or `cyclic`), a receive only where
+    `recv` and such a rank exists.  `like` is (shape, dtype, device) of
+    what arrives; returns it, or None where nothing arrives.  Not
+    differentiable."""
+    n = g.n
+    if n == 1:      # a ring of one: the rank sends to itself
+        return x if cyclic and send and recv else None
+    import torch.distributed as dist
+    to, frm = g.index + step, g.index - step
+    if cyclic:
+        to, frm = to % n, frm % n
+    ops, nbytes, buf = [], 0, None
+    t0 = time.perf_counter()
+    if send and x is not None and 0 <= to < n and to != g.index:
+        h = _wire(x)
+        nbytes = h.numel() * h.element_size()
+        ops.append(dist.P2POp(dist.isend, h, g.ranks[to], g.pg))
+    if recv and 0 <= frm < n and frm != g.index:
+        shape, dtype, _ = like
+        buf = _wire_empty(shape, dtype)
+        ops.append(dist.P2POp(dist.irecv, buf, g.ranks[frm], g.pg))
+    if not ops:
+        return None
+    for r in dist.batch_isend_irecv(ops):
+        r.wait()
+    _count(g, t0, nbytes, "shift")
+    if buf is None:
+        return None
+    shape, dtype, device = like
+    if dtype in (torch.bfloat16, torch.float16):
+        buf = buf.view(dtype)
+    return buf.view(tuple(shape)).to(device)
 
 
 def _a2a(xs: Sequence[torch.Tensor], split: int, concat: int,

@@ -13,9 +13,11 @@ include/utils/cluster.h) becomes named axes, as in the JAX package:
 
 Here the mesh is topology arithmetic over ranks: its "devices" are the
 processes of the `torch.distributed` group, one card each (or a share
-of one).  The port runs the data, model and seq axes
-(`parallel/partition.py`, `parallel/sequence.py`); the pipe and expert
-axes are ROADMAP.md A9 (`unported_axes` names them).  `axis_groups`
+of one).  The port runs every axis (`parallel/partition.py`,
+`parallel/sequence.py`, `parallel/pipeline.py`, `parallel/
+pipeline_net.py`, and kMoE's experts over "expert", `ops/moe.py`); a
+pipe axis together with a model, seq or expert axis above 1 is not
+ported yet (ROADMAP.md A9; `unported_axes` names it).  `axis_groups`
 makes the process subgroups that the collectives of an axis run over
 (`parallel/comm.py`).
 """
@@ -131,15 +133,20 @@ def mesh_from_cluster(cluster: Optional[ClusterConfig],
 
 
 def unported_axes(cluster: Optional[ClusterConfig]) -> Dict[str, int]:
-    """The axes that `cluster` asks to be above 1 and the port cannot run
-    yet (pipeline and expert parallelism, ROADMAP.md A9), by name.
-    kLayerPartition over a group of several executors maps to the model
-    axis (`mesh_from_cluster`) and runs."""
-    if cluster is None:
+    """The axes that `cluster` asks to be above 1 in a combination the
+    port cannot run yet, by name: a pipeline axis together with a
+    tensor, sequence or expert axis above 1 (ROADMAP.md A9); empty
+    otherwise.  kLayerPartition over a group of several executors maps
+    to the model axis (`mesh_from_cluster`) and runs."""
+    if cluster is None or (cluster.pipeline_parallel or 1) <= 1:
         return {}
-    return {name: int(v) for name, v in (
-        ("pipeline_parallel", cluster.pipeline_parallel),
+    others = {name: int(v) for name, v in (
+        ("tensor_parallel", cluster.tensor_parallel),
+        ("sequence_parallel", cluster.sequence_parallel),
         ("expert_parallel", cluster.expert_parallel)) if (v or 1) > 1}
+    if not others:
+        return {}
+    return {"pipeline_parallel": int(cluster.pipeline_parallel), **others}
 
 
 def _group_order(mesh: Mesh, axes: Tuple[str, ...]):

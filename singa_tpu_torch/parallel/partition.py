@@ -29,15 +29,25 @@ each, and the collectives are explicit:
   their mean over the data × seq ranks (`DataParallel.mean`) is the
   global batch's, so every rank applies the same update.  The model
   axis is never averaged: a sharded param's gradient is its shard's,
-  and a replicated param's is the same on every model rank.
+  and a replicated param's is the same on every model rank.  Nor is
+  the expert axis: its ranks see one batch (the JAX package shards a
+  batch over "data" only), each expert lives on one rank, and kMoE sums
+  the ranks' partial outputs and input gradients itself (`ops/moe.py`).
+- **Pipeline stages.**  Under a pipe axis each rank holds its stages'
+  params only (`bind(stage_owner=)`; `shard_params` drops the others,
+  `gather_params` broadcasts each from its owner), and every param that
+  is whole on every pipe rank (the pre and post groups', and all of a
+  heterogeneous pipeline's) has its gradient summed over the pipe axis
+  before the data × seq mean (`pipe_sum`): its contributions sit on
+  different ranks (the embedding's on the first stage's, a tied head's
+  on the last's).
 
-That equality needs a net whose step is a mean of per-token terms.  A
-net that computes over the whole batch at once (`batch_coupling`: a
-kMoE layer sizes its experts' capacity, routes, and takes its router's
-aux loss over the tokens it is given; contrastive divergence trains on
-the whole batch on every rank) would train another function on a
-rank's slice, so it is refused under a data or seq axis above 1 until
-that computation spans the group (ROADMAP.md A9).
+That equality needs a net whose step is a mean of per-token terms.
+kMoE computes over the whole batch at once (capacity, routing and its
+router's aux loss), so it gathers its routing over the ranks that split
+the batch and routes the global tokens (`ops/moe.py`).  Contrastive
+divergence trains on the whole batch on every rank (`batch_coupling`),
+so it is refused under a data or seq axis above 1 (ROADMAP.md A9).
 
 The collectives run over gloo (`parallel/bootstrap.py`), staged through
 the host.  A step that runs one runs eagerly: a gloo collective cannot
@@ -47,6 +57,8 @@ be captured in a CUDA graph.
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -58,16 +70,12 @@ Placement = Optional[Tuple[str, int]]
 def batch_coupling(model_cfg) -> List[str]:
     """What in `model_cfg` computes over the whole batch at once, so that
     a rank's slice of the batch would train another function than the
-    global batch: one line per cause, empty where there is none."""
+    global batch: one line per cause, empty where there is none.  kMoE
+    routes the global tokens (`ops/moe.py`) and is not one."""
     out = []
     if model_cfg.alg == "kContrastiveDivergence":
         out.append("alg kContrastiveDivergence (CD-k trains on the whole "
                    "batch on every rank)")
-    for layer in model_cfg.neuralnet.layer if model_cfg.neuralnet else ():
-        if layer.type == "kMoE":
-            out.append(f"kMoE layer {layer.name!r} (expert capacity, "
-                       f"routing and the router's aux loss are computed "
-                       f"over a rank's own tokens)")
     return out
 
 
@@ -216,56 +224,85 @@ def shard_batch(mesh: Mesh, batch: Any, rank: int,
     return one(batch)
 
 
+
+
 class DataParallel:
     """The process mesh as seen from this process: its coordinates, the
-    groups of its model axis (`model`), its seq axis (`seq_group`) and
-    its data × seq ranks (`grads`, which average the gradients); its
-    shard of each batch and of each param; the mean over data × seq; and
-    the gathers that take sharded state whole.  The pipe and expert axes
-    must be 1 (ROADMAP.md A9) and the mesh must span the process group.
-    Every rank constructs it at once: the subgroups are made
-    collectively."""
+    groups of its model axis (`model`), its seq axis (`seq_group`), its
+    data × seq ranks (`grads`, which average the gradients), its data
+    axis (`data_group`), its pipe axis (`pipe`) and its expert axis
+    (`expert`); its shard of each batch and of each param; the sum over
+    pipe and the mean over data × seq; and the gathers that take sharded
+    state whole.  A pipe axis above 1 runs with the data axis alone
+    (ROADMAP.md A9), and the mesh must span the process group.  Every
+    rank constructs it at once: the subgroups are made collectively."""
 
     def __init__(self, mesh: Mesh):
         from .bootstrap import process_count, process_index
         self.mesh = mesh
         self.rank = process_index()
         self.world = process_count()
-        others = {a: s for a, s in mesh.shape.items()
-                  if a in ("pipe", "expert") and s > 1}
-        if others:
-            raise ValueError(f"the port runs the data, model and seq axes; "
-                             f"the mesh also asks for {others} (ROADMAP.md "
-                             f"A9)")
+        shape = mesh.shape
+        if shape["pipe"] > 1:
+            others = {a: shape[a] for a in ("model", "seq", "expert")
+                      if shape[a] > 1}
+            if others:
+                raise ValueError(
+                    f"a pipe axis of {shape['pipe']} runs with a data axis "
+                    f"alone in the port; the mesh also asks for {others} "
+                    f"(ROADMAP.md A9)")
         if mesh.size != self.world:
             raise ValueError(f"the mesh ({mesh.size} ranks) must span the "
                              f"process group ({self.world})")
         self.coords = mesh.coords(self.rank)
-        self.n = mesh.shape["data"]
+        self.n = shape["data"]
         self.index = self.coords["data"]
-        self.model, self.seq_group, self.grads = axis_groups(
-            mesh, self.rank, (("model",), ("seq",), ("data", "seq")))
-        # set by `bind`: the net's placements, and whether its token
-        # batches shard dim 1 over the seq axis
+        (self.model, self.seq_group, self.grads, self.data_group, self.pipe,
+         self.expert) = axis_groups(
+            mesh, self.rank, (("model",), ("seq",), ("data", "seq"),
+                              ("data",), ("pipe",), ("expert",)))
+        # set by `bind`: the net's placements, whether its token batches
+        # shard dim 1 over the seq axis, and the pipe index that owns each
+        # stage param of a uniform pipeline
         self.placements: Dict[str, Placement] = {}
         self._shapes: Dict[str, Tuple[int, ...]] = {}
         self._owners: Dict[str, str] = {}
+        self.stage_owner: Dict[str, int] = {}
         self.seq_sharding = False
 
-    def bind(self, net, uses_sp: bool = False) -> "DataParallel":
-        """Take `net`'s param placements (and its share_param aliases) and
-        whether it is sequence-parallel (`uses_sequence_parallel`)."""
+    def bind(self, net, uses_sp: bool = False,
+             stage_owner: Optional[Dict[str, int]] = None
+             ) -> "DataParallel":
+        """Take `net`'s param placements (and its share_param aliases),
+        whether it is sequence-parallel (`uses_sequence_parallel`), and
+        for a uniform pipeline the pipe index that holds each stage
+        param (`stage_owner`; a param not named there is whole on every
+        pipe rank)."""
         self.net = net
         self.placements = param_shardings(self.mesh, net, pad_uneven=True)
+        for name, where in self.placements.items():
+            if where and where[0] == "expert" and \
+                    net.param_specs[name].shape[where[1]] % self.expert.n:
+                raise ValueError(
+                    f"{name}: {net.param_specs[name].shape[where[1]]} "
+                    f"experts do not divide over an expert axis of "
+                    f"{self.expert.n}")
         self._shapes = {k: s.shape for k, s in net.param_specs.items()}
         self._owners = dict(net.param_aliases)
         self.seq_sharding = uses_sp and self.seq_group.n > 1
+        self.stage_owner = dict(stage_owner or {})
         return self
 
     @property
     def shard_spec(self):
         """(index, n) along the data axis, for `NeuralNet.apply(shard=)`."""
         return (self.index, self.n) if self.n > 1 else None
+
+    @property
+    def gathers(self) -> bool:
+        """Whether taking the state whole is collective (a model, expert
+        or pipe axis above 1), so every rank joins each save."""
+        return max(self.model.n, self.expert.n, self.pipe.n) > 1
 
     def shard(self, batch: Any, rows: bool = True) -> Any:
         """This rank's slice of dim 0 of every leaf of `batch` (all rows
@@ -276,45 +313,91 @@ class DataParallel:
                            "seq" if self.seq_sharding else None)
 
     def view(self) -> Optional[ModelShards]:
-        """The bound net's shards for one forward, or None without a
-        model axis."""
+        """The bound net's shards over the model axis for one forward, or
+        None without a model axis."""
         if self.model.n == 1:
             return None
-        dims = {k: p[1] for k, p in self.placements.items() if p}
+        dims = {k: p[1] for k, p in self.placements.items()
+                if p and p[0] == "model"}
         shapes = dict(self._shapes)
         for alias, owner in self._owners.items():
             if owner in dims:
                 dims[alias], shapes[alias] = dims[owner], shapes[owner]
         return ModelShards(self.model, dims, shapes, self._owners)
 
+    def held(self, name: str) -> bool:
+        """Whether this rank holds param `name` (every rank does, but a
+        stage param of a uniform pipeline only on its owner)."""
+        owner = self.stage_owner.get(name)
+        return owner is None or owner == self.pipe.index
+
     def shard_params(self, params: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
         """This rank's shards of whole, spec-shaped params (or optimizer
-        slot) of the bound net."""
-        return shard_params(self.mesh, self.net, params, self.rank)
+        slot) of the bound net; the stage params of other pipe ranks
+        dropped."""
+        out = shard_params(self.mesh, self.net, params, self.rank)
+        return {k: v for k, v in out.items() if self.held(k)}
 
     def shard_state(self, params, opt_state):
         """(params, opt_state) whole → this rank's shards."""
         return (self.shard_params(params),
                 {slot: self.shard_params(t) for slot, t in opt_state.items()})
 
+    def _axis_group(self, axis: str):
+        return self.model if axis == "model" else self.expert
+
     def gather_params(self, params: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:
         """The bound net's params (or an optimizer slot) whole and
-        spec-shaped from this rank's shards: gathered over their axis
-        and unpadded.  Collective over the model axis; not
+        spec-shaped from this rank's shards: gathered over their axis and
+        unpadded, and each pipe rank's stage params broadcast from it.
+        Collective over the model, expert and pipe axes; not
         differentiable."""
         from .comm import gather
         out = {}
         for name, t in params.items():
             where = self.placements.get(name)
-            if where is None or self.model.n == 1:
+            g = self._axis_group(where[0]) if where else None
+            if g is None or g.n == 1:
                 out[name] = t
             else:
                 dim = where[1]
-                out[name] = gather(t, dim, self.model).narrow(
+                out[name] = gather(t, dim, g).narrow(
                     dim, 0, self._shapes[name][dim])
+        if self.pipe.n > 1 and self.stage_owner:
+            out.update(self._from_owners(params))
         return out
+
+    def _from_owners(self, tree: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """Every stage param of `tree`'s kind, broadcast over the pipe
+        axis from the rank that holds it: one broadcast of bytes per
+        pipe rank."""
+        import torch.distributed as dist
+        like = next(iter(tree.values()))
+        dtype, dev = like.dtype, like.device
+        esize = like.element_size()
+        got = {}
+        g = self.pipe
+        for d in range(g.n):
+            names = sorted(k for k, o in self.stage_owner.items() if o == d)
+            sizes = [int(np.prod(self._shapes[k])) * esize for k in names]
+            if not names:
+                continue
+            if d == g.index:
+                buf = torch.cat([tree[k].detach().to("cpu").contiguous()
+                                 .reshape(-1).view(torch.uint8)
+                                 for k in names])
+            else:
+                buf = torch.empty(sum(sizes), dtype=torch.uint8)
+            dist.broadcast(buf, src=g.ranks[d], group=g.pg)
+            off = 0
+            for k, nb in zip(names, sizes):
+                got[k] = buf[off:off + nb].view(dtype).reshape(
+                    self._shapes[k]).to(dev)
+                off += nb
+        return got
 
     def gather_state(self, params, opt_state):
         """(params, opt_state) from shards → whole, spec-shaped."""
@@ -323,8 +406,42 @@ class DataParallel:
                  for slot, t in opt_state.items()})
 
     def sharded(self, name: str) -> bool:
-        """Whether this rank holds param `name` as a shard."""
-        return self.model.n > 1 and self.placements.get(name) is not None
+        """Whether this rank holds param `name` as a shard over the model
+        axis."""
+        where = self.placements.get(name)
+        return self.model.n > 1 and where is not None and where[0] == "model"
+
+    def shard_group(self, name: str):
+        """The group over which this rank's copy of param `name` is one
+        part of the whole (its model or expert axis, or the pipe axis for
+        a stage param), or None where the rank holds it whole."""
+        if name in self.stage_owner and self.pipe.n > 1:
+            return self.pipe
+        where = self.placements.get(name)
+        if where is None:
+            return None
+        g = self._axis_group(where[0])
+        return g if g.n > 1 else None
+
+    def pipe_sum(self, grads: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """Each gradient of a param that is whole on every pipe rank summed
+        over the pipe axis (one collective); a stage param's as it is."""
+        if self.pipe.n == 1:
+            return grads
+        names = sorted(k for k in grads if k not in self.stage_owner)
+        if not names:
+            return grads
+        from .comm import reduce_sum
+        flat = torch.cat([grads[k].detach().reshape(-1).float()
+                          for k in names])
+        flat = reduce_sum(flat, self.pipe)
+        out, off = dict(grads), 0
+        for k in names:
+            n = grads[k].numel()
+            out[k] = flat[off:off + n].view(grads[k].shape).to(grads[k].dtype)
+            off += n
+        return out
 
     def mean(self, tensors: List[torch.Tensor],
              group=None) -> List[torch.Tensor]:
@@ -356,7 +473,6 @@ class DataParallel:
         it copies the trees to the host."""
         import hashlib
 
-        import numpy as np
         import torch.distributed as dist
         h = hashlib.sha256()
 

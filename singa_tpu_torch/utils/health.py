@@ -167,22 +167,25 @@ def health_probes(grads: Dict[str, torch.Tensor],
     update ratio ||new - old|| / (||new|| + eps).  `old_params` holds
     the params before the update (the updater writes `new_params` in
     place, so the caller keeps a copy).  `model` (a bound
-    `parallel.partition.DataParallel` with a model axis) makes the norms
-    global: the sums of squares of the params this rank holds as shards
-    are summed over the model axis (their zero pads add nothing)."""
+    `parallel.partition.DataParallel` that holds some params in parts)
+    makes the norms global: the sums of squares of the params this rank
+    holds as parts (shards over the model or expert axis, a pipeline's
+    stage params) are summed over their axis (zero pads add nothing)."""
     names = sorted(new_params)
 
     def sq(tree):
         keys = sorted(tree)
         if model is None:
             return _sqsum([tree[k] for k in keys])
-        mine = [tree[k] for k in keys if model.sharded(k)]
-        total = _sqsum([tree[k] for k in keys if not model.sharded(k)] or
+        parts: Dict[Any, list] = {}
+        for k in keys:
+            parts.setdefault(model.shard_group(k), []).append(tree[k])
+        total = _sqsum(parts.pop(None, None) or
                        [torch.zeros((), device=tree[keys[0]].device)])
-        if not mine:
-            return total
         from ..parallel.comm import reduce_sum
-        return total + reduce_sum(_sqsum(mine), model.model)
+        for g, mine in sorted(parts.items(), key=lambda kv: kv[0].name):
+            total = total + reduce_sum(_sqsum(mine), g)
+        return total
     diff = dict(zip(names, torch._foreach_sub(
         [new_params[k] for k in names], [old_params[k] for k in names])))
     gn = torch.sqrt(sq(grads))

@@ -291,13 +291,18 @@ def test_make_mesh_refuses_what_xla_refuses():
 @pytest.mark.parametrize("text", [
     "tensor_parallel: 2", "sequence_parallel: 2", "pipeline_parallel: 2",
     "expert_parallel: 2", "data_parallel: 2\ntensor_parallel: 2\n"
-    "sequence_parallel: 2", "kLayerPartition"])
+    "sequence_parallel: 2", "kLayerPartition",
+    "pipeline_parallel: 2\ntensor_parallel: 2",
+    "pipeline_parallel: 2\nexpert_parallel: 2"])
 def test_cli_refuses_the_axes_it_lacks(tmp_path, capsys, text):
-    """The pipeline and expert axes exit 2 naming A9.  The tensor and seq
-    axes run: on one process a cluster config's mesh is not used, as the
-    JAX CLI uses none over one device, and the run trains."""
+    """A pipeline axis together with a tensor, seq or expert axis above 1
+    exits 2 naming A9.  Every axis alone runs: on one process a cluster
+    config's mesh is not used, as the JAX CLI uses none over one device,
+    and the run trains."""
     conf = CONV
-    lacking = text.split(":")[0] in ("pipeline_parallel", "expert_parallel")
+    fields = dict(line.split(":") for line in text.splitlines()
+                  if ":" in line)
+    lacking = "pipeline_parallel" in fields and len(fields) > 1
     if text == "kLayerPartition":
         conf = str(tmp_path / "conv.conf")
         with open(CONV) as f:
@@ -313,30 +318,33 @@ def test_cli_refuses_the_axes_it_lacks(tmp_path, capsys, text):
                      "--synthetic", "--steps", "1", "--batchsize", "8"],
                     device="cpu")
     out = capsys.readouterr()
+    fields = {k.strip(): int(v) for k, v in (
+        line.split(":") for line in text.splitlines())}
     if lacking:
         assert rc == 2 and "ROADMAP.md A9" in out.err
-        assert unported_axes(JCluster(**dict([(
-            text.split(":")[0], 2)]))) == {text.split(":")[0]: 2}
+        assert unported_axes(JCluster(**fields)) == fields
     else:
         assert rc == 0 and "training done" in out.out + out.err
-        assert unported_axes(ClusterConfig(**dict(
-            (k.strip(), int(v)) for k, v in (
-                line.split(":") for line in text.splitlines())))) == {}
+        assert unported_axes(ClusterConfig(**fields)) == {}
     assert unported_axes(None) == {}
 
 
 @pytest.mark.parametrize("axis", ["data_parallel", "sequence_parallel"])
 def test_cli_refuses_data_or_seq_over_kmoe(tmp_path, axis):
-    """kMoE routes over a rank's own tokens, so a data or seq axis above 1
-    over lm.conf still exits 2 naming A9 on every rank."""
+    """kMoE routes the global batch's tokens (`ops/moe.py`), so lm.conf
+    under a data or seq axis of 2 trains over 2 processes, and the
+    ranks agree on the params."""
     cluster = tmp_path / "cluster.conf"
     cluster.write_text(f"{axis}: 2\n")
     outs = _spawn(tmp_path, "cli", "-model_conf",
                   os.path.join(REPO, "examples", "transformer", "lm.conf"),
                   "-cluster_conf", str(cluster), "--synthetic", "--steps",
-                  "1", "--batchsize", "2", rc=2)
+                  "1", "--batchsize", "2")
+    digests = set()
     for out in outs:
-        assert "kMoE" in out and "ROADMAP.md A9" in out, out
+        assert "training done" in out and "ranks agree" in out, out
+        digests.add(re.search(r"params sha256 (\w+)", out).group(1))
+    assert len(digests) == 1
 
 
 # -- data parallelism ------------------------------------------------------
@@ -509,28 +517,47 @@ def _lm_tiny_moe(tmp_path):
     return str(path)
 
 
-def test_cli_refuses_data_parallel_moe(tmp_path):
+def test_cli_refuses_data_parallel_moe(tmp_path, capsys):
     """A kMoE layer sizes expert capacity and takes its aux loss over the
-    tokens it is given, so a rank's slice would train another function:
-    the CLI exits 2 on every rank, naming A9."""
+    global batch's tokens, which each rank gathers the routing of: under
+    data_parallel: 2 the CLI trains on both ranks, and their losses are
+    one process's."""
     cluster = tmp_path / "cluster.conf"
     cluster.write_text("data_parallel: 2\n")
-    outs = _spawn(tmp_path, "cli", "-model_conf", _lm_tiny_moe(tmp_path),
-                  "-cluster_conf", str(cluster), "--synthetic", "--steps",
-                  "2", rc=2)
+    conf = _lm_tiny_moe(tmp_path)
+    with open(conf) as f:
+        text = f.read()
+    with open(conf, "w") as f:
+        f.write(re.sub(r"display_frequency: \d+", "display_frequency: 1",
+                       text))
+    outs = _spawn(tmp_path, "cli", "-model_conf", conf, "-cluster_conf",
+                  str(cluster), "--synthetic", "--steps", "2")
+    assert tmain.main(["-model_conf", conf, "--synthetic", "--steps", "2"],
+                      device="cpu") == 0
+    out = capsys.readouterr()
+    want = _losses(out.out + out.err)
+    assert len(want) == 2
     for o in outs:
-        assert "kMoE layer 'ffn0'" in o and "ROADMAP.md A9" in o
-        assert "training done" not in o
+        assert "training done" in o and "ranks agree" in o, o
+        assert "ROADMAP.md A9" not in o
+        np.testing.assert_allclose(_losses(o), want, rtol=1e-5)
 
 
 @pytest.mark.parametrize("net", ["moe", "cd"])
 def test_the_trainer_refuses_a_batch_coupled_net_under_dp(tmp_path, net):
+    """CD-k trains on the whole batch on every rank, so a data axis above
+    1 refuses it (A9); kMoE routes the global batch and is not batch
+    coupled."""
     conf = (_lm_tiny_moe(tmp_path) if net == "moe"
             else os.path.join(REPO, "examples", "mnist", "rbm.conf"))
     model = tload(conf)
     from singa_tpu_torch.data.discovery import discover_input_shapes
+    from singa_tpu_torch.parallel.partition import batch_coupling
     shapes = discover_input_shapes(model, force_synthetic=True)
     Trainer(model, shapes, log_fn=lambda s: None, device="cpu")
+    if net == "moe":
+        assert batch_coupling(model) == []
+        return
     with pytest.raises(ValueError, match="ROADMAP.md A9"):
         Trainer(model, shapes, log_fn=lambda s: None, device="cpu",
                 dp=SimpleNamespace(n=2))

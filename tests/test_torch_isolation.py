@@ -55,7 +55,8 @@ def test_importing_every_module_loads_no_jax():
               "tools.loader", "serve.session", "serve.sessionlog",
               "serve.fleet", "serve.autoscale", "serve.traffic",
               "obs.collect", "parallel.bootstrap", "tools.walcheck",
-              "tools.trace_timeline", "parallel.elastic", "core.pipeline"):
+              "tools.trace_timeline", "parallel.elastic", "core.pipeline",
+              "parallel.pipeline", "parallel.pipeline_net"):
         assert f"singa_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

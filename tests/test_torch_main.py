@@ -72,16 +72,31 @@ def test_serve_smoke_matches_the_jax_cli(spec, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv,item", [
-    # lm.conf's kMoE routes over a rank's own tokens, so the shipped
-    # cluster.conf's data and seq axes stay refused over it (A9 step 4)
+    # a pipe axis runs with a data axis alone (A9): lm.conf under pipe=2
+    # with an expert axis of 2 stays refused
     (["-model_conf", os.path.join(os.path.dirname(CONF), "lm.conf"),
-      "-cluster_conf", os.path.join(os.path.dirname(CONF), "cluster.conf")],
-     "A9"),
+      "-cluster_conf", "{cluster}"], "A9"),
 ])
 def test_what_the_port_lacks_exits_2_naming_the_roadmap_item(
-        argv, item, capsys):
+        argv, item, capsys, tmp_path):
+    cluster = tmp_path / "cluster.conf"
+    cluster.write_text("pipeline_parallel: 2\nexpert_parallel: 2\n")
+    argv = [a.replace("{cluster}", str(cluster)) for a in argv]
     assert tmain.main(argv, device="cpu") == 2
     assert f"ROADMAP.md {item}" in capsys.readouterr().err
+
+
+def test_lm_conf_under_the_shipped_cluster_conf_trains(capsys):
+    """lm.conf's kMoE routes the global batch (A9 step 4), so the shipped
+    2 x 2 x 2 cluster.conf no longer refuses it; on one process its mesh
+    is not used, as in the JAX CLI (8 processes: chip_smoke.py 22a)."""
+    ex = os.path.dirname(CONF)
+    assert tmain.main(["-model_conf", os.path.join(ex, "lm.conf"),
+                       "-cluster_conf", os.path.join(ex, "cluster.conf"),
+                       "--synthetic", "--steps", "1", "--batchsize", "2"],
+                      device="cpu") == 0
+    out = capsys.readouterr()
+    assert "training done" in out.out + out.err
 
 
 def test_phase_profile_logs_the_device_split(capsys):
