@@ -317,6 +317,19 @@ non-zero before the last line is printed:
    `tensor_parallel: 2` through the CLI on 2 processes, 10 steps (its
    ring layers take the strided K1/K3/K4 route under a seq axis of 1,
    kMoE stays whole): its losses against the single-process CLI's.
+21-22. Pipeline and expert parallelism (`[pipe]`, `[moe]` lines).
+23. The rest of the mesh (`[cdp]`, `[mixed]` lines).  (a)
+   `examples/mnist/rbm.conf` uncut (rbm1 as PCD) under data=2 on 2
+   processes, 40 CD steps: params within 1e-5 and every step's recon
+   within 1e-6 of one process's on the same batches and global
+   uniforms; then through the CLI with `-hostfile`, resumed by one
+   process.  (b) The bench stack at full width and depth in 2 stages on
+   pipe=2 x model=2 (4 processes), 5 steps: losses within 3e-4 of one
+   process's, K1-K4 counted on each rank.  (c) Depth 2 on pipe=2 x
+   seq=2; lm.conf's 2 blocks as 2 stages on pipe=2 x expert=2.  (d) The
+   same on data=2 x pipe=2: moe1 in stage 2 drops what one process
+   drops routing each cell's tokens alone, and no aux term reaches the
+   loss or the metrics.
 
 Every result line ends with the card's `nvidia-smi` name and power
 limit.  The last lines are one JSON object listing each kernel with its
@@ -6026,10 +6039,10 @@ def check_flash_chunk(b, h, s, d, causal, dev, seed):
     return made
 
 
-def tpsp_reference(dev, arrays, cfg_kw, tmp):
+def tpsp_reference(dev, arrays, cfg_kw, tmp, name="one_params.pt"):
     """The single-process eager run of 20b/20c's steps on the same
     batches: losses, step ms and param and optimizer bytes; its final
-    params go to `tmp`/one_params.pt for the ranks to compare with."""
+    params go to `tmp`/`name` for the ranks to compare with."""
     from singa_tpu_torch import Trainer, synthetic_token_batches, \
         transformer_lm
     tr = Trainer(transformer_lm(**cfg_kw, precision="bfloat16"),
@@ -6054,8 +6067,7 @@ def tpsp_reference(dev, arrays, cfg_kw, tmp):
                               for t in p.values()),
            "opt_bytes": sum(t.numel() * t.element_size()
                             for d in o.values() for t in d.values())}
-    torch.save({k: v.cpu() for k, v in p.items()},
-               os.path.join(tmp, "one_params.pt"))
+    torch.save({k: v.cpu() for k, v in p.items()}, os.path.join(tmp, name))
     del tr, p, o
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -6856,6 +6868,513 @@ def phase_moe(dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: CD-k over a data axis, a pipe axis beside the model, seq or
+# expert axis, and kMoE inside a pipeline stage
+
+CDP_STEPS = 40          # 23a: 20 CD steps of each RBM, rbm1 persistent
+CDP_PARAM_ATOL = 1e-5
+CDP_RECON_ATOL = 1e-6
+CDP_CLI_STEPS = 40
+MIXED_STEPS = TPSP_STEPS        # 23b: the bench stack on pipe=2 x model=2
+MIXED_SEQ_LAYERS = 2    # 23c's depth cut on pipe=2 x seq=2; the width stays
+LMP_STEPS = 3           # 23c on pipe=2 x expert=2 and 23d on data=2 x pipe=2
+LMP_LOSS_RTOL = 2e-3    # bf16: the post group's head over 4 rows, not 1 or 2
+LMP_STAGES = {n: 1 for n in ("ln0a", "attn0", "res0a", "ln0b", "ffn0",
+                             "res0b")}
+LMP_STAGES.update({n: 2 for n in ("ln1a", "attn1", "res1a", "ln1b", "moe1",
+                                  "res1b")})
+CD_CHILD = """
+import json, sys, time
+import torch
+pid, hostfile, out, dev = int(sys.argv[1]), sys.argv[2], sys.argv[3], \\
+    sys.argv[4]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+from singa_tpu_torch.parallel import comm
+from singa_tpu_torch.parallel.bootstrap import distributed_init
+from singa_tpu_torch.parallel.mesh import make_mesh
+from singa_tpu_torch.parallel.partition import DataParallel
+assert distributed_init(pid, hostfile)
+dp = DataParallel(make_mesh(data=2))
+res = cs.cd_run(dev, dp)
+p = dp.gather_params(res.pop("params"))
+res["digest"] = dp.agree(p)
+res["grad_ms"] = comm.stats(dp.grads)["seconds"] * 1e3 / cs.CDP_STEPS
+res["grad_mb"] = comm.stats(dp.grads)["bytes"] / 1e6 / cs.CDP_STEPS
+if pid == 0:
+    torch.save({k: v.cpu() for k, v in p.items()}, f"{out}/cd_ranks.pt")
+with open(f"{out}/cd_{pid}.json", "w") as f:
+    json.dump(res, f)
+"""
+MIXED_CHILD = """
+import json, sys, time
+import torch
+import torch.distributed as dist
+pid, hostfile, out, dev = int(sys.argv[1]), sys.argv[2], sys.argv[3], \\
+    sys.argv[4]
+runs = json.loads(sys.argv[5])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+from singa_tpu_torch import (Trainer, numpy_params, params_from_numpy,
+                             synthetic_token_batches, transformer_lm)
+from singa_tpu_torch.ops import _kernels, moe
+from singa_tpu_torch.parallel import comm
+from singa_tpu_torch.parallel.bootstrap import distributed_init
+from singa_tpu_torch.parallel.mesh import make_mesh
+from singa_tpu_torch.parallel.partition import DataParallel
+assert distributed_init(pid, hostfile)
+def sync():
+    if dev == "cuda":
+        torch.cuda.synchronize()
+# a stage's kMoE: what it is given and what its routing drops, in the
+# first step's forward (the schedule's recompute runs with grad)
+cells, real = [], moe.moe_ffn
+def moe_ffn(x, params, k=2, capacity_factor=1.25, split=None, experts=None):
+    if record[0] and not torch.is_grad_enabled():
+        assert split is None and experts is None, (split, experts)
+        b, s, e = x.shape
+        cap = moe.capacity(b * s, k, params["router"].shape[1],
+                           capacity_factor)
+        r = moe.route(x.reshape(b * s, e), params["router"], k, cap)
+        cells.append(dict(x=x.detach().cpu(), dropped=int(
+            (r.slot == params["router"].shape[1] * cap).sum())))
+    return real(x, params, k, capacity_factor, split, experts)
+moe.moe_ffn = moe_ffn
+record = [False]
+res = {}
+for run in runs:
+    dp = DataParallel(make_mesh(**run["axes"]))
+    if run["net"] == "bench":
+        kw = run["cfg_kw"]
+        cfg = transformer_lm(**kw, precision="bfloat16", pipeline_stages=2)
+        shapes = {"data": {"input": (kw["seq_len"],),
+                           "target": (kw["seq_len"],)}}
+        data = synthetic_token_batches(kw["batchsize"], kw["seq_len"],
+                                       kw["vocab_size"], seed=0)
+    else:
+        cfg = cs.lm_staged()
+        shapes = cs.LM_SHAPES
+        data = synthetic_token_batches(8, cs.LM_SEQ, 4096, seed=0)
+    batches = [next(data) for _ in range(run["steps"])]
+    tr = Trainer(cfg, shapes, device=dev, dp=dp, log_fn=lambda m: None)
+    pnet = tr._pipeline_nets[id(tr.train_net)]
+    arrays = numpy_params(tr.train_net, seed=0)
+    p = dp.shard_params(params_from_numpy(tr.train_net, arrays, device=dev))
+    o = tr.updater.init(p)
+    sync()
+    dist.barrier()
+    _kernels.reset_launches()
+    comm.reset_stats()
+    losses, times, keys = [], [], set()
+    for step, batch in enumerate(batches):
+        record[0] = step == 0
+        sync()
+        t0 = time.perf_counter()
+        p, o, m = tr.train_step(p, o, batch, step)
+        losses.append(float(m["loss"]))
+        keys |= set(m)
+        sync()
+        times.append(time.perf_counter() - t0)
+        if step == 0:   # the collectives of the steps after the first
+            comm.reset_stats()
+    record[0] = False
+    launches = dict(_kernels.LAUNCHES)
+    n = len(batches) - 1
+    shift = comm.stats(dp.pipe, "shift")
+    layer = comm.stats(dp.model)
+    one = torch.load(f"{out}/{run['one']}")
+    whole = dp.gather_params(p)
+    num = den = 0.0
+    for k, r in one.items():
+        p0 = torch.from_numpy(arrays[k]).to(dev)
+        want = r.to(dev) - p0
+        num += float((whole[k] - p0 - want).square().sum())
+        den += float(want.square().sum())
+    del whole
+    if cells:
+        torch.save([c["x"] for c in cells],
+                   f"{out}/cells_{run['tag']}_{pid}.pt")
+    res[run["tag"]] = dict(
+        losses=losses, first_ms=times[0] * 1e3,
+        step_ms=sum(times[1:]) * 1e3 / n, coords=dp.coords,
+        shift_ms=shift["seconds"] * 1e3 / n,
+        shift_mb=shift["bytes"] / 1e6 / n, shift_calls=shift["calls"] / n,
+        model_ms=layer["seconds"] * 1e3 / n, model_mb=layer["bytes"] / 1e6 / n,
+        psum_ms=comm.stats(dp.pipe)["seconds"] * 1e3 / n,
+        grad_ms=comm.stats(dp.grads)["seconds"] * 1e3 / n,
+        update_gap=(num / den) ** 0.5, form=type(pnet).__name__,
+        metrics=sorted(keys), cells=[c["dropped"] for c in cells],
+        held=len(p), param_bytes=sum(t.numel() * t.element_size()
+                                     for t in p.values()),
+        launches=launches, digest=dp.agree(p))
+    cells.clear()
+    del tr, p, o
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+with open(f"{out}/mixed_{pid}.json", "w") as f:
+    json.dump(res, f)
+"""
+
+
+def cd_config():
+    """rbm.conf uncut (784-250-100, batch 64), rbm1 persistent (PCD)."""
+    from singa_tpu_torch import load_model_config
+    cfg = load_model_config(RBM_CONF)
+    cfg.train_steps = CDP_STEPS
+    for layer in cfg.neuralnet.layer:
+        if layer.name == "rbm1":
+            layer.rbm_param.persistent = True
+    return cfg
+
+
+def cd_run(dev, dp=None):
+    """23a's CD-k run through `Trainer.run` (eager): each step's recon,
+    the step ms after the first, and the params."""
+    from singa_tpu_torch import (Trainer, numpy_params, params_from_numpy,
+                                 synthetic_image_batches)
+    tr = Trainer(cd_config(), {"data": {"pixel": (28, 28), "label": ()}},
+                 device=dev, graphs=False, dp=dp, log_fn=lambda m: None)
+    p = params_from_numpy(tr.train_net, numpy_params(tr.train_net, seed=0),
+                          device=dev)
+    if dp is not None:
+        p = dp.shard_params(p)
+    o = tr.updater.init(p)
+    data = synthetic_image_batches(64, seed=3, stream_seed=30)
+    recons, stamps = [], []
+
+    def hook(step, m):
+        recons.append(m["recon"])
+        stamps.append(time.perf_counter())
+    p, o, _ = tr.run(p, o, data, hooks=[hook])
+    return {"recons": recons, "params": p, "rows": tr._chains[1].shape[0],
+            "step_ms": (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)}
+
+
+def cd_cli(dev, tmp):
+    """23a's CLI: rbm.conf under data_parallel: 2 on 2 processes with
+    -hostfile, then one process resumes rank 0's checkpoint."""
+    from singa_tpu_torch import CheckpointManager
+    conf = conf_copy(tmp, RBM_CONF, "rbm_dp.conf",
+                     [("display_frequency: 100", "display_frequency: 10")])
+    cluster = os.path.join(tmp, "cd_cluster.conf")
+    with open(cluster, "w") as f:
+        f.write("data_parallel: 2\n")
+    ws = os.path.join(tmp, "ws_cd")
+    hf = hostfile_of(tmp, "hostfile_cdcli", 2)
+    t0 = time.perf_counter()
+    outs = run_group([main_cmd(dev) + [
+        "-model_conf", conf, "-cluster_conf", cluster, "--synthetic",
+        "--steps", str(CDP_CLI_STEPS), "--workspace", ws, "-hostfile", hf,
+        "-procsID", str(i)] for i in range(2)], tmp, "cdcli")
+    wall = time.perf_counter() - t0
+    recons = set()
+    for out in outs:
+        expect_in(out, "mesh: {'data': 2, 'model': 1", "training done",
+                  "ranks agree")
+        recons.add(tuple(float(x) for x in re.findall(
+            r"cd\[rbm\d\]: recon : ([\d.]+)", out)))
+    assert len(recons) == 1, recons
+    got = next(iter(recons))
+    assert len(got) == CDP_CLI_STEPS // 10 and all(map(math.isfinite, got))
+    rp, _, step = CheckpointManager(ws, log_fn=lambda m: None).restore()
+    assert step == CDP_CLI_STEPS, step
+    assert rp["rbm0/weight"].shape == (784, 250), rp["rbm0/weight"].shape
+    assert rp["rbm1/weight"].shape == (250, 100), rp["rbm1/weight"].shape
+    t1 = time.perf_counter()
+    code, text = run_main(["-model_conf", conf, "--synthetic", "--steps",
+                           str(CDP_CLI_STEPS + 10), "--workspace", ws,
+                           "--resume"], dev)
+    resume_s = time.perf_counter() - t1
+    assert code == 0, text[-3000:]
+    expect_in(text, f"resumed from step {CDP_CLI_STEPS}", "training done")
+    return {"wall": wall, "recons": got, "resume_s": resume_s}
+
+
+def phase_cd_parallel(dev, tmp):
+    """23a: rbm.conf over data=2 against one process on the same batches
+    and global uniforms; then the CLI with a resume."""
+    one = cd_run(dev)
+    child = os.path.join(tmp, "cd_child.py")
+    with open(child, "w") as f:
+        f.write(CD_CHILD)
+    hf = hostfile_of(tmp, "hostfile_cd", 2)
+    t0 = time.perf_counter()
+    run_group([[sys.executable, child, str(i), hf, tmp, dev]
+               for i in range(2)], tmp, "cd")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for i in range(2):
+        with open(os.path.join(tmp, f"cd_{i}.json")) as f:
+            ranks.append(json.load(f))
+    assert ranks[0]["digest"] == ranks[1]["digest"], ranks
+    got = torch.load(os.path.join(tmp, "cd_ranks.pt"))
+    pgap = max(float((got[k] - one["params"][k].cpu()).abs().max())
+               for k in got)
+    rgap = max(abs(a - b) for x in ranks
+               for a, b in zip(x["recons"], one["recons"]))
+    assert len(ranks[0]["recons"]) == CDP_STEPS
+    assert pgap <= CDP_PARAM_ATOL and rgap <= CDP_RECON_ATOL, (pgap, rgap)
+    assert all(x["rows"] == 32 for x in ranks) and one["rows"] == 64
+    log(f"[cdp] 23a examples/mnist/rbm.conf (784-250-100, batch 64, rbm1 "
+        f"PCD), {CDP_STEPS} CD steps (20 an RBM) through Trainer.run on "
+        f"data=2, 2 processes, in {wall:.1f} s wall (process starts "
+        f"included): params within {pgap:.3g} of one process's on the same "
+        f"batches and global uniforms (tol {CDP_PARAM_ATOL}), recon within "
+        f"{rgap:.3g} at every step (tol {CDP_RECON_ATOL}; first and last "
+        f"{ranks[0]['recons'][0]:.6f}, {ranks[0]['recons'][-1]:.6f}); a "
+        f"rank's PCD chain holds {ranks[0]['rows']} rows; ranks' params "
+        f"equal (sha256 {ranks[0]['digest'][:16]}...); step "
+        f"{', '.join(f'{x['step_ms']:.2f}' for x in ranks)} ms against one "
+        f"process's eager {one['step_ms']:.2f} ms, the gradient mean "
+        f"{', '.join(f'{x['grad_ms']:.2f}' for x in ranks)} ms a step "
+        f"({ranks[0]['grad_mb']:.3f} MB sent a rank)")
+    del one
+    c = cd_cli(dev, tmp)
+    log(f"[cdp] 23a rbm.conf through python -m singa_tpu_torch.main with "
+        f"data_parallel: 2 and -hostfile on 2 processes: {CDP_CLI_STEPS} "
+        f"steps in {c['wall']:.1f} s wall (process starts included), recon "
+        f"lines {c['recons']} equal on both ranks; rank 0's checkpoint "
+        f"(whole, spec-shaped) resumed by one process to step "
+        f"{CDP_CLI_STEPS + 10} in {c['resume_s']:.1f} s")
+
+
+def lm_staged():
+    """lm.conf uncut with its 2 blocks marked as 2 stages (locationid 1
+    and 2, in memory): block 1's kMoE sits inside stage 2."""
+    from singa_tpu_torch import load_model_config
+    cfg = load_model_config(LM_CONF)
+    for layer in cfg.neuralnet.layer:
+        layer.locationid = LMP_STAGES.get(layer.name, 0)
+    return cfg
+
+
+def lm_cells_reference(dev, tmp, rows, name):
+    """One process's lm.conf steps on the same batches where each cell of
+    `rows` rows is its own forward (kMoE routes the cell's tokens, its
+    capacity sized on them) and no aux term joins the objective: the
+    step's loss is the mean of the cells', its gradient the mean of the
+    cells' gradients with the router aux coefficient 0.  Returns the
+    losses, the drops of each row block's kMoE at the first step, and
+    moe1's input of each cell; the params go to `tmp`/`name`."""
+    from singa_tpu_torch import (Trainer, numpy_params, params_from_numpy,
+                                 synthetic_token_batches)
+    from singa_tpu_torch.ops import moe
+    tr = Trainer(load_lm(), LM_SHAPES, device=dev, graphs=False,
+                 log_fn=trainer_log)
+    layer = tr.train_net.layers["moe1"]
+    layer.aux_coef = 0.0
+    p = params_from_numpy(tr.train_net, numpy_params(tr.train_net, seed=0),
+                          device=dev)
+    o = tr.updater.init(p)
+    data = synthetic_token_batches(8, LM_SEQ, 4096, seed=0)
+    losses, drops, xs = [], [], []
+    for step in range(LMP_STEPS):
+        batch = next(data)
+        grads, loss = None, 0.0
+        n = 8 // rows
+        for c in range(n):
+            cell = {"data": {k: v[c * rows:(c + 1) * rows]
+                             for k, v in batch["data"].items()}}
+            if step == 0:
+                with torch.no_grad():
+                    x = tr.train_net.apply(
+                        p, cell, train=True, compute_dtype=tr.compute_dtype,
+                        rng=0, step=0)[2]["ln1b"].to(tr.compute_dtype)
+                b, s, e = x.shape
+                cap = moe.capacity(b * s, layer.k, layer.n_exp,
+                                   layer.capacity_factor)
+                r = moe.route(x.reshape(b * s, e),
+                              p["moe1/router"].to(x.dtype), layer.k, cap)
+                drops.append(int((r.slot == layer.n_exp * cap).sum()))
+                xs.append(x.cpu())
+            m, g = tr.gradients(p, cell, step)
+            g = {k: v if v is not None else torch.zeros_like(p[k])
+                 for k, v in g.items()}
+            loss += float(m["loss"]) / n
+            grads = g if grads is None else {k: grads[k] + g[k] for k in g}
+        grads = {k: v / n for k, v in grads.items()}
+        tr.updater.set_step(step, p, tr.multipliers)
+        tr.updater.apply(grads, p, o, multipliers=tr.multipliers)
+        losses.append(loss)
+    torch.save({k: v.cpu() for k, v in p.items()}, os.path.join(tmp, name))
+    del tr, p, o
+    return {"losses": losses, "drops": drops, "xs": xs}
+
+
+def load_lm():
+    from singa_tpu_torch import load_model_config
+    return load_model_config(LM_CONF)
+
+
+def mixed_groups(dev, tmp, arrays, cfg_kw):
+    """23b, 23c and 23d in one group of 4 processes, the single-process
+    references first."""
+    from singa_tpu_torch import build_net, numpy_params
+    child = os.path.join(tmp, "mixed_child.py")
+    with open(child, "w") as f:
+        f.write(MIXED_CHILD)
+    one = tpsp_reference(dev, arrays, cfg_kw, tmp, "one_bench.pt")
+    seq_kw = {**cfg_kw, "num_layers": MIXED_SEQ_LAYERS}
+    seq_arrays = numpy_params(build(seq_kw, seq_kw["seq_len"]), seed=0)
+    one_seq = tpsp_reference(dev, seq_arrays, seq_kw, tmp, "one_seq.pt")
+    cells = {tag: lm_cells_reference(dev, tmp, rows, f"one_{tag}.pt")
+             for tag, rows in (("23c_expert", 2), ("23d", 1))}
+    bench = dict(net="bench", steps=MIXED_STEPS)
+    runs = [dict(bench, tag="23b", axes={"pipe": 2, "model": 2},
+                 cfg_kw=cfg_kw, one="one_bench.pt"),
+            dict(bench, tag="23c_seq", axes={"pipe": 2, "seq": 2},
+                 cfg_kw=seq_kw, one="one_seq.pt"),
+            dict(net="lm", tag="23c_expert", axes={"pipe": 2, "expert": 2},
+                 steps=LMP_STEPS, one="one_23c_expert.pt"),
+            dict(net="lm", tag="23d", axes={"data": 2, "pipe": 2},
+                 steps=LMP_STEPS, one="one_23d.pt")]
+    hf = hostfile_of(tmp, "hostfile_mixed", 4)
+    t0 = time.perf_counter()
+    run_group([[sys.executable, child, str(i), hf, tmp, dev,
+                json.dumps(runs)] for i in range(4)], tmp, "mixed")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for i in range(4):
+        with open(os.path.join(tmp, f"mixed_{i}.json")) as f:
+            ranks.append(json.load(f))
+    refs = {"23b": one, "23c_seq": one_seq, **cells}
+    out = {}
+    for run in runs:
+        tag = run["tag"]
+        r = [x[tag] for x in ranks]
+        ref = refs[tag]
+        assert len({x["digest"] for x in r}) == 1, (tag, r)
+        gap = max(abs(a - b) / abs(b) for x in r
+                  for a, b in zip(x["losses"], ref["losses"]))
+        tol = TPSP_LOSS_RTOL if run["net"] == "bench" else LMP_LOSS_RTOL
+        assert gap <= tol, (tag, [x["losses"] for x in r], ref["losses"])
+        assert all(x["update_gap"] <= TPSP_UPDATE_RTOL for x in r), \
+            (tag, [x["update_gap"] for x in r])
+        assert all(not [k for k in x["metrics"] if k.endswith("/aux")]
+                   for x in r), (tag, r[0]["metrics"])
+        out[tag] = {"gap": gap, "ranks": r, "ref": ref}
+    # 23d and 23c: a stage's kMoE dropped what one process drops routing
+    # the same cells' tokens alone, on the same tokens
+    for tag in cells:
+        got, xs = [], []
+        for i, x in enumerate(ranks):
+            if x[tag]["cells"]:
+                c = x[tag]["coords"]
+                got.append((c["data"], x[tag]["cells"]))
+                xs.append((c["data"], torch.load(os.path.join(
+                    tmp, f"cells_{tag}_{i}.pt"))))
+        # the cells of the pipe ranks of stage 2, in (data rank, microbatch)
+        # order, which is the global rows' order
+        by_data = {}
+        for d, drops in got:
+            assert by_data.setdefault(d, drops) == drops, (tag, got)
+        drops = [v for d in sorted(by_data) for v in by_data[d]]
+        assert drops == cells[tag]["drops"], (tag, drops,
+                                              cells[tag]["drops"])
+        seen = {}
+        for d, x in xs:
+            seen.setdefault(d, x)
+        xgap = max(float((a.float() - b.float()).abs().max()) for a, b in
+                   zip([x for d in sorted(seen) for x in seen[d]],
+                       cells[tag]["xs"]))
+        out[tag].update(drops=drops, xgap=xgap)
+    return out, wall
+
+
+def mixed_line(tag, what, res):
+    r = res["ranks"]
+    extra = ""
+    if "drops" in res:
+        extra = (f"; moe1 in stage 2 dropped {res['drops']} assignments a "
+                 f"cell at the first step, each what one process drops "
+                 f"routing that cell's tokens alone (their moe1 input within "
+                 f"{res['xgap']:.3g}); no '/aux' metric, and the losses are "
+                 f"those of an objective without the aux term")
+    log(f"[mixed] {tag} {what}: losses within {res['gap']:.3g} relative of "
+        f"one process's ({[round(v, 5) for v in r[0]['losses']]} against "
+        f"{[round(v, 5) for v in res['ref']['losses']]}); ranks' params "
+        f"equal (sha256 {r[0]['digest'][:16]}...), their move from the init "
+        f"within {', '.join(f'{x['update_gap']:.3g}' for x in r)} relative "
+        f"of one process's; {r[0]['form']}; params held a rank "
+        f"{[x['held'] for x in r]} ({[x['param_bytes'] for x in r]} bytes); "
+        f"step {', '.join(f'{x['step_ms']:.1f}' for x in r)} ms (first "
+        f"{', '.join(f'{x['first_ms']:.1f}' for x in r)} ms); the pipe "
+        f"shifts {', '.join(f'{x['shift_ms']:.1f}' for x in r)} ms and "
+        f"{', '.join(f'{x['shift_mb']:.2f}' for x in r)} MB sent a step a "
+        f"rank, the model axis's collectives (the pre and post groups'; a "
+        f"first pipe rank runs only the pre group's) "
+        f"{', '.join(f'{x['model_ms']:.1f}' for x in r)} ms and "
+        f"{', '.join(f'{x['model_mb']:.1f}' for x in r)} MB, the gradient "
+        f"sum over pipe {', '.join(f'{x['psum_ms']:.1f}' for x in r)} ms, "
+        f"the data x seq mean {', '.join(f'{x['grad_ms']:.1f}' for x in r)} "
+        f"ms a step after the first (host staging and the wait for the card "
+        f"included); ranks' coordinates "
+        f"{[{a: v for a, v in x['coords'].items() if v} for x in r]}; "
+        f"launches per rank "
+        f"{[{k: v for k, v in x['launches'].items() if v} for x in r]}"
+        + extra)
+
+
+def phase_mixed(dev, arrays, cfg_kw=BENCH):
+    """Phase 23; the arguments cut it down for a rehearsal on the CPU.
+    Returns the K1-K6 launches of each rank of 23b."""
+    import shutil
+    import tempfile
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mixed_", dir=os.path.join(REPO, "build"))
+    try:
+        t0 = time.perf_counter()
+        phase_cd_parallel(dev, tmp)
+        cd_s = time.perf_counter() - t0
+        res, wall = mixed_groups(dev, tmp, arrays, cfg_kw)
+        log(f"[mixed] 23a took {cd_s:.1f} s; one group of 4 processes ran "
+            f"23b, 23c and 23d in {wall:.1f} s wall (process starts "
+            f"included)")
+        stack = (f"bench stack ({cfg_kw['num_layers']}L, E="
+                 f"{cfg_kw['embed_dim']}, {cfg_kw['num_heads']} heads, V="
+                 f"{cfg_kw['vocab_size']}, S={cfg_kw['seq_len']}, B="
+                 f"{cfg_kw['batchsize']}, bf16, Adam, tied head)")
+        mixed_line("23b", f"{stack}, 2 stages on pipe=2 x model=2, 4 "
+                   f"processes, 4 microbatches, {MIXED_STEPS} eager steps",
+                   res["23b"])
+        mixed_line("23c", f"the same stack at depth {MIXED_SEQ_LAYERS}, 2 "
+                   f"stages on pipe=2 x seq=2, {MIXED_STEPS} eager steps",
+                   res["23c_seq"])
+        mixed_line("23c", f"examples/transformer/lm.conf (bf16, Adam, B=8, "
+                   f"S=512, E=256) with its 2 blocks as 2 stages (block 1's "
+                   f"kMoE in stage 2) on pipe=2 x expert=2, {LMP_STEPS} eager "
+                   f"steps, against one process whose cells of 2 rows each "
+                   f"route alone", res["23c_expert"])
+        mixed_line("23d", f"lm.conf's 2 blocks as 2 stages on data=2 x "
+                   f"pipe=2, {LMP_STEPS} eager steps, against one process "
+                   f"whose cells of 1 row each route alone", res["23d"])
+        if dev == "cuda":
+            per_rank = cfg_kw["num_layers"] // 2
+            for tag, layers, steps in (("23b", per_rank, MIXED_STEPS),
+                                       ("23c_seq", MIXED_SEQ_LAYERS // 2,
+                                        MIXED_STEPS),
+                                       ("23c_expert", 1, LMP_STEPS),
+                                       ("23d", 1, LMP_STEPS)):
+                for x in res[tag]["ranks"]:
+                    got = x["launches"]
+                    # each cell's forward and the backward's recompute,
+                    # then one K3 and K4 a layer a microbatch
+                    n_cells = 4 * steps * layers
+                    assert got["flash_fwd"] == 2 * n_cells, (tag, got)
+                    assert got["flash_dq"] == got["flash_dkv"] == n_cells, \
+                        (tag, got)
+                    last = x["coords"]["pipe"] == 1
+                    if tag in ("23b", "23c_seq"):
+                        assert (got["head_fwd"] > 0) == last, (tag, x)
+        return {i: x["launches"] for i, x in enumerate(res["23b"]["ranks"])}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6960,6 +7479,9 @@ def main() -> int:
     experts = phase_moe(dev)
     log(f"[moe] phase 22's launches on rank 0 of 22b: {experts}")
     took("phase 22")
+    mixed = phase_mixed(dev, arrays)
+    log(f"[mixed] phase 23's launches on each rank of 23b: {mixed}")
+    took("phase 23")
 
     kernels = []
     for name, res, replaces in (

@@ -27,7 +27,10 @@ What a step decides on the host (the MNIST distortion's `elastic_freq`)
 keys its graph, where the JAX package branches with `lax.cond`.
 
 `alg: kContrastiveDivergence` nets train through `run_cd` (greedy CD-k
-over the kRBM layers, `:1125-1247`), one captured step per RBM on CUDA.
+over the kRBM layers, `:1125-1247`), one captured step per RBM on CUDA;
+over a process mesh each rank runs the chain on its rows with its rows
+of the global batch's uniforms, over a model axis with its RBM's params
+gathered at use, and averages the gradients over the data × seq ranks.
 
 Cadence semantics from ModelProto: train_steps, test_steps,
 test_frequency/test_after_steps, validation_*, display_*,
@@ -89,9 +92,13 @@ validation steps run through `parallel.pipeline_net.PipelineNet` (or
 microbatches (2·pipe by default, `ClusterProto.pipeline_microbatches`);
 a uniform pipeline's stage params live on their pipe rank only, and the
 gradient of every param whole on every pipe rank is summed over the
-pipe axis before the data mean.  Over an expert axis kMoE holds its
-rank's experts, and under a data or seq axis it routes the global
-tokens (`ops/moe.py`).
+pipe axis before the data mean.  Beside a model, seq or expert axis a
+stage runs without the mesh, its params whole on those ranks, as the
+JAX stage does; the pre and post groups run over the whole mesh.  Over
+an expert axis kMoE holds its rank's experts, and under a data or seq
+axis it routes the global tokens (`ops/moe.py`); inside a stage it
+routes the cell's tokens and its aux loss is dropped, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -231,9 +238,7 @@ class Trainer:
         process) trains on this rank's part of each global batch with its
         shards of the params, and averages gradients and metrics over
         the data × seq ranks; its steps run eagerly (a gloo collective
-        cannot be captured), so `graphs` must not be True, and under a
-        data or seq axis above 1 the net must not compute over the whole
-        batch at once (`parallel.partition.batch_coupling`).  Under a pipe
+        cannot be captured), so `graphs` must not be True.  Under a pipe
         axis above 1 a net with `locationid` stages runs pipelined with
         `n_micro` microbatches (0: 2·pipe)."""
         self.cfg = model_cfg
@@ -248,14 +253,6 @@ class Trainer:
             raise ValueError("graphs=True cannot capture a step over "
                              "several processes: its gloo collectives run "
                              "on the host")
-        if self.dp is not None and (self.dp.n > 1
-                                    or self.dp.seq_group.n > 1):
-            from ..parallel.partition import batch_coupling
-            coupled = batch_coupling(model_cfg)
-            if coupled:
-                raise ValueError(f"data or sequence parallelism over "
-                                 f"{'; '.join(coupled)} is not in the port "
-                                 f"yet (ROADMAP.md A9)")
         self.compute_dtype = (torch.bfloat16
                               if model_cfg.precision == "bfloat16" else None)
         self.train_net = build_net(model_cfg, "kTrain", input_shapes)
@@ -264,14 +261,9 @@ class Trainer:
         self._pipeline_nets = self._maybe_pipeline(n_micro)
         if self.dp is not None:
             from ..parallel.partition import uses_sequence_parallel
-            pnet = self._pipeline_nets.get(id(self.train_net))
             self.dp.bind(self.train_net, uses_sequence_parallel(model_cfg),
-                         stage_owner=(pnet.owners(self.dp.pipe.n)
-                                      if pnet is not None else None))
-            if model_cfg.alg == "kContrastiveDivergence" and any(
-                    self.dp.sharded(k) for k in self.train_net.param_specs):
-                raise ValueError("contrastive divergence over sharded params "
-                                 "is not in the port yet (ROADMAP.md A9)")
+                         pipeline=self._pipeline_nets.get(
+                             id(self.train_net)))
         self.updater = make_updater(model_cfg.updater)
         self.multipliers = self.train_net.multipliers()
         from ..parallel.elastic import ElasticController, async_active
@@ -1021,9 +1013,39 @@ class Trainer:
         with torch.no_grad():
             _, _, outputs = net.apply(
                 params, batch, train=False, compute_dtype=self.compute_dtype,
-                layer_subset=net.topo[:net.topo.index(name)], par=self.dp)
+                layer_subset=net.topo[:net.topo.index(name)],
+                shard=self.dp.shard_spec if self.dp is not None else None,
+                par=self.dp)
         v = outputs[net.layers[name].cfg.srclayers[0]]
         return v.reshape(v.shape[0], -1).float()
+
+    def _cd_view(self, layer, params):
+        """The RBM's {W, bv, bh}, each whole: over a model axis a sharded
+        one is gathered at use, as the port's unpartitioned layers take
+        theirs (`ModelShards.full`)."""
+        tp = self.dp.view() if self.dp is not None else None
+        if tp is None:
+            return layer.cd_view(params)
+        return layer.cd_view({k: tp.full(params, k) if k in tp.dims
+                              else params[k]
+                              for k in (layer.w_key, layer.bv_key,
+                                        layer.bh_key)})
+
+    def _cd_uniform(self):
+        """The chain's uniform source: the generator, or under a data axis
+        a draw at the global batch's rows of which this rank keeps its
+        own (`Context.global_rows`' rule), so the ranks' chains together
+        draw what one process's chain draws."""
+        gen = self._cd_gen
+        if self.dp is None or self.dp.n == 1:
+            return gen
+        index, n, dev = self.dp.index, self.dp.n, self.device
+
+        def draw(shape):
+            b = shape[0]
+            return torch.rand((b * n,) + tuple(shape[1:]), generator=gen,
+                              device=dev)[index * b:(index + 1) * b]
+        return draw
 
     @torch.no_grad()
     def _cd_body(self, state, batch, name: str):
@@ -1031,15 +1053,24 @@ class Trainer:
         from the chain's generator (from `state["chain"]`, the PCD
         buffer, when there is one; it receives the chain's end), and the
         update of its params only, at the step `Updater.set_step` last
-        wrote."""
+        wrote.  Under `dp` `batch` is this rank's rows: the gradients
+        (this rank's shards of them over a model axis) and the
+        reconstruction error, each a mean over the rank's rows, are
+        averaged over the data × seq ranks, which gives the global
+        batch's."""
         layer = self.train_net.layers[name]
         params, opt = state["params"], state["opt"]
         from ..models.rbm import cd_grads
         v = self._cd_input(params, batch, name)
         chain = state.get("chain")
-        grads, recon, end = cd_grads(layer.cd_view(params), v, self._cd_gen,
-                                     k=layer.cd_k, persistent=chain)
+        grads, recon, end = cd_grads(self._cd_view(layer, params), v,
+                                     self._cd_uniform(), k=layer.cd_k,
+                                     persistent=chain)
         named = layer.named_grads(grads)
+        if self.dp is not None:
+            named, m = self.dp.mean_dict(self.dp.shard_params(named),
+                                         {"recon": recon})
+            recon = m["recon"]
         self.updater.apply(
             named, {k: params[k] for k in named},
             {slot: {k: d[k] for k in named} for slot, d in opt.items()},
@@ -1058,7 +1089,9 @@ class Trainer:
         buffer of this trainer; `fresh` restarts it from this batch's
         data (the first step of its phase in a run).  Under `graphs` the
         step replays the RBM's own graph, and the graphs own params and
-        state as `train_step`'s do."""
+        state as `train_step`'s do.  Under `dp` `batch` is the global
+        batch, of which this rank trains on its rows (its chain holds
+        those rows only)."""
         name = self.rbm_names()[idx]
         layer = self.train_net.layers[name]
         if self.graphs:
@@ -1068,10 +1101,13 @@ class Trainer:
         self.updater.set_step(step, {k: params[k] for k in keys},
                               self.multipliers)
         state = {"params": params, "opt": opt_state}
+        if self.dp is not None:
+            batch = self.dp.shard(batch)
         if layer.persistent:
             buf = self._chains.get(idx)
             if buf is None:
-                b = self.train_net.shapes[name][0]
+                b = self.train_net.shapes[name][0] // (
+                    self.dp.n if self.dp is not None else 1)
                 buf = self._chains[idx] = torch.zeros(
                     (b, layer.nvis), device=self.device)
             if fresh:
@@ -1104,7 +1140,9 @@ class Trainer:
         display lines (`step-N cd[rbmI]: recon : ...`, also appended to
         the returned history) and reaches the hooks as {"recon", "rbm"}.
         The `step.train` fault site, the checkpoint cadence and the
-        SIGTERM/SIGINT snapshot behave as in `run`; the last step is
+        SIGTERM/SIGINT snapshot behave as in `run`, over processes too
+        (rank 0 saves whole params, a signal to any rank stops all at one
+        step, and every rank waits for the last save); the last step is
         saved once.  Returns (params, opt_state, history)."""
         cfg = self.cfg
         if seed is not None:
@@ -1126,14 +1164,18 @@ class Trainer:
         history: List[Dict[str, float]] = []
         started = set()
         saved = None
+        stopped = False     # by a signal, here or on another rank
         ckpt, interrupted, old_handlers = self._ckpt_guard(workspace)
         try:
             for step in range(start_step, total):
                 faults.maybe_fault("step.train")
-                if interrupted:
-                    self.log(f"signal {interrupted[0]} received: "
-                             f"checkpointing at step {step} and stopping")
+                if self._interrupt(interrupted):
+                    who = (f"signal {interrupted[0]} received"
+                           if interrupted else "another rank got a signal")
+                    self.log(f"{who}: checkpointing at step {step} and "
+                             f"stopping")
                     self._save_checkpoint(ckpt, step, params, opt_state)
+                    stopped = True
                     break
                 if (self.test_step and self.test_now(step)
                         and test_iter_factory):
@@ -1176,9 +1218,12 @@ class Trainer:
             self._ckpt_unguard(old_handlers)
         # the final snapshot, unless the cadence just wrote it (the JAX
         # run_cd saves that step twice)
-        if (ckpt is not None and not interrupted and total > start_step
+        if (ckpt is not None and not stopped and total > start_step
                 and saved != total):
             self._save_checkpoint(ckpt, total, params, opt_state)
+        if self.dp is not None:
+            # rank 0's snapshots are on disk before any rank returns
+            self.dp.barrier()
         return params, opt_state, history
 
     def _observe(self, step: int, metrics: Dict[str, float]) -> None:

@@ -80,7 +80,11 @@ executors), its seq axis (`sequence_parallel: N`), its pipe axis
 (`pipeline_parallel: N`: a net with `locationid` stages runs as a GPipe
 schedule, or the circular one where the stages are a multiple of N,
 with `pipeline_microbatches` microbatches, 2·N by default) and its
-expert axis (`expert_parallel: N`: kMoE's experts split over N ranks).
+expert axis (`expert_parallel: N`: kMoE's experts split over N ranks),
+in any combination: a pipe axis beside a model, seq or expert axis runs
+the stages whole on those ranks and the pre and post groups over them,
+as the JAX package does.  `alg: kContrastiveDivergence` (rbm.conf)
+trains over a data axis too, each rank running the chain on its rows.
 Every process builds the same global batch and trains on its part, with
 its shards of the params and optimizer state, gradients averaged over
 the data × seq ranks (`parallel/partition.py`, `parallel/sequence.py`,
@@ -95,10 +99,6 @@ A workspace holding orbax steps that cannot be read here (no
 `tensorstore`) ends any subcommand with exit 1 and the reason, never a
 run from step 0.  The CLI runs on the card and has no device flag;
 `main(argv, device="cpu")` is the Python entry that runs it on the CPU.
-What the port does not have yet exits 2, naming its ROADMAP.md item: a
-cluster config that asks for a pipeline axis together with a tensor,
-sequence or expert axis above 1, and a data or seq axis above 1 under
-contrastive divergence, which trains on the whole batch at once (A9).
 """
 
 from __future__ import annotations
@@ -787,31 +787,12 @@ def _main(argv, device: DeviceLike) -> int:
             obs.disable()
 
 
-def _lacking(what: str, item: str) -> int:
-    print(f"error: {what} is not in the port yet (ROADMAP.md {item})",
-          file=sys.stderr)
-    return 2
-
-
 def _run(args, device: DeviceLike) -> int:
     log = obs.get_logger("main")
     model = load_model_config(args.model_conf)
     cluster = (load_cluster_config(args.cluster_conf)
                if args.cluster_conf else None)
-    from .parallel.mesh import unported_axes
     ptype = model.neuralnet.partition_type if model.neuralnet else "kNone"
-    lacking = unported_axes(cluster)
-    if lacking:
-        return _lacking(f"a cluster config with {lacking} (a pipeline "
-                        f"axis together with another model axis)", "A9")
-    from .parallel.partition import batch_coupling
-    coupled = batch_coupling(model)
-    if cluster is not None and coupled and max(
-            cluster.data_parallel or 0, cluster.sequence_parallel or 0) > 1:
-        # refused on any process count (the legacy worker groups' data
-        # axis, which follows the count, is checked under the mesh)
-        return _lacking(f"data or sequence parallelism over "
-                        f"{'; '.join(coupled)}", "A9")
     # the multi-process bootstrap comes before any device is chosen:
     # -procsID/-hostfile are the reference's launch (run.sh:20-37)
     joined = False
@@ -881,11 +862,6 @@ def _train(args, device: DeviceLike, model, cluster, ptype, log) -> int:
             log("warning: mesh sharding is not supported on the "
                 "multi-group async simulation path; ignoring")
         else:
-            from .parallel.partition import batch_coupling
-            coupled = batch_coupling(model)
-            if max(mesh.shape["data"], mesh.shape["seq"]) > 1 and coupled:
-                return _lacking(f"data or sequence parallelism over "
-                                f"{'; '.join(coupled)}", "A9")
             dp = DataParallel(mesh)
     trainer = Trainer(model, input_shapes, log_fn=obs.get_logger("trainer"),
                       device=dev, seed=args.seed, health=health,

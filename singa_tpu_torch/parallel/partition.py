@@ -40,14 +40,19 @@ each, and the collectives are explicit:
   heterogeneous pipeline's) has its gradient summed over the pipe axis
   before the data × seq mean (`pipe_sum`): its contributions sit on
   different ranks (the embedding's on the first stage's, a tied head's
-  on the last's).
+  on the last's).  A stage runs without the mesh, as in the JAX package
+  (its stage context has `mesh=None`): its params are whole on every
+  model and expert rank (`bind(pipeline=)`), and the model, seq and
+  expert ranks of one (data, pipe) coordinate compute the same cells;
+  the pre and post groups run over the whole mesh.  Without stages a
+  pipe axis replicates the step.
 
 That equality needs a net whose step is a mean of per-token terms.
 kMoE computes over the whole batch at once (capacity, routing and its
 router's aux loss), so it gathers its routing over the ranks that split
 the batch and routes the global tokens (`ops/moe.py`).  Contrastive
-divergence trains on the whole batch on every rank (`batch_coupling`),
-so it is refused under a data or seq axis above 1 (ROADMAP.md A9).
+divergence is a mean over rows too: each rank runs the chain on its
+rows with its rows of the global batch's uniforms (`Trainer.cd_step`).
 
 The collectives run over gloo (`parallel/bootstrap.py`), staged through
 the host.  A step that runs one runs eagerly: a gloo collective cannot
@@ -65,18 +70,6 @@ import torch
 from .mesh import Mesh, axis_groups
 
 Placement = Optional[Tuple[str, int]]
-
-
-def batch_coupling(model_cfg) -> List[str]:
-    """What in `model_cfg` computes over the whole batch at once, so that
-    a rank's slice of the batch would train another function than the
-    global batch: one line per cause, empty where there is none.  kMoE
-    routes the global tokens (`ops/moe.py`) and is not one."""
-    out = []
-    if model_cfg.alg == "kContrastiveDivergence":
-        out.append("alg kContrastiveDivergence (CD-k trains on the whole "
-                   "batch on every rank)")
-    return out
 
 
 def uses_sequence_parallel(model_cfg) -> bool:
@@ -110,15 +103,17 @@ def param_shardings(mesh: Mesh, net, pad_uneven: bool = False
             for name, spec in net.param_specs.items()}
 
 
-def pad_params(mesh: Mesh, net, params: Dict[str, torch.Tensor]
+def pad_params(mesh: Mesh, net, params: Dict[str, torch.Tensor],
+               placed: Optional[Dict[str, Placement]] = None
                ) -> Dict[str, torch.Tensor]:
     """Zero-pad every uneven partition dim of a spec-shaped param up to
     the next multiple of its mesh axis (an already padded one is left
-    as it is)."""
+    as it is); with `placed`, only of the params it shards."""
     out = dict(params)
     shape = mesh.shape
     for name, spec in net.param_specs.items():
-        if name not in out:
+        if name not in out or (placed is not None
+                               and placed.get(name) is None):
             continue
         n = shape.get(spec.mesh_axis or "model", 1)
         dim = spec.partition_dim
@@ -138,11 +133,14 @@ def _slice(t: torch.Tensor, dim: int, index: int, n: int) -> torch.Tensor:
 
 
 def shard_params(mesh: Mesh, net, params: Dict[str, torch.Tensor],
-                 rank: int) -> Dict[str, torch.Tensor]:
+                 rank: int, placed: Optional[Dict[str, Placement]] = None
+                 ) -> Dict[str, torch.Tensor]:
     """`rank`'s slice of each padded param (`pad_params`) over its axis;
-    a replicated param as it is."""
-    placed = param_shardings(mesh, net, pad_uneven=True)
-    padded = pad_params(mesh, net, params)
+    a replicated param as it is.  `placed` overrides the placements of
+    `param_shardings`."""
+    if placed is None:
+        placed = param_shardings(mesh, net, pad_uneven=True)
+    padded = pad_params(mesh, net, params, placed)
     coords = mesh.coords(rank)
     out = {}
     for name, t in padded.items():
@@ -233,9 +231,8 @@ class DataParallel:
     axis (`data_group`), its pipe axis (`pipe`) and its expert axis
     (`expert`); its shard of each batch and of each param; the sum over
     pipe and the mean over data × seq; and the gathers that take sharded
-    state whole.  A pipe axis above 1 runs with the data axis alone
-    (ROADMAP.md A9), and the mesh must span the process group.  Every
-    rank constructs it at once: the subgroups are made collectively."""
+    state whole.  The mesh must span the process group.  Every rank
+    constructs it at once: the subgroups are made collectively."""
 
     def __init__(self, mesh: Mesh):
         from .bootstrap import process_count, process_index
@@ -243,14 +240,6 @@ class DataParallel:
         self.rank = process_index()
         self.world = process_count()
         shape = mesh.shape
-        if shape["pipe"] > 1:
-            others = {a: shape[a] for a in ("model", "seq", "expert")
-                      if shape[a] > 1}
-            if others:
-                raise ValueError(
-                    f"a pipe axis of {shape['pipe']} runs with a data axis "
-                    f"alone in the port; the mesh also asks for {others} "
-                    f"(ROADMAP.md A9)")
         if mesh.size != self.world:
             raise ValueError(f"the mesh ({mesh.size} ranks) must span the "
                              f"process group ({self.world})")
@@ -262,24 +251,31 @@ class DataParallel:
             mesh, self.rank, (("model",), ("seq",), ("data", "seq"),
                               ("data",), ("pipe",), ("expert",)))
         # set by `bind`: the net's placements, whether its token batches
-        # shard dim 1 over the seq axis, and the pipe index that owns each
-        # stage param of a uniform pipeline
+        # shard dim 1 over the seq axis, whether it runs pipelined, and
+        # the pipe index that owns each stage param of a uniform pipeline
         self.placements: Dict[str, Placement] = {}
         self._shapes: Dict[str, Tuple[int, ...]] = {}
         self._owners: Dict[str, str] = {}
         self.stage_owner: Dict[str, int] = {}
         self.seq_sharding = False
+        self.pipelined = False
 
-    def bind(self, net, uses_sp: bool = False,
-             stage_owner: Optional[Dict[str, int]] = None
+    def bind(self, net, uses_sp: bool = False, pipeline=None
              ) -> "DataParallel":
-        """Take `net`'s param placements (and its share_param aliases),
-        whether it is sequence-parallel (`uses_sequence_parallel`), and
-        for a uniform pipeline the pipe index that holds each stage
-        param (`stage_owner`; a param not named there is whole on every
-        pipe rank)."""
+        """Take `net`'s param placements (and its share_param aliases)
+        and whether it is sequence-parallel (`uses_sequence_parallel`).
+        `pipeline` (a `PipelineNet` or `HeteroPipelineNet` over `net`,
+        under a pipe axis above 1) runs its stages without the mesh: their
+        params are whole on every model and expert rank, a uniform
+        pipeline's on their pipe rank only (`owners`; any other param is
+        whole on every pipe rank), and the token batches keep their whole
+        sequence."""
         self.net = net
         self.placements = param_shardings(self.mesh, net, pad_uneven=True)
+        self.pipelined = pipeline is not None and self.pipe.n > 1
+        if self.pipelined:
+            for name in pipeline.staged_params():
+                self.placements[name] = None
         for name, where in self.placements.items():
             if where and where[0] == "expert" and \
                     net.param_specs[name].shape[where[1]] % self.expert.n:
@@ -289,8 +285,10 @@ class DataParallel:
                     f"{self.expert.n}")
         self._shapes = {k: s.shape for k, s in net.param_specs.items()}
         self._owners = dict(net.param_aliases)
-        self.seq_sharding = uses_sp and self.seq_group.n > 1
-        self.stage_owner = dict(stage_owner or {})
+        self.seq_sharding = (uses_sp and self.seq_group.n > 1
+                             and not self.pipelined)
+        self.stage_owner = (pipeline.owners(self.pipe.n) if self.pipelined
+                            else {})
         return self
 
     @property
@@ -336,7 +334,8 @@ class DataParallel:
         """This rank's shards of whole, spec-shaped params (or optimizer
         slot) of the bound net; the stage params of other pipe ranks
         dropped."""
-        out = shard_params(self.mesh, self.net, params, self.rank)
+        out = shard_params(self.mesh, self.net, params, self.rank,
+                           self.placements)
         return {k: v for k, v in out.items() if self.held(k)}
 
     def shard_state(self, params, opt_state):
@@ -405,12 +404,6 @@ class DataParallel:
                 {slot: self.gather_params(t)
                  for slot, t in opt_state.items()})
 
-    def sharded(self, name: str) -> bool:
-        """Whether this rank holds param `name` as a shard over the model
-        axis."""
-        where = self.placements.get(name)
-        return self.model.n > 1 and where is not None and where[0] == "model"
-
     def shard_group(self, name: str):
         """The group over which this rank's copy of param `name` is one
         part of the whole (its model or expert axis, or the pipe axis for
@@ -426,8 +419,10 @@ class DataParallel:
     def pipe_sum(self, grads: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         """Each gradient of a param that is whole on every pipe rank summed
-        over the pipe axis (one collective); a stage param's as it is."""
-        if self.pipe.n == 1:
+        over the pipe axis (one collective); a stage param's as it is.
+        Without a pipelined net every pipe rank computed the whole
+        gradient, which stays as it is."""
+        if not self.pipelined:
             return grads
         names = sorted(k for k in grads if k not in self.stage_owner)
         if not names:

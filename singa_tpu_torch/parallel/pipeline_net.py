@@ -33,9 +33,28 @@ tied head's on the last.
 Data rows: the JAX package shards each microbatch's rows over "data"
 (`_data_batch_axis`); here a data rank holds a contiguous block of the
 global batch (`partition.shard_batch`) and cuts its own block into
-microbatches.  The microbatches differ, their union does not: for a net
-whose loss is a mean over rows, as every net here, both give the same
-loss and the same gradients.
+microbatches.  Either way a cell holds an aligned run of mb / data rows
+of the global batch, and the cells are the same runs: only which rank
+and microbatch runs each one differs.  So a net whose loss is a mean
+over rows, as every net here, gets the same loss and gradients, and a
+stage's kMoE routes the same cells.
+
+The other axes: a stage runs without the mesh, as the JAX stage does
+(its context has `mesh=None`, `:293-295,414-416`, and its params enter
+under `P("pipe")`): its params are whole on every model and expert rank,
+and the model, seq and expert ranks of one (data, pipe) coordinate run
+the same cells on the same rows, over the whole sequence.  The pre and
+post groups run over the whole mesh (`Context.tp`, kMoE's global
+routing and its expert axis).  The schedule's hops run over the pipe
+group of the rank's own (data, model, seq, expert) coordinate.
+
+kMoE inside a stage routes the cell's tokens with the capacity sized on
+them (`moe_ffn` without a split), on its whole experts.  Its router aux
+loss does not join the objective or the metrics: the JAX stage calls
+`layer.apply` directly and `NeuralNet.apply` adds `_aux` only for the
+layers it runs (`singa_tpu/core/net.py:333-337`).  That is a trap of the
+reference (ROADMAP.md C), which the port matches; `_run_stage` clears
+`_aux` after each layer, so no graph outlives its cell.
 
 Rng-bearing layers inside stages (dropout) draw per (stage,
 microbatch) cell from the step's seed (`_stage_rng`), so masks differ
@@ -125,18 +144,6 @@ def _external_input(net: NeuralNet, stage: List[str]) -> str:
             f"stage {stage} must consume exactly one external tensor, "
             f"found {uniq}")
     return uniq[0]
-
-
-def _no_moe(net: NeuralNet, stages: List[List[str]]) -> None:
-    """kMoE inside a stage is refused: a stage runs without the mesh (the
-    JAX stage context has mesh=None, `:293-295,414-416`), and kMoE's
-    router aux loss would have no way out of the schedule."""
-    for st in stages:
-        for name in st:
-            if net.layers[name].cfg.type == "kMoE":
-                raise PipelineError(
-                    f"kMoE layer {name!r} sits inside a pipeline stage, "
-                    f"which the port does not run yet (ROADMAP.md A9)")
 
 
 # ---------------------------------------------------------------------------
@@ -251,13 +258,18 @@ class _Staged:
         self.net = net
         self.n_micro = n_micro
         self.pre, self.stages, self.post = stage_assignment(net)
-        _no_moe(net, self.stages)
         self.stage_inputs = [_external_input(net, st)
                              for st in self.stages]
 
     @property
     def n_stages(self) -> int:
         return len(self.stages)
+
+    def staged_params(self) -> List[str]:
+        """Every param a stage reads (aliases resolved to their owners):
+        whole on every model and expert rank (`DataParallel.bind`)."""
+        return sorted({o for s in range(self.n_stages)
+                       for o in self._views(s).values()})
 
     def _views(self, s: int) -> Dict[str, str]:
         """{name a stage-s layer reads: the param that holds it}."""
@@ -282,6 +294,9 @@ class _Staged:
                           layer_index=topo.index(name), device=inp.device,
                           shard=kw.get("shard"))
             louts[name] = layer.apply(full, srcs, ctx)
+            # a stage's aux loss (kMoE's) is dropped, as in the JAX stage
+            if getattr(layer, "_aux", None) is not None:
+                layer._aux = None
         return louts[forwarded]
 
     def _kw(self, train, compute_dtype, rng, step, generators, shard,

@@ -30,7 +30,6 @@ import socket
 import subprocess
 import sys
 import textwrap
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -54,8 +53,7 @@ from singa_tpu_torch.data.synthetic import synthetic_image_batches
 from singa_tpu_torch.ops.augment import elastic_deform
 from singa_tpu_torch.ops.dropout import dropout
 from singa_tpu_torch.parallel import bootstrap, elastic as tel
-from singa_tpu_torch.parallel.mesh import (make_mesh, mesh_from_cluster,
-                                           unported_axes)
+from singa_tpu_torch.parallel.mesh import make_mesh, mesh_from_cluster
 from singa_tpu_torch.parallel.partition import shard_batch
 from singa_tpu_torch.utils.checkpoint import CheckpointManager
 from singa_tpu_torch.utils.faults import FaultSchedule, inject
@@ -295,14 +293,13 @@ def test_make_mesh_refuses_what_xla_refuses():
     "pipeline_parallel: 2\ntensor_parallel: 2",
     "pipeline_parallel: 2\nexpert_parallel: 2"])
 def test_cli_refuses_the_axes_it_lacks(tmp_path, capsys, text):
-    """A pipeline axis together with a tensor, seq or expert axis above 1
-    exits 2 naming A9.  Every axis alone runs: on one process a cluster
-    config's mesh is not used, as the JAX CLI uses none over one device,
-    and the run trains."""
+    """Every axis runs, alone or with others, a pipeline axis together
+    with a tensor or expert axis too (the port refuses no cluster config
+    that the JAX package runs): on one process a cluster config's mesh
+    is not used, as the JAX CLI uses none over one device, and the run
+    trains; over as many ranks as it asks for, the port's mesh has the
+    JAX package's axes."""
     conf = CONV
-    fields = dict(line.split(":") for line in text.splitlines()
-                  if ":" in line)
-    lacking = "pipeline_parallel" in fields and len(fields) > 1
     if text == "kLayerPartition":
         conf = str(tmp_path / "conv.conf")
         with open(CONV) as f:
@@ -318,15 +315,19 @@ def test_cli_refuses_the_axes_it_lacks(tmp_path, capsys, text):
                      "--synthetic", "--steps", "1", "--batchsize", "8"],
                     device="cpu")
     out = capsys.readouterr()
+    assert rc == 0 and "training done" in out.out + out.err
+    assert "ROADMAP.md" not in out.out + out.err
     fields = {k.strip(): int(v) for k, v in (
         line.split(":") for line in text.splitlines())}
-    if lacking:
-        assert rc == 2 and "ROADMAP.md A9" in out.err
-        assert unported_axes(JCluster(**fields)) == fields
-    else:
-        assert rc == 0 and "training done" in out.out + out.err
-        assert unported_axes(ClusterConfig(**fields)) == {}
-    assert unported_axes(None) == {}
+    n = int(np.prod([v for k, v in fields.items()
+                     if k.endswith("_parallel")])) \
+        if "nworkers" not in fields else 2
+    ptype = "kLayerPartition" if "nworkers" in fields else "kNone"
+    mine = mesh_from_cluster(ClusterConfig(**fields), ptype,
+                             devices=list(range(n)))
+    theirs = jmesh.mesh_from_cluster(JCluster(**fields), ptype,
+                                     devices=jax.devices()[:n])
+    assert mine.shape == dict(theirs.shape)
 
 
 @pytest.mark.parametrize("axis", ["data_parallel", "sequence_parallel"])
@@ -544,23 +545,33 @@ def test_cli_refuses_data_parallel_moe(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("net", ["moe", "cd"])
-def test_the_trainer_refuses_a_batch_coupled_net_under_dp(tmp_path, net):
-    """CD-k trains on the whole batch on every rank, so a data axis above
-    1 refuses it (A9); kMoE routes the global batch and is not batch
-    coupled."""
+def test_the_trainer_refuses_a_batch_coupled_net_under_dp(tmp_path, net,
+                                                          capsys):
+    """No net is refused under a data axis: kMoE routes the global batch,
+    and CD-k runs the chain on each rank's rows with its rows of the
+    global batch's uniforms, so rbm.conf through the CLI under
+    data_parallel: 2 on 2 processes reports one process's recon."""
     conf = (_lm_tiny_moe(tmp_path) if net == "moe"
             else os.path.join(REPO, "examples", "mnist", "rbm.conf"))
     model = tload(conf)
     from singa_tpu_torch.data.discovery import discover_input_shapes
-    from singa_tpu_torch.parallel.partition import batch_coupling
     shapes = discover_input_shapes(model, force_synthetic=True)
     Trainer(model, shapes, log_fn=lambda s: None, device="cpu")
     if net == "moe":
-        assert batch_coupling(model) == []
         return
-    with pytest.raises(ValueError, match="ROADMAP.md A9"):
-        Trainer(model, shapes, log_fn=lambda s: None, device="cpu",
-                dp=SimpleNamespace(n=2))
+    cluster = tmp_path / "cluster.conf"
+    cluster.write_text("data_parallel: 2\n")
+    argv = ["-model_conf", conf, "--synthetic", "--steps", "2"]
+    outs = _spawn(tmp_path, "cli", *argv, "-cluster_conf", str(cluster))
+    assert tmain.main(argv, device="cpu") == 0
+    recon = r"cd\[rbm0\]: recon : ([\d.]+)"
+    want = [float(x) for x in re.findall(recon, capsys.readouterr().out)]
+    assert len(want) == 1
+    for out in outs:
+        assert "mesh: {'data': 2" in out and "training done" in out, out
+        got = [float(x) for x in re.findall(recon, out)]
+        # the line prints 6 decimals
+        np.testing.assert_allclose(got, want, rtol=0, atol=1.5e-6)
 
 
 # -- DistributedReplicaSet -------------------------------------------------

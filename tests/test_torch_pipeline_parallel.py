@@ -243,10 +243,29 @@ def test_refusals_match_jax(case):
 
 
 def test_kmoe_in_a_stage_is_refused():
+    """kMoE inside a stage runs, as in the JAX package (A9 is done): a
+    cell routes its own tokens on the stage's whole experts, giving what
+    the same layers give through `NeuralNet.apply`; the stage drops the
+    aux loss and clears `_aux` after the cell, where the flat net adds
+    it to its metrics."""
     kw = dict(CIRC, pipeline_stages=2, moe_every=2, num_experts=4)
     net = build_net(transformer_lm(**kw), "kTrain", _seq(kw))
-    with pytest.raises(tpn.PipelineError, match="kMoE layer 'moe1'"):
-        tpn.PipelineNet(net, 4)
+    jpn.PipelineNet(jbuild_net(jtransformer_lm(**kw), "kTrain", _seq(kw)), 4)
+    pnet = tpn.PipelineNet(net, 4)
+    assert {"moe1/w1", "moe1/router", "moe3/w2"} <= set(pnet.staged_params())
+    assert "embed/embedding" not in pnet.staged_params()
+    params = net.init_params(0, device="cpu")
+    x = torch.randn((2, 32, 32), generator=torch.Generator().manual_seed(0))
+    last = pnet.stages[0][-1]
+    got = pnet._run_stage(0, params, x, None,
+                          dict(train=True, compute_dtype=None, shard=None),
+                          last)
+    assert net.layers["moe1"]._aux is None
+    _, metrics, outs = net.apply(params, {}, train=True,
+                                 layer_subset=pnet.stages[0],
+                                 outputs={pnet.stage_inputs[0]: x})
+    assert torch.equal(got, outs[last])
+    assert "moe1/aux" in metrics
 
 
 def test_cells_draw_apart_and_reproduce():
