@@ -262,17 +262,33 @@ non-zero before the last line is printed:
    replicas', the center's, the snapshots' and the graphs' tensors
    disjoint (`data_ptr`); each replica's loss falls; then the CLI with
    that cluster conf exits 0 with the center's test line.
-18. Checkpoints the JAX package wrote through orbax (`[ckpt]` lines):
-   whether `tensorstore` imports here.  (a) A workspace of
-   `examples/transformer/lm_tiny.conf` with the CLI's npz step 8 beside
-   an orbax step directory 16 (`_CHECKPOINT_METADATA`, `default/
-   _METADATA`): with `tensorstore` unable to import (taken out of
-   `sys.modules` where it imports), `restore`, `latest_step` and
-   `Trainer.resume` raise `OrbaxUnreadableError`, and `--resume` through
-   the CLI exits 1 with the reason, trains no step and writes nothing.
-   (b) Where `tensorstore` imports: a step written with it in orbax's
-   layout (zarr arrays under an ocdbt kvstore) restores equal to the
-   bit, and the CLI's `--resume` takes it up and trains on.
+18. Checkpoints the JAX package wrote through orbax (`[ckpt]` lines;
+   `tensorstore` taken out of `sys.modules`): the committed fixtures
+   `tests/torch_fixtures/orbax/` (lm_tiny.conf and conv.conf at its
+   shipped width, written by the JAX CLI; `hashes.json` holds each
+   leaf's sha256 as the JAX package restores it).  (a) The native zstd
+   decoder (`csrc/zstd_dec.cu`, built with the kernels) equals the plain
+   one byte for byte on every frame of both (manifests, nodes, zarr
+   chunks), and CRC32C agrees with the plain one and with the stored
+   seals of every encoded file.  (b) `CheckpointManager(device="cuda")` restores each through
+   the native decoder, every leaf's sha256 the recorded one.  (c)
+   `Trainer.resume` and the CLI's `--resume` (`main(argv)` in this
+   process) on copies of the conv.conf workspace take up its orbax step 4 and train to step 8 with finite
+   losses, writing an npz step beside it.  (d) An engine following the
+   lm_tiny workspace serves its step, its greedy tokens equal to an
+   engine's built from the sha-checked params.  (e) Restore ms of each
+   fixture with the native and the plain decoder, 3 rounds in turns,
+   and each decoder's MB/s over every frame on one thread.  (f) On
+   copies of the conv.conf workspace: a node resealed at an unknown
+   format version makes `restore` and `Trainer.resume` raise
+   `OrbaxUnreadableError` naming it, and the CLI's `--resume` exit 1
+   with the reason, training no step and writing nothing; a newest step
+   whose zstd frame is torn is walked past to the older one.  18a also
+   decodes the committed zstd corpus `tests/torch_fixtures/zstd/`
+   (levels -5 to 19, checksummed and skippable frames) with both
+   decoders, prints the plain one's mode counts (every mode taken), and
+   holds both to `ZstdError` on its frames cut in half or with a
+   reserved block type.
 19. Training over several processes sharing the card (`[dist]` lines;
    gloo, staged through the host; no kernel of K1-K6).  (a)
    `examples/mnist/conv.conf` at its shipped width (batch 64) for 20
@@ -5333,212 +5349,446 @@ def phase_elastic(dev, conf=MLP_CONF, cli_steps=MLP_CLI_STEPS,
 # ---------------------------------------------------------------------------
 # phase 18: checkpoints the JAX package wrote through orbax
 
-CKPT_CONF = os.path.join(REPO, "examples", "transformer", "lm_tiny.conf")
-CKPT_STEPS = 8          # lm_tiny.conf saves every 8 steps
-HIDE_TENSORSTORE = """
-import sys
-sys.modules["tensorstore"] = None       # as on a machine without it
-from singa_tpu_torch.main import main
-sys.exit(main(sys.argv[2:], device=sys.argv[1] or None))
-"""
+CKPT_FIXTURES = os.path.join(REPO, "tests", "torch_fixtures", "orbax")
+CKPT_CORPUS = os.path.join(REPO, "tests", "torch_fixtures", "zstd")
+# every mode the plain decoder counts that 18a's frames must take
+CKPT_MODES = ("block.raw", "block.rle", "block.compressed", "literals.raw",
+              "literals.rle", "literals.compressed", "literals.treeless",
+              "literals.streams.1", "literals.streams.4", "huffman.fse",
+              "huffman.direct", "table.predefined", "table.rle", "table.fse",
+              "table.repeat", "frame.checksum", "frame.skippable")
+CKPT_LM_CONF = os.path.join(REPO, "examples", "transformer", "lm_tiny.conf")
+CKPT_ROUNDS = 3         # restores with each decoder, in turns
+CKPT_DECODES = 3        # passes of the native decoder over every frame
+CKPT_TRAIN_TO = 8       # the conv.conf fixture's step 4, trained on to 8
+CKPT_PROMPTS = 2        # 18d: greedy prompts of the lm_tiny fixture
 
 
-def tensorstore_module():
-    """`tensorstore`, or None where it does not import."""
-    try:
-        import tensorstore
-    except ImportError:
-        return None
-    return tensorstore
+def ckpt_hashes() -> dict:
+    with open(os.path.join(CKPT_FIXTURES, "hashes.json")) as f:
+        return json.load(f)
 
 
-def flat_state(tree, keys=()):
-    """[(key path, numpy leaf)] of a nested dict, keys sorted."""
-    out = []
-    for k in sorted(tree):
-        if isinstance(tree[k], dict):
-            out += flat_state(tree[k], keys + (k,))
-        else:
-            out.append((keys + (k,), np.asarray(tree[k])))
+def ckpt_copy(tmp, name, as_=None):
+    import shutil
+    dst = os.path.join(tmp, as_ or name)
+    shutil.copytree(os.path.join(CKPT_FIXTURES, name), dst)
+    return dst
+
+
+def ckpt_leaves(params, opt) -> dict:
+    """{`|`-joined key path: numpy leaf} of a restored state, as
+    hashes.json names them."""
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}|")
+            else:
+                if isinstance(v, torch.Tensor):
+                    v = v.detach().float().cpu().numpy() \
+                        if v.dtype == torch.bfloat16 else v.cpu().numpy()
+                out[f"{prefix}{k}"] = np.asarray(v)
+    walk({"params": params, "opt_state": opt}, "")
     return out
 
 
-def orbax_step_dir(ckpt_dir, step, state=None, ts=None):
-    """A step directory in orbax's layout under `ckpt_dir`: `default/
-    _METADATA` listing every leaf of `state` by key path, then
-    `_CHECKPOINT_METADATA` (orbax writes it last).  With `ts`
-    (tensorstore) each leaf is written as a zarr array at its key path
-    joined with `.` under the step's ocdbt kvstore, as orbax writes it."""
-    stepdir = os.path.join(ckpt_dir, str(step))
-    base = os.path.join(stepdir, "default") + os.sep
-    os.makedirs(base)
-    leaves = flat_state(state or {"step": np.asarray(step, np.int64)})
-    ctx = ts.Context() if ts is not None else None
-    tree = {}
-    for keys, arr in leaves:
-        if ts is not None:
-            ts.open({"driver": "zarr",
-                     "kvstore": {"driver": "ocdbt",
-                                 "base": {"driver": "file", "path": base},
-                                 "path": ".".join(keys) + "/"},
-                     "metadata": {"shape": list(arr.shape),
-                                  "chunks": list(arr.shape),
-                                  "dtype": arr.dtype.str}},
-                    create=True, context=ctx).result().write(arr).result()
-        tree[str(keys)] = {"key_metadata": [{"key": k, "key_type": 2}
-                                            for k in keys],
-                           "value_metadata": {"value_type": "np.ndarray",
-                                              "skip_deserialize": False}}
-    with open(base + "_METADATA", "w") as f:
-        json.dump({"tree_metadata": tree, "use_ocdbt": True,
-                   "use_zarr3": False}, f)
-    with open(os.path.join(stepdir, "_CHECKPOINT_METADATA"), "w") as f:
-        json.dump({"item_handlers": {"default": "StandardCheckpointHandler"}},
-                  f)
-    return stepdir
+def ckpt_check(leaves, rec, what):
+    """Each leaf's dtype, shape and sha256 equal to the recorded ones."""
+    import hashlib
+    assert set(leaves) == set(rec["leaves"]), \
+        (what, sorted(set(leaves) ^ set(rec["leaves"])))
+    for k, v in leaves.items():
+        d = rec["leaves"][k]
+        got = [v.dtype.str, list(v.shape), hashlib.sha256(
+            np.ascontiguousarray(v).tobytes()).hexdigest()]
+        assert got == [d["dtype"], d["shape"], d["sha256"]], (what, k)
 
 
-def ckpt_trainer(dev):
+def ckpt_frames(ws):
+    """(zstd frames, encoded files) of an orbax workspace: the frame of
+    every manifest and node the reader reads, and every zarr chunk, of
+    each step's OCDBT database and of the per-process ones under it."""
+    from singa_tpu_torch.utils.ocdbt import OcdbtStore
+    from singa_tpu_torch.utils.zstd import Codec
+    frames, encoded = [], []
+    ckpt = os.path.join(ws, "checkpoints")
+    for step in sorted(s for s in os.listdir(ckpt) if s.isdigit()):
+        top = os.path.join(ckpt, step, "default")
+        # the step's tree holds every value; the per-process trees under
+        # it refer to the same bytes, so only their nodes are added
+        for root in [top] + [os.path.join(top, d)
+                             for d in sorted(os.listdir(top))
+                             if d.startswith("ocdbt.process_")]:
+            store = OcdbtStore(root, Codec(native=False))
+            for path, off, length in store.encoded:
+                with open(path, "rb") as f:
+                    f.seek(off)
+                    data = f.read(length)
+                # format version 0, zstd (one byte each)
+                assert data[12:14] == b"\x00\x01", (path, data[12:14])
+                encoded.append(data)
+                frames.append(data[14:-4])
+            for key in store.list() if root == top else ():
+                if not key.endswith((".zarray", "zarr.json")):
+                    frames.append(store.read(key))
+    return frames, encoded
+
+
+def ckpt_corpus():
+    """[(name, frame, record)] of the committed zstd corpus: frames that
+    libzstd wrote at levels -5 to 19, with content checksums and a
+    skippable frame, the sha256 of the bytes each was made from."""
+    with open(os.path.join(CKPT_CORPUS, "corpus.json")) as f:
+        corpus = json.load(f)
+    out = []
+    for name, rec in sorted(corpus.items()):
+        with open(os.path.join(CKPT_CORPUS, name), "rb") as f:
+            out.append((name, f.read(), rec))
+    return out
+
+
+def ckpt_decoders(names):
+    """18a: the native decoder against the plain one on every frame of
+    the fixtures and of the zstd corpus, byte for byte (the corpus also
+    against its recorded sha256), with the plain decoder's mode counts
+    over them all; both raise `ZstdError` on each corpus frame cut in
+    half or with its first block's type made reserved; CRC32C on every
+    encoded file and frame; single-threaded decode rates of each over
+    the fixtures' frames."""
+    import hashlib
+    from collections import Counter
+    from singa_tpu_torch.utils import zstd
+    native = zstd.Codec(native=True)
+    frames, encoded = [], []
+    for name in names:
+        f, e = ckpt_frames(os.path.join(CKPT_FIXTURES, name))
+        frames += f
+        encoded += e
+    counts = Counter()
+    t0 = time.perf_counter()
+    plain = [zstd.decompress(f, counts) for f in frames]
+    plain_s = time.perf_counter() - t0
+    native_s = []
+    for _ in range(CKPT_DECODES):
+        t0 = time.perf_counter()
+        got = [native.decompress(f) for f in frames]
+        native_s.append(time.perf_counter() - t0)
+        assert all(bytes(g) == p for g, p in zip(got, plain))
+    corpus = ckpt_corpus()
+    bad = 0
+    for name, frame, rec in corpus:
+        want = zstd.decompress(frame, counts)
+        assert (len(want), hashlib.sha256(want).hexdigest()) == (
+            rec["size"], rec["sha256"]), name
+        assert bytes(native.decompress(frame)) == want, name
+        if len(frame) < 64:
+            continue
+        half = frame[:len(frame) // 2]
+        reserved = bytearray(frame)
+        fhd = frame[4]
+        single = (fhd >> 5) & 1
+        reserved[5 + (1 - single) + (single, 2, 4, 8)[fhd >> 6]] |= 0x06
+        if frame[:4] != zstd.MAGIC.to_bytes(4, "little"):
+            reserved = None         # begins with a skippable frame
+        for cut in (half, reserved):
+            if cut is None:
+                continue
+            for decode in (zstd.decompress, native.decompress):
+                try:
+                    decode(bytes(cut))
+                except zstd.ZstdError:
+                    continue
+                raise AssertionError(f"{name}: a cut frame decoded")
+            bad += 1
+    for data in encoded:
+        stored = int.from_bytes(data[-4:], "little")
+        assert native.crc32c(data[:-4]) == zstd.crc32c(data[:-4]) == stored
+    for _, frame, _ in corpus:
+        assert native.crc32c(frame) == zstd.crc32c(frame)
+    missing = [m for m in CKPT_MODES if counts[m] == 0]
+    assert not missing, (missing, counts)
+    out_bytes = sum(len(p) for p in plain)
+    return {"frames": len(frames), "encoded": len(encoded),
+            "corpus": len(corpus), "bad": bad,
+            "modes": {m: counts[m] for m in CKPT_MODES},
+            "in_bytes": sum(len(f) for f in frames), "out_bytes": out_bytes,
+            "plain_s": plain_s, "native_s": float(np.mean(native_s)),
+            "plain_mbs": out_bytes / plain_s / 1e6,
+            "native_mbs": out_bytes / float(np.mean(native_s)) / 1e6}
+
+
+def ckpt_restores(dev, tmp, hashes):
+    """18b: each fixture restored for the card, every leaf's sha256 the
+    recorded one, through the native decoder (its calls counted); 18e:
+    restore ms of each decoder, CKPT_ROUNDS in turns."""
+    from singa_tpu_torch import CheckpointManager
+    from singa_tpu_torch.ops import _kernels
+    out = {}
+    for name, rec in sorted(hashes.items()):
+        ws = ckpt_copy(tmp, name)
+        _kernels.reset_launches()
+        p, o, step = CheckpointManager(ws, log_fn=lambda m: None,
+                                       device=dev).restore()
+        calls = dict(_kernels.CALLS)
+        assert step == rec["step"], (name, step)
+        assert calls["zstd_dec"] > 0 and calls["zstd_dec_crc32c"] > 0, calls
+        assert not any(_kernels.LAUNCHES.values()), dict(_kernels.LAUNCHES)
+        leaves = ckpt_leaves(p, o)
+        ckpt_check(leaves, rec, name)
+        ms = in_turns({
+            "native": lambda: CheckpointManager(
+                ws, log_fn=lambda m: None, device=dev).restore(),
+            "plain": lambda: CheckpointManager(
+                ws, log_fn=lambda m: None, device="cpu").restore()},
+            rounds=CKPT_ROUNDS)
+        out[name] = {"ws": ws, "step": step, "calls": calls,
+                     "leaves": len(leaves), "params": p,
+                     "nbytes": sum(v.nbytes for v in leaves.values()),
+                     "ms": ms}
+    return out
+
+
+def ckpt_train_on(dev, tmp, rec):
+    """18c: `Trainer.resume` and the CLI's `--resume` (`main(argv)`
+    here, tensorstore hidden) on copies of the conv.conf fixture take up its orbax step
+    and train on to CKPT_TRAIN_TO with the loss finite, writing an npz
+    step beside the orbax one."""
+    from singa_tpu_torch import (CheckpointManager, Trainer,
+                                 load_model_config, synthetic_image_batches)
+    conf = conf_copy(tmp, MNIST_CONF, "conv_ckpt.conf", [
+        ("train_steps: 10000", f"train_steps: 10000\ncheckpoint_frequency: "
+                               f"{rec['step']}")])
+    from singa_tpu_torch.data import discover_input_shapes
+    ws = ckpt_copy(tmp, "conv", "conv_trainer")
+    model = load_model_config(conf)
+    model.train_steps = CKPT_TRAIN_TO
+    losses = []
+    tr = Trainer(model, discover_input_shapes(model, force_synthetic=True),
+                 device=dev, log_fn=lambda m: None)
+    p, o, step = tr.resume(*tr.init(seed=0), ws)
+    assert step == rec["step"], step
+    ckpt_check(ckpt_leaves(p, o), rec, "Trainer.resume")
+    data = synthetic_image_batches(64, (28, 28), seed=7, stream_seed=8)
+    hook = [lambda s, m: losses.append(float(m["loss"]))]
+    tr.run(p, o, (next(data) for _ in range(CKPT_TRAIN_TO - step)),
+           start_step=step, workspace=ws, hooks=hook)
+    assert len(losses) == CKPT_TRAIN_TO - step and all(
+        math.isfinite(x) for x in losses), losses
+    mgr = CheckpointManager(ws, log_fn=lambda m: None, device=dev)
+    assert mgr.available_steps() == [step, CKPT_TRAIN_TO], \
+        mgr.available_steps()
+    assert os.path.exists(os.path.join(mgr.dir,
+                                       f"step_{CKPT_TRAIN_TO}.npz"))
+    cli_ws = ckpt_copy(tmp, "conv", "conv_cli")
+    t0 = time.perf_counter()
+    code, text = run_main(["-model_conf", conf, "--synthetic", "--steps",
+                           str(CKPT_TRAIN_TO), "--workspace", cli_ws,
+                           "--resume"], dev)
+    wall = time.perf_counter() - t0
+    assert code == 0, text[-3000:]
+    expect_in(text, f"resumed from step {step}", "training done")
+    done = [ln for ln in text.splitlines() if "training done" in ln][-1]
+    cli_loss = float(re.search(r"loss : ([-0-9.eE+naif]+)", done).group(1))
+    assert math.isfinite(cli_loss), done
+    cli_steps = CheckpointManager(cli_ws, log_fn=lambda m: None,
+                                  device=dev).available_steps()
+    assert cli_steps == [step, CKPT_TRAIN_TO], cli_steps
+    return {"step": step, "losses": losses, "cli_loss": cli_loss,
+            "cli_wall": wall}
+
+
+def ckpt_serve(dev, ws, params):
+    """18d: an engine following the lm_tiny fixture's workspace serves
+    its step, and its greedy tokens equal those of an engine built from
+    the same params (the sha-checked arrays of 18b)."""
     from singa_tpu_torch import Trainer, load_model_config
     from singa_tpu_torch.data import discover_input_shapes
-    model = load_model_config(CKPT_CONF)
-    return Trainer(model, discover_input_shapes(model, force_synthetic=True),
-                   device=dev, log_fn=lambda m: None)
+    from singa_tpu_torch.serve import InferenceEngine, ServeSpec
+    from singa_tpu_torch.weights import params_from_numpy
+    model = load_model_config(CKPT_LM_CONF)
+    tr = Trainer(model, discover_input_shapes(model, force_synthetic=True),
+                 device=dev, log_fn=lambda m: None)
+    net = tr.test_net or tr.train_net
+    spec = ServeSpec.parse(f"buckets={CKPT_PROMPTS}x16,max_new_tokens=8")
+    served = InferenceEngine(net, spec, net.init_params(0, device=dev),
+                             device=dev, workspace=ws,
+                             log_fn=lambda m: None)
+    step = served.load()
+    built = InferenceEngine(net, spec, params_from_numpy(
+        net, {k: np.asarray(v) for k, v in params.items()}, device=dev),
+        device=dev, log_fn=lambda m: None)
+    rng = np.random.default_rng(18)
+    prompts = rng.integers(3, 64, (CKPT_PROMPTS, 16)).astype(np.int32)
+    lens = np.array([16, 9][:CKPT_PROMPTS], np.int32)
+    a = served.run_batch("generate", prompts, lens)
+    b = built.run_batch("generate", prompts, lens)
+    assert np.array_equal(a, b), (a, b)
+    return {"step": step, "tokens": np.asarray(a).tolist(),
+            "graphs": (served.graphs, built.graphs)}
 
 
-def ckpt_refused(dev, ws, orbax_step, hidden):
-    """18a: with `tensorstore` unable to import (`hidden`: taken out of
-    `sys.modules` here), `restore`, `latest_step` and `Trainer.resume`
-    raise `OrbaxUnreadableError`, and the CLI's `--resume` exits 1 with
-    the reason, writing nothing and training no step."""
-    from singa_tpu_torch import CheckpointManager
+def ckpt_tree(ws) -> list:
+    """[(path, size)] of every file under `ws`."""
+    return sorted((os.path.relpath(os.path.join(d, f), ws),
+                   os.path.getsize(os.path.join(d, f)))
+                  for d, _, fs in os.walk(ws) for f in fs)
+
+
+def ckpt_refused_and_torn(dev, tmp, rec):
+    """18f: on copies of the conv.conf fixture, (1) a B+tree node
+    resealed with format version 3: `restore` and `Trainer.resume`
+    raise `OrbaxUnreadableError` naming it, and the CLI's `--resume`
+    (`main(argv)` here) returns 1 with the reason, training no step and
+    writing nothing;
+    (2) a copy of the step as step 8 whose largest leaf's zstd frame
+    has the header's reserved bit set: the native decoder's error makes
+    step 8 a torn step, and the restore walks back to the older one."""
+    import shutil
+    from singa_tpu_torch import CheckpointManager, Trainer, load_model_config
+    from singa_tpu_torch.data import discover_input_shapes
+    from singa_tpu_torch.ops import _kernels
+    from singa_tpu_torch.utils import zstd
     from singa_tpu_torch.utils.checkpoint import OrbaxUnreadableError
-    saved = sys.modules.get("tensorstore", "absent")
-    if hidden:
-        sys.modules["tensorstore"] = None
+    from singa_tpu_torch.utils.ocdbt import OcdbtStore
+    plain = zstd.Codec(native=False)
+    ws = ckpt_copy(tmp, "conv", "conv_unknown")
+    top = os.path.join(ws, "checkpoints", str(rec["step"]), "default")
+    path, off, length = [e for e in OcdbtStore(top, plain).encoded
+                         if not e[0].endswith("manifest.ocdbt")][-1]
+    node = os.path.relpath(path, ws)
+    with open(path, "r+b") as f:
+        f.seek(off)
+        data = bytearray(f.read(length))
+        data[12] = 3                        # the node's format version
+        data[-4:] = zstd.crc32c(bytes(data[:-4])).to_bytes(4, "little")
+        f.seek(off)
+        f.write(data)
+    before = ckpt_tree(ws)
+    _kernels.reset_launches()
     try:
-        mgr = CheckpointManager(ws, log_fn=lambda m: None)
-        steps = mgr.available_steps()
-        for name, call in (("restore", mgr.restore),
-                           ("latest_step", mgr.latest_step)):
-            try:
-                call()
-            except OrbaxUnreadableError as e:
-                msg = str(e)
-            else:
-                raise AssertionError(f"{name} did not refuse")
-        tr = ckpt_trainer(dev)
-        try:
-            tr.resume(*tr.init(seed=0), ws)
-        except OrbaxUnreadableError:
-            pass
-        else:
-            raise AssertionError("Trainer.resume did not refuse")
-    finally:
-        if hidden:
-            if saved == "absent":
-                del sys.modules["tensorstore"]
-            else:
-                sys.modules["tensorstore"] = saved
-    before = sorted(os.listdir(mgr.dir))
+        CheckpointManager(ws, log_fn=lambda m: None, device=dev).restore()
+    except OrbaxUnreadableError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("restore did not refuse")
+    assert "format version 3" in msg, msg
+    calls = dict(_kernels.CALLS)
+    assert calls["zstd_dec"] > 0, calls
+    model = load_model_config(MNIST_CONF)
+    tr = Trainer(model, discover_input_shapes(model, force_synthetic=True),
+                 device=dev, log_fn=lambda m: None)
+    try:
+        tr.resume(*tr.init(seed=0), ws)
+    except OrbaxUnreadableError as e:
+        assert "format version 3" in str(e), e
+    else:
+        raise AssertionError("Trainer.resume did not refuse")
     t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-c", HIDE_TENSORSTORE, "" if dev == "cuda" else dev,
-         "-model_conf", CKPT_CONF, "--synthetic", "--steps",
-         str(orbax_step + 4), "--workspace", ws, "--resume"],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+    code, text = run_main(["-model_conf", MNIST_CONF, "--synthetic",
+                           "--steps", str(CKPT_TRAIN_TO), "--workspace", ws,
+                           "--resume"], dev)
     wall = time.perf_counter() - t0
-    text = res.stdout + res.stderr
-    assert res.returncode == 1, (res.returncode, text[-3000:])
-    expect_in(res.stderr, "error: workspace", "tensorstore",
-              f"[{orbax_step}]")
+    assert code == 1, (code, text[-3000:])
+    expect_in(text, "error: ", "format version 3")
     for absent in ("starting from scratch", "training done", "Traceback",
                    "step-"):
         assert absent not in text, (absent, text[-3000:])
-    assert sorted(os.listdir(mgr.dir)) == before
-    return {"steps": steps, "msg": msg, "cli_wall": wall,
-            "cli_err": res.stderr.strip().splitlines()[-1]}
-
-
-def ckpt_roundtrip(dev, ws, ts):
-    """18b (tensorstore imports): a step the phase writes in orbax's
-    layout with tensorstore restores equal to what was written, and the
-    CLI's --resume takes it up and trains on."""
-    from singa_tpu_torch import CheckpointManager
-    from singa_tpu_torch.utils.checkpoint import _to_numpy
-    tr = ckpt_trainer(dev)
-    params, opt = tr.init(seed=3)
-    state = {"params": {k: _to_numpy(v) for k, v in params.items()},
-             "opt_state": {s: {k: _to_numpy(v) for k, v in d.items()}
-                           for s, d in opt.items()},
-             "step": np.asarray(CKPT_STEPS * 3, np.int64)}
-    t0 = time.perf_counter()
-    orbax_step_dir(os.path.join(ws, "checkpoints"), CKPT_STEPS * 3, state,
-                   ts=ts)
-    write_s = time.perf_counter() - t0
-    mgr = CheckpointManager(ws, log_fn=lambda m: None)
-    t0 = time.perf_counter()
+    assert ckpt_tree(ws) == before
+    # (2) a torn frame in the newest step
+    ws = ckpt_copy(tmp, "conv", "conv_torn")
+    ckpt = os.path.join(ws, "checkpoints")
+    shutil.copytree(os.path.join(ckpt, str(rec["step"])),
+                    os.path.join(ckpt, str(CKPT_TRAIN_TO)))
+    top = os.path.join(ckpt, str(CKPT_TRAIN_TO), "default")
+    (base, rel), off, length = max(
+        (v for v in OcdbtStore(top, plain)._all().values()
+         if not isinstance(v, bytes)), key=lambda v: v[2])
+    with open(os.path.join(top, base, rel), "r+b") as f:
+        f.seek(off + 4)
+        fhd = f.read(1)[0]
+        f.seek(off + 4)
+        f.write(bytes([fhd | 0x08]))    # the frame header's reserved bit
+    logs = []
+    mgr = CheckpointManager(ws, log_fn=logs.append, device=dev)
+    assert mgr.available_steps() == [rec["step"], CKPT_TRAIN_TO]
     p, o, step = mgr.restore()
-    read_s = time.perf_counter() - t0
-    assert step == CKPT_STEPS * 3, step
-    for k, v in state["params"].items():
-        assert np.array_equal(p[k], v), k
-    for s in state["opt_state"]:
-        for k, v in state["opt_state"][s].items():
-            assert np.array_equal(o[s][k], v), (s, k)
-    code, text = run_main(["-model_conf", CKPT_CONF, "--synthetic",
-                           "--steps", str(CKPT_STEPS * 4), "--workspace", ws,
-                           "--resume"], dev)
-    assert code == 0, text[-3000:]
-    expect_in(text, f"resumed from step {CKPT_STEPS * 3}", "training done")
-    assert mgr.latest_step() == CKPT_STEPS * 4
-    return {"write_s": write_s, "read_s": read_s,
-            "nbytes": sum(a.nbytes for _, a in flat_state(state))}
+    assert step == rec["step"], step
+    ckpt_check(ckpt_leaves(p, o), rec, "walked back")
+    warn = [m for m in logs if f"step {CKPT_TRAIN_TO} is corrupt" in m]
+    assert warn and "OrbaxTornStepError" in warn[0] \
+        and "zstd_dec: error" in warn[0], logs
+    return {"msg": msg, "calls": calls, "cli_wall": wall,
+            "cli_err": [ln for ln in text.splitlines()
+                        if ln.startswith("error: ")][-1],
+            "node": node, "warn": warn[0],
+            "value": length}
 
 
 def phase_ckpt(dev):
-    """Phase 18: a workspace holding an npz step beside an orbax step
-    directory is never taken for one without snapshots."""
+    """Phase 18: the JAX package's orbax workspaces (the committed
+    fixtures), read on the card with the port's own reader and native
+    zstd decoder, tensorstore hidden."""
     import shutil
     import tempfile
-    from singa_tpu_torch import CheckpointManager
     from singa_tpu_torch.ops import _kernels
-    _kernels.reset_launches()
-    ts = tensorstore_module()
-    log(f"[ckpt] 18 tensorstore imports here: {ts is not None}")
+    sys.modules["tensorstore"] = None       # as on a machine without it
+    hashes = ckpt_hashes()
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(REPO, "build"))
     try:
-        ws = os.path.join(tmp, "ws")
-        code, text = run_main(["-model_conf", CKPT_CONF, "--synthetic",
-                               "--steps", str(CKPT_STEPS), "--workspace", ws],
-                              dev)
-        assert code == 0, text[-3000:]
-        orbax = CKPT_STEPS * 2
-        orbax_step_dir(os.path.join(ws, "checkpoints"), orbax)
-        got = CheckpointManager(ws, log_fn=lambda m: None).available_steps()
-        assert got == [CKPT_STEPS, orbax], got
-        for hidden in ([True] if ts is not None else [False]):
-            r = ckpt_refused(dev, ws, orbax, hidden)
-            log(f"[ckpt] 18a npz step {CKPT_STEPS} beside orbax step "
-                f"{orbax} (tensorstore "
-                f"{'taken out of sys.modules' if hidden else 'absent'}): "
-                f"steps listed {r['steps']}; restore, latest_step and "
-                f"Trainer.resume raise OrbaxUnreadableError ({r['msg']!r}); "
-                f"the CLI's --resume exits 1 in {r['cli_wall']:.3f} s wall "
-                f"({r['cli_err']!r}), no step trained, nothing written")
-        if ts is not None:
-            shutil.rmtree(os.path.join(ws, "checkpoints", str(orbax)))
-            r = ckpt_roundtrip(dev, ws, ts)
-            log(f"[ckpt] 18b an orbax step written with tensorstore "
-                f"({r['nbytes'] / 1e6:.3f} MB in {r['write_s']:.3f} s) "
-                f"restores equal to the bit in {r['read_s']:.3f} s; the "
-                f"CLI's --resume takes it up and trains to step "
-                f"{CKPT_STEPS * 4}")
-        else:
-            log("[ckpt] 18b skipped: tensorstore does not import here, so "
-                "no orbax step can be written or read on this machine")
-        log(f"[ckpt] phase 18's launches (lm_tiny.conf's CLI runs): "
+        a = ckpt_decoders(sorted(hashes))
+        log(f"[ckpt] 18a native zstd decoder == plain on all {a['frames']} "
+            f"frames of the fixtures (manifests, nodes, zarr chunks; "
+            f"{a['in_bytes']} bytes -> {a['out_bytes']} bytes) and on the "
+            f"{a['corpus']} files of the zstd corpus (each the recorded "
+            f"sha256), byte for byte; both raise ZstdError on {a['bad']} "
+            f"cut corpus frames; CRC32C native == plain == stored on "
+            f"{a['encoded']} encoded files and on every corpus frame")
+        log(f"[ckpt] 18a the plain decoder's mode counts over those frames "
+            f"(every mode taken): {a['modes']}")
+        b = ckpt_restores(dev, tmp, hashes)
+        for name, r in sorted(b.items()):
+            log(f"[ckpt] 18b CheckpointManager(device={dev!r}) restores the "
+                f"{name} fixture's orbax step {r['step']}: {r['leaves']} "
+                f"leaves, {r['nbytes']} bytes, each sha256 the recorded "
+                f"one; native calls {r['calls']}")
+        c = ckpt_train_on(dev, tmp, hashes["conv"])
+        log(f"[ckpt] 18c conv.conf fixture: Trainer.resume takes up orbax "
+            f"step {c['step']} and trains to {CKPT_TRAIN_TO} (losses "
+            f"{[round(x, 6) for x in c['losses']]}), npz step "
+            f"{CKPT_TRAIN_TO} beside it; main()'s --resume (the CLI, in "
+            f"this process) likewise (final loss {c['cli_loss']}, "
+            f"{c['cli_wall']:.3f} s wall)")
+        lm = b["lm_tiny"]
+        d = ckpt_serve(dev, lm["ws"], lm["params"])
+        log(f"[ckpt] 18d an engine following the lm_tiny fixture serves "
+            f"step {d['step']}; greedy tokens equal an engine built from "
+            f"the sha-checked params (graphs {d['graphs']}): {d['tokens']}")
+        f = ckpt_refused_and_torn(dev, tmp, hashes["conv"])
+        log(f"[ckpt] 18f conv.conf fixture with {f['node']} resealed at "
+            f"format version 3: restore (native calls {f['calls']}) and "
+            f"Trainer.resume raise OrbaxUnreadableError ({f['msg']!r}); "
+            f"main()'s --resume returns 1 in {f['cli_wall']:.3f} s wall "
+            f"({f['cli_err']!r}), no step trained, nothing written")
+        log(f"[ckpt] 18f a copy as step {CKPT_TRAIN_TO} with its largest "
+            f"value's ({f['value']} bytes) frame header torn: the restore "
+            f"walks back to step {hashes['conv']['step']}, each sha256 the "
+            f"recorded one ({f['warn']!r})")
+        for name, r in sorted(b.items()):
+            ms = r["ms"]
+            log(f"[ckpt] 18e restore of the {name} fixture ({r['nbytes']} "
+                f"bytes): native {[round(x, 3) for x in ms['native']]} ms, "
+                f"plain {[round(x, 3) for x in ms['plain']]} ms "
+                f"({CKPT_ROUNDS} rounds in turns; native median "
+                f"{float(np.median(ms['native'])):.3f} ms, plain median "
+                f"{float(np.median(ms['plain'])):.3f} ms)")
+        log(f"[ckpt] 18e decode, one thread, every frame of the fixtures "
+            f"({a['out_bytes']} bytes out): native {a['native_mbs']:.1f} "
+            f"MB/s ({a['native_s'] * 1e3:.3f} ms, mean of {CKPT_DECODES}), "
+            f"plain {a['plain_mbs']:.3f} MB/s ({a['plain_s'] * 1e3:.1f} ms)")
+        log(f"[ckpt] phase 18's kernel launches: "
             f"{dict(_kernels.LAUNCHES)}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -1337,7 +1337,8 @@ class Trainer:
         if saving and (self.dp is None or self.dp.rank == 0):
             # every rank holds the same state (or its shard of it):
             # rank 0 writes it whole
-            ckpt = CheckpointManager(workspace, log_fn=self.log)
+            ckpt = CheckpointManager(workspace, log_fn=self.log,
+                                     device=self.device)
         elif saving and self.dp.gathers:
             # the other ranks join the gather of every save
             ckpt = _GATHER_ONLY
@@ -1385,7 +1386,8 @@ class Trainer:
         shared workspace (only rank 0 writes checkpoints): a rank that
         took up another step or other values raises RuntimeError on
         every rank, naming each rank's step."""
-        restored = CheckpointManager(workspace, log_fn=self.log).restore(
+        restored = CheckpointManager(
+            workspace, log_fn=self.log, device=self.device).restore(
             skip_unhealthy=skip_unhealthy)
         if restored is None:
             out = params, opt_state, 0

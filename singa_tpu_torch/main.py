@@ -95,9 +95,11 @@ step, where the ranks took up different states.  A mesh that does not
 fit the process count raises, and a cluster config's mesh over one
 process is not used, as in the JAX CLI.
 
-A workspace holding orbax steps that cannot be read here (no
-`tensorstore`) ends any subcommand with exit 1 and the reason, never a
-run from step 0.  The CLI runs on the card and has no device flag;
+The JAX package's orbax steps are read by the port's own OCDBT, zarr
+and zstd reader (`utils/checkpoint.py`; on the card its native zstd
+decoder), so a workspace a TPU user trained resumes and serves here.  A
+step in a format that reader does not understand ends any subcommand
+with exit 1 and the reason, never a run from step 0.  The CLI runs on the card and has no device flag;
 `main(argv, device="cpu")` is the Python entry that runs it on the CPU.
 """
 

@@ -22,6 +22,14 @@ warm-up, whichever thread launches: the autograd engine runs a
 backward on a thread of its own) count into a dict of their own
 instead, so a capture neither counts itself nor touches what other
 threads count meanwhile.
+
+Beside the kernels, `csrc/zstd_dec.cu` is host code with a plain C
+interface (the native decoder of the zstd frames and CRC32C of the
+JAX package's orbax checkpoints, `utils/zstd.py`), built by the same
+nvcc command and bound the same way.  `host_call` calls one of its
+functions: no stream, no launch; it raises `HostCallError` when the
+function returns an error code and otherwise adds one to the
+function's count in `CALLS`.  ctypes releases the GIL for the call.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_L = ctypes.c_longlong
 # kernel name -> argtypes of its C entry (same name), stream last
 SIGNATURES = {
     # q, k, v, o, lse, B, Sq, Sk, H, Hkv, D, causal, qscale, dtype, stream
@@ -63,18 +72,40 @@ SIGNATURES = {
     # x, g, dx, P, C, local_size, alpha, beta, knorm, relu, dtype, stream
     "lrn_bwd": [_P] * 3 + [_I] * 3 + [_D] * 3 + [_I] * 2 + [_P],
 }
+# host library (csrc/<name>.cu) -> its C functions -> their argtypes;
+# each returns 0 or an error code that `<library>_error_string` names
+HOST_SIGNATURES = {
+    "zstd_dec": {
+        # src, n, dst, capacity, written (long long*)
+        "zstd_dec": [_P, _L, _P, _L, _P],
+        # src, n, crc (uint32*)
+        "zstd_dec_crc32c": [_P, _L, _P],
+    },
+}
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
-_entries: Dict[str, tuple] = {}
+CALLS: Dict[str, int] = {fn: 0 for fns in HOST_SIGNATURES.values()
+                         for fn in fns}
+_libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[tuple, tuple] = {}
 _lock = threading.Lock()
 _counts_lock = threading.Lock()
 # stream handle -> the launch counts of a capture recording on it
 _recording: Dict[int, Dict[str, int]] = {}
 
 
+class HostCallError(RuntimeError):
+    """A host library function returned an error code (`code`)."""
+
+    def __init__(self, message: str, code: int):
+        super().__init__(message)
+        self.code = code
+
+
 def reset_launches() -> None:
     with _counts_lock:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
+        for counts in (LAUNCHES, CALLS):
+            for name in counts:
+                counts[name] = 0
 
 
 def add_launches(counts: Dict[str, int],
@@ -121,11 +152,13 @@ def _target(name: str) -> Path:
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile the named kernels (all by default) that are not built yet,
-    one nvcc process per source, started together.  Returns nvcc's
-    output (ptxas register and spill lines) for each source built now."""
+    """Compile the named kernels and host libraries (all by default) that
+    are not built yet, one nvcc process per source, started together.
+    Returns nvcc's output (ptxas register and spill lines) for each
+    source built now."""
     jobs = {}
-    for name in (list(names) if names is not None else list(SIGNATURES)):
+    for name in (list(names) if names is not None
+                 else [*SIGNATURES, *HOST_SIGNATURES]):
         out = _target(name)
         if out.exists():
             continue
@@ -145,20 +178,28 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return logs
 
 
-def _entry(name: str):
+def _bind(lib_name: str, fn_name: str, argtypes):
+    """(C function, error-string function) of library `lib_name`, built
+    and loaded at first use."""
     with _lock:
-        got = _entries.get(name)
+        got = _entries.get((lib_name, fn_name))
         if got is None:
-            build([name])
-            lib = ctypes.CDLL(str(_target(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = SIGNATURES[name]
+            lib = _libs.get(lib_name)
+            if lib is None:
+                build([lib_name])
+                lib = _libs[lib_name] = ctypes.CDLL(str(_target(lib_name)))
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            err = getattr(lib, f"{name}_error_string")
+            err = getattr(lib, f"{lib_name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            got = _entries[name] = (fn, err)
+            got = _entries[(lib_name, fn_name)] = (fn, err)
     return got
+
+
+def _entry(name: str):
+    return _bind(name, name, SIGNATURES[name])
 
 
 def launch(name: str, *args) -> None:
@@ -171,3 +212,15 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({err_string(err).decode()})")
     add_launches({name: 1}, stream)
+
+
+def host_call(lib: str, fn: str, *args) -> None:
+    """Call host function `fn` of library `lib`; raise `HostCallError`
+    on an error code, else count the call."""
+    f, err_string = _bind(lib, fn, HOST_SIGNATURES[lib][fn])
+    err = f(*args)
+    if err != 0:
+        raise HostCallError(f"{fn}: error {err} "
+                            f"({err_string(err).decode()})", err)
+    with _counts_lock:
+        CALLS[fn] += 1

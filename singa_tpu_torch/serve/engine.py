@@ -382,7 +382,8 @@ class InferenceEngine:
         self.graphs = graphs is not False and self.device.type == "cuda"
         self.stats = stats if stats is not None else ServeStats()
         self.log = log_fn
-        self.ckpt = (CheckpointManager(workspace, log_fn=log_fn)
+        self.ckpt = (CheckpointManager(workspace, log_fn=log_fn,
+                                       device=self.device)
                      if workspace is not None else None)
         self._params: Optional[Dict[str, torch.Tensor]] = (
             _owned(params, self.device) if params is not None else None)

@@ -15,18 +15,23 @@ It also reads the steps the JAX package writes through orbax, its
 default where `orbax.checkpoint` imports: a digit-named directory
 holding `_CHECKPOINT_METADATA` (orbax writes it last, the JAX
 `_finalized` rule), whose `default/_METADATA` lists every leaf's key
-path; a leaf is a zarr array at the key path joined with `.` under the
-step's ocdbt kvstore, read with `tensorstore` alone (no JAX).  Such a
-step's health verdict sits in the manifest under the bare step
-(`"7"`).  `available_steps` lists both kinds, and a workspace holding
-both restores the newest step of either.  Where `tensorstore` does not
-import, a workspace holding an orbax step is never skipped in silence:
-`latest_step` and `restore` raise `OrbaxUnreadableError`.
+path; a leaf is a zarr array (`utils/zarr.py`, v2 or sharded v3) at the
+key path joined with `.`, in the step's OCDBT database
+(`utils/ocdbt.py`) or in plain files where the step was written without
+OCDBT.  The port reads them with its own decoder of zstd frames and
+CRC32C (`utils/zstd.py`), and nothing of JAX, orbax, tensorstore or
+ml_dtypes.  The decoder follows the manager's `device`, as the kernels'
+wrappers do: for the card (the default) the native one built from
+`csrc/zstd_dec.cu`, for the CPU the plain one, never one in place of the
+other.  Such a step's health verdict sits in the manifest under the
+bare step (`"7"`).  `available_steps` lists both kinds, and a workspace
+holding both restores the newest step of either.
 
 `restore` verifies the snapshot against the manifest and walks back to
 the previous good one past any corrupt or partial snapshot (on an orbax
-step, torn bytes; a step whose metadata it does not understand raises
-`OrbaxUnreadableError` rather than being skipped);
+step, torn bytes: a CRC32C or a length that does not match, a frame
+that does not decode, a missing file; a step in a format it does not
+understand raises `OrbaxUnreadableError` rather than being skipped);
 with `skip_unhealthy` it also walks back past any snapshot whose health
 verdict in the manifest is not "ok" (a snapshot without one counts as
 ok).  `save(..., health=)` records a verdict: the Trainer writes the
@@ -54,7 +59,12 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..device import DeviceLike, resolve_device
 from . import faults
+from .ocdbt import (FileStore, OcdbtStore, OrbaxTornStepError,
+                    OrbaxUnreadableError)
+from .zarr import read_array
+from .zstd import Codec
 
 # Parameter-layout generation, the JAX package's: bump when a change
 # re-orders elements inside a stored parameter without changing its
@@ -68,30 +78,8 @@ class LayoutMismatchError(RuntimeError):
     pass
 
 
-class OrbaxUnreadableError(RuntimeError):
-    """The workspace holds orbax steps (the JAX package's default
-    format) that cannot be read here: `tensorstore`, which reads them,
-    does not import, or a step's metadata describes a tree this reader
-    does not understand (a sequence key, a leaf kept in the metadata)."""
-
-
-class OrbaxTornStepError(OSError):
-    """An orbax step whose bytes are torn: its `_METADATA` does not
-    parse, or tensorstore fails to read a leaf.  `restore` walks back
-    past it, as past a torn npz snapshot."""
-
-
 # what a torn or partial npz snapshot raises on its way to the arrays
 _NPZ_TORN = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
-
-
-def _tensorstore():
-    """The `tensorstore` module, or None where it does not import."""
-    try:
-        import tensorstore
-    except ImportError:
-        return None
-    return tensorstore
 
 
 def _sha256_file(path: str) -> str:
@@ -131,11 +119,15 @@ def _to_numpy(v) -> np.ndarray:
 class CheckpointManager:
     """Save/restore the training state triple under
     `workspace/checkpoints` (the reference's ClusterProto.workspace
-    layout)."""
+    layout).  `device` is where the restored state goes: it picks the
+    decoder of orbax steps (the card's native one unless the caller asks
+    for the CPU); npz snapshots read alike everywhere."""
 
-    def __init__(self, workspace: str, log_fn=print):
+    def __init__(self, workspace: str, log_fn=print,
+                 device: DeviceLike = None):
         self.dir = os.path.abspath(os.path.join(workspace, "checkpoints"))
         self.log = log_fn
+        self.device = device
         os.makedirs(self.dir, exist_ok=True)
         # writer-concurrent polling state (fingerprint): the last token
         # handed out, the last manifest stat whose content parsed clean,
@@ -301,24 +293,9 @@ class CheckpointManager:
         self._last_steps = steps
         return steps
 
-    def _require_reader(self, steps: List[int]) -> None:
-        """Raise `OrbaxUnreadableError` when `steps` hold an orbax step
-        and `tensorstore` does not import: such a workspace is never
-        taken for one without snapshots."""
-        orbax = [s for s in steps if self._is_orbax(s)]
-        if orbax and _tensorstore() is None:
-            raise OrbaxUnreadableError(
-                f"workspace {os.path.dirname(self.dir)} holds orbax "
-                f"checkpoint step(s) {orbax}, written by the JAX package; "
-                f"reading them needs the `tensorstore` package, which does "
-                f"not import here")
-
     def latest_step(self) -> Optional[int]:
-        """The newest step on disk, or None.  Raises
-        `OrbaxUnreadableError` when the workspace holds an orbax step
-        that cannot be read here."""
+        """The newest step on disk, or None."""
         steps = self.available_steps()
-        self._require_reader(steps)
         return steps[-1] if steps else None
 
     def fingerprint(self) -> tuple:
@@ -375,8 +352,8 @@ class CheckpointManager:
         None.  A corrupt or partial snapshot is logged and skipped: the
         next older one is tried.  With `skip_unhealthy`, so is a snapshot
         whose recorded health verdict is not "ok".  Raises
-        `OrbaxUnreadableError` when the steps hold an orbax step and
-        `tensorstore` does not import."""
+        `OrbaxUnreadableError` on an orbax step in a format this reader
+        does not understand."""
         with obs.span("ckpt.restore",
                       skip_unhealthy=skip_unhealthy) as sp:
             out = self._restore(step, skip_unhealthy)
@@ -391,7 +368,6 @@ class CheckpointManager:
             steps = [s for s in steps if s <= step]
         if not steps:
             return None
-        self._require_reader(steps)
         self._check_version()
         faults.maybe_fault("ckpt.restore")
         for s in reversed(steps):
@@ -419,7 +395,8 @@ class CheckpointManager:
 
     def _restore_one(self, step: int) -> Tuple[Dict, Dict, int]:
         if self._is_orbax(step):
-            state = _read_orbax(os.path.join(self.dir, str(step)))
+            codec = Codec(native=resolve_device(self.device).type == "cuda")
+            state = _read_orbax(os.path.join(self.dir, str(step)), codec)
             return state["params"], state["opt_state"], int(state["step"])
         path = self._verify(step)
         if path is None:
@@ -430,22 +407,16 @@ class CheckpointManager:
         return state["params"], state["opt_state"], int(state["step"])
 
 
-def _read_orbax(stepdir: str) -> Dict[str, Any]:
+def _read_orbax(stepdir: str, codec: Codec) -> Dict[str, Any]:
     """The state tree of an orbax step directory, as numpy: each leaf of
     `default/_METADATA`'s `tree_metadata` is a zarr array at its key path
-    joined with `.`, under the ocdbt kvstore of `default/` (or a plain
-    file kvstore where the step was written without ocdbt).  bf16
-    leaves come back as `ml_dtypes.bfloat16` arrays, which torch cannot
-    take: they are widened to f32, which holds each of them exactly.
-    Torn bytes (a `_METADATA` that does not parse, a leaf tensorstore
-    fails to read) raise `OrbaxTornStepError`; a tree this reader does
-    not understand, `OrbaxUnreadableError`."""
-    ts = _tensorstore()
-    if ts is None:
-        raise OrbaxUnreadableError(
-            f"{stepdir} is an orbax step; reading it needs the "
-            f"`tensorstore` package, which does not import here")
-    base = os.path.join(stepdir, "default") + os.sep
+    joined with `.`, in the OCDBT database of `default/` (or in plain
+    files where the step was written without OCDBT), decoded by
+    `codec`.  bf16 leaves come back as f32, which holds each of them
+    exactly.  Torn bytes
+    raise `OrbaxTornStepError`; a tree or format this reader does not
+    understand, `OrbaxUnreadableError`."""
+    base = os.path.join(stepdir, "default")
     try:
         with open(os.path.join(base, "_METADATA")) as f:
             meta = json.load(f)
@@ -459,8 +430,7 @@ def _read_orbax(stepdir: str) -> Dict[str, Any]:
     tree = meta.get("tree_metadata") if isinstance(meta, dict) else None
     if not isinstance(tree, dict):
         raise unreadable("default/_METADATA has no tree_metadata")
-    driver = "zarr3" if meta.get("use_zarr3") else "zarr"
-    root: Dict[str, Any] = {}
+    leaves = []
     for entry in tree.values():
         keys = [k.get("key") for k in entry.get("key_metadata", ())]
         if not keys or any(k.get("key_type") != 2
@@ -471,30 +441,24 @@ def _read_orbax(stepdir: str) -> Dict[str, Any]:
                 or value.get("skip_deserialize")):
             raise unreadable(f"leaf {keys} is a {value.get('value_type')!r}"
                              f" value, not an array in the kvstore")
-        keys = [str(k) for k in keys]
-        name = ".".join(keys) + "/"
-        if meta.get("use_ocdbt", True):
-            kvstore = {"driver": "ocdbt",
-                       "base": {"driver": "file", "path": base},
-                       "path": name}
-        else:
-            kvstore = {"driver": "file", "path": base + name}
-        try:
-            arr = np.asarray(ts.open({"driver": driver,
-                                      "kvstore": kvstore},
-                                     open=True).result().read().result())
-        except ValueError as e:      # tensorstore's error on a read
-            raise OrbaxTornStepError(f"{stepdir}: leaf {name} does not "
-                                     f"read ({e})") from e
-        if arr.dtype.name == "bfloat16":
-            arr = arr.astype(np.float32)
+        leaves.append([str(k) for k in keys])
+    missing = {"params", "opt_state", "step"} - {k[0] for k in leaves}
+    if missing:
+        raise unreadable(f"the tree lacks {sorted(missing)}")
+    try:
+        store = (OcdbtStore(base, codec) if meta.get("use_ocdbt", True)
+                 else FileStore(base))
+
+        arrays = [read_array(store, ".".join(keys), codec)
+                  for keys in leaves]
+    except OrbaxUnreadableError as e:
+        raise unreadable(str(e)) from e
+    root: Dict[str, Any] = {}
+    for keys, arr in zip(leaves, arrays):
         d = root
         for k in keys[:-1]:
             d = d.setdefault(k, {})
         d[keys[-1]] = arr
-    missing = {"params", "opt_state", "step"} - set(root)
-    if missing:
-        raise unreadable(f"the tree lacks {sorted(missing)}")
     return root
 
 
@@ -520,12 +484,12 @@ def _unflatten(flat: Dict[str, Any]):
 
 
 def load_pretrained(workspace: str, params: Dict[str, Any],
-                    opt_state: Dict[str, Any]
+                    opt_state: Dict[str, Any], device: DeviceLike = None
                     ) -> Tuple[Dict[str, Any], Dict[str, Any], int]:
     """kPretrained init: the latest snapshot's params (numpy) over
     `params`, keeping any param absent from the snapshot (a new head);
     its optimizer state and step."""
-    restored = CheckpointManager(workspace).restore()
+    restored = CheckpointManager(workspace, device=device).restore()
     if restored is None:
         return params, opt_state, 0
     rp, ro, step = restored

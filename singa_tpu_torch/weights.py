@@ -46,7 +46,10 @@ def params_from_numpy(net, arrays: Mapping[str, np.ndarray],
         if tuple(arr.shape) != tuple(specs[name].shape):
             raise ValueError(f"{name}: shape {tuple(arr.shape)}, the net "
                              f"declares {tuple(specs[name].shape)}")
-        if arr.dtype.name == "bfloat16":   # ml_dtypes, which torch can't read
+        # a bfloat16 array the JAX package hands over (ml_dtypes' type,
+        # which torch cannot read); a checkpoint's bf16 leaves come back
+        # from utils/zarr.py already widened to float32
+        if arr.dtype.name == "bfloat16":
             t = torch.tensor(arr.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.tensor(arr)

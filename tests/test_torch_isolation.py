@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing every module of
-`singa_tpu_torch` loads neither JAX nor the JAX package, no import
-statement in it names them, and its entry points run on CUDA unless the
-caller asks for the CPU — they raise, rather than fall back, where there
-is no card."""
+`singa_tpu_torch` loads neither JAX nor the JAX package, nor any reader
+of the JAX package's checkpoints (tensorstore, orbax, ml_dtypes, a zstd
+package), no import statement in it names them, and its entry points
+run on CUDA unless the caller asks for the CPU — they raise, rather
+than fall back, where there is no card."""
 
 import ast
 import os
@@ -21,6 +22,7 @@ from singa_tpu_torch.models.generate import init_cache
 from singa_tpu_torch.models.transformer import transformer_lm
 from singa_tpu_torch.serve.engine import InferenceEngine, ServeSpec
 from singa_tpu_torch.serve.kvcache import PagedKVCache, init_pools
+from singa_tpu_torch.utils.checkpoint import CheckpointManager
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
 pytestmark = pytest.mark.port
@@ -33,9 +35,15 @@ def _modules():
         [PKG_DIR], prefix="singa_tpu_torch."))
 
 
+# top-level packages no module of the port may import: JAX, the JAX
+# package, and what reads the JAX package's orbax checkpoints there
+FORBIDDEN = ("jax", "jaxlib", "singa_tpu", "tensorstore", "orbax",
+             "ml_dtypes", "zstandard", "zstd", "pyzstd", "numcodecs",
+             "zarr")
+
+
 def _forbidden(name: str) -> bool:
-    root = name.split(".")[0]
-    return root in ("jax", "jaxlib", "singa_tpu")
+    return name.split(".")[0] in FORBIDDEN
 
 
 def test_importing_every_module_loads_no_jax():
@@ -62,7 +70,7 @@ def test_importing_every_module_loads_no_jax():
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'singa_tpu'))\n"
+            f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -116,6 +124,14 @@ def test_entry_points_raise_without_cuda():
         PagedKVCache(net, 1, 2, 4, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(cfg, shapes)
+    # an orbax step is decoded for the card unless the caller asks for
+    # the CPU: the native decoder, never the plain one in its place
+    ws = os.path.join(REPO, "tests", "torch_fixtures", "orbax", "lm_tiny")
+    mgr = CheckpointManager(ws)
+    assert mgr.latest_step() == 8
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mgr.restore()
+    assert CheckpointManager(ws, device="cpu").restore()[2] == 8
     # asked for the CPU, the same calls run there
     assert net.init_params(0, device="cpu")["embed/embedding"].device.type \
         == "cpu"
