@@ -136,11 +136,11 @@ non-zero before the last line is printed:
    held against `generate`).
 11. The serving front ends on lm.conf uncut, served in f32.  The
    port's `Trainer` takes 10 replayed Adam steps and saves step 5 to a
-   workspace (npz).  (a) `python -m singa_tpu_torch.main serve
-   -model_conf examples/transformer/lm.conf --workspace <ws>
-   --serve_spec 'buckets=1x16/4x32/8x64,max_new_tokens=32,eos_id=2'
-   --smoke 8` as a subprocess, then again with cb=on: each must exit 0,
-   serve step 5 and print its snapshot; wall time each.  (b) An
+   workspace (npz).  (a) The CLI's `serve -model_conf
+   examples/transformer/lm.conf --workspace <ws> --serve_spec
+   'buckets=1x16/4x32/8x64,max_new_tokens=32,eos_id=2' --smoke 8`
+   (`main(argv)` in this process), then again with cb=on: each must
+   exit 0, serve step 5 and print its snapshot; wall time each.  (b) An
    `InferenceServer` on the card (cb=on, 8 slots, the static buckets,
    HTTP and the wire, ports 0): 16 greedy requests one at a time
    through `server.generate`, HTTP /generate, HTTP ndjson streaming and
@@ -172,9 +172,9 @@ non-zero before the last line is printed:
    (kernel 5, sigma 6, alpha 8, beta 15, gamma 15) every 4th step,
    batch 64: 12 replayed steps over two graphs (distorting and plain)
    equal 12 eager ones; the capture cost of each; `elastic_warp` on the
-   card against the CPU.  (c) `python -m singa_tpu_torch.main
-   -model_conf examples/mnist/rbm.conf --synthetic --steps 200` as a
-   subprocess exits 0; in process, with rbm1 persistent (PCD), 200
+   card against the CPU.  (c) The CLI on `examples/mnist/rbm.conf
+   --synthetic --steps 200` (`main(argv)` in this process) exits 0;
+   with rbm1 persistent (PCD), 200
    captured CD steps (one graph per RBM) equal eager ones and recon
    falls in each phase.  (d) 12f's shard folder with a mean record
    written by the port's record writer as the copy's meanfile:
@@ -243,15 +243,15 @@ non-zero before the last line is printed:
    fleet's answers at step 60 equal a fresh engine's on that checkpoint
    under the tie rule; the blessed-to-served lag per blessed step (p50,
    max), training tokens/s inside the pipeline against alone, and
-   K1/K3/K4 2 launches a step trained, 0 on the fleet.  (b) `python -m
-   singa_tpu_torch.main pipeline ... --fleet 2 --smoke 32` with the
-   same faults and `--autoscale_spec`: exit 0, blessed == served, 0
-   failed, one unblessed save, the launches of its 65 steps.
+   K1/K3/K4 2 launches a step trained, 0 on the fleet.  (b) The CLI's
+   `pipeline ... --fleet 2 --smoke 32` (`main(argv)` in this process)
+   with the same faults and `--autoscale_spec`: exit 0, blessed ==
+   served, 0 failed, one unblessed save, the launches of its 65 steps.
 17. The elastic tier on `examples/mnist/mlp.conf` uncut (batch 1000,
    11.97M f32 params, kSGD, Elastic, moving_rate 0.9, a sync every 8
-   steps after 60; `[elastic]` lines; no kernel of K1-K6).  (a) `python
-   -m singa_tpu_torch.main -model_conf examples/mnist/mlp.conf
-   --synthetic --steps 200` exits 0 (18 sync steps).  (b) 80 steps from
+   steps after 60; `[elastic]` lines; no kernel of K1-K6).  (a) The
+   CLI on `examples/mnist/mlp.conf --synthetic --steps 200`
+   (`main(argv)` in this process) exits 0 (18 sync steps).  (b) 80 steps from
    numpy seed 0, replayed and eager: the params after each sync step
    (60, 68, 76), the SGD history and the center equal under
    `torch.equal`; a replayed step's ms with and without its exchange,
@@ -265,16 +265,20 @@ non-zero before the last line is printed:
 18. Checkpoints the JAX package wrote through orbax (`[ckpt]` lines;
    `tensorstore` taken out of `sys.modules`): the committed fixtures
    `tests/torch_fixtures/orbax/` (lm_tiny.conf and conv.conf at its
-   shipped width, written by the JAX CLI; `hashes.json` holds each
-   leaf's sha256 as the JAX package restores it).  (a) The native zstd
+   shipped width, and lm_tiny.conf under tensor_parallel: 2 written by
+   2 processes, by the JAX CLI; `hashes.json` holds each leaf's sha256
+   as the JAX package restores it).  (a) The native zstd
    decoder (`csrc/zstd_dec.cu`, built with the kernels) equals the plain
    one byte for byte on every frame of both (manifests, nodes, zarr
    chunks), and CRC32C agrees with the plain one and with the stored
    seals of every encoded file.  (b) `CheckpointManager(device="cuda")` restores each through
    the native decoder, every leaf's sha256 the recorded one.  (c)
    `Trainer.resume` and the CLI's `--resume` (`main(argv)` in this
-   process) on copies of the conv.conf workspace take up its orbax step 4 and train to step 8 with finite
-   losses, writing an npz step beside it.  (d) An engine following the
+   process) on copies of the conv.conf workspace take up its orbax
+   step 4 and train to step 8 with finite losses, writing an orbax step
+   beside it (the workspace's newest step is orbax), which the port
+   lists and restores: the trainer's, leaf for leaf to the sha256 of
+   the trainer's own state.  (d) An engine following the
    lm_tiny workspace serves its step, its greedy tokens equal to an
    engine's built from the sha-checked params.  (e) Restore ms of each
    fixture with the native and the plain decoder, 3 rounds in turns,
@@ -283,7 +287,12 @@ non-zero before the last line is printed:
    format version makes `restore` and `Trainer.resume` raise
    `OrbaxUnreadableError` naming it, and the CLI's `--resume` exit 1
    with the reason, training no step and writing nothing; a newest step
-   whose zstd frame is torn is walked past to the older one.  18a also
+   whose zstd frame is torn is walked past to the older one.  (g) The
+   bench stack's state (12 layers at full width, f32 params and Adam
+   slots, 1.32 GB) saved as an orbax step into a copy of the conv.conf
+   workspace and restored by a fresh manager with the native decoder:
+   every leaf's sha256 the state's in memory; write and restore ms, MB/s
+   and the bytes on disk.  18a also
    decodes the committed zstd corpus `tests/torch_fixtures/zstd/`
    (levels -5 to 19, checksummed and skippable frames) with both
    decoders, prints the plain one's mode counts (every mode taken), and
@@ -294,8 +303,8 @@ non-zero before the last line is printed:
    `examples/mnist/conv.conf` at its shipped width (batch 64) for 20
    steps through `python -m singa_tpu_torch.main` with a 2-line
    hostfile, `-procsID 0/1` and a cluster config of `data_parallel: 2`:
-   per-step losses within 1e-4 relative of the single-process CLI run on
-   the same global batches, final params within 1e-4 of each param's
+   per-step losses within 1e-4 relative of the single-process CLI run
+   (`main(argv)` in this process) on the same global batches, final params within 1e-4 of each param's
    largest magnitude, and both ranks' params equal (their sha256, which
    the CLI checks across the ranks).  (b) The process group's start,
    the data-parallel step (eager: a gloo collective cannot be
@@ -305,7 +314,8 @@ non-zero before the last line is printed:
    77 steps (syncs at 60, 68, 76), once Elastic and once RandomSync:
    the centers equal across the processes, and within 1e-6 of the
    in-process `ReplicaSet` on the card on the same seeds and streams;
-   the all-gather's ms with host staging.
+   the all-gather's ms with host staging.  One group of 2 processes
+   runs (b) and both runs of (c) in turn.
 20. Tensor and sequence parallelism over processes sharing the card
    (`[tpsp]` lines; gloo, staged through the host; every step eager).
    (a) One process: `flash_chunk`, ring attention's local step, at the
@@ -346,6 +356,14 @@ non-zero before the last line is printed:
    same on data=2 x pipe=2: moe1 in stage 2 drops what one process
    drops routing each cell's tokens alone, and no aux term reaches the
    loss or the metrics.
+
+Every process the script starts runs under `START_PRELUDE`, which
+times it: `[time] start <tag>` lines give its interpreter, torch, port
+and CUDA-context times, its gloo group's start and its first train
+step; `[time] group` lines a group's wall; `[time] in process` lines a
+one-process CLI run that a group is held against, which runs through
+`main(argv)` in the script's process.  The children share a bytecode
+cache under `build/pycache`.
 
 Every result line ends with the card's `nvidia-smi` name and power
 limit.  The last lines are one JSON object listing each kernel with its
@@ -400,6 +418,108 @@ def log(msg: str) -> None:
 
 def trainer_log(msg: str) -> None:
     log(f"[trainer] {msg}")
+
+
+# Every process the script starts runs under this prelude.  It notes, in
+# a JSON file the parent reads afterwards, when the interpreter came up,
+# when torch and the port were imported and the card's context made, how
+# long `distributed_init` (the gloo group) took and the first train step
+# of the process (`Trainer.train_step`, `train_steps` or `cd_step`, the
+# card synchronised after it), then runs the command it wraps.
+START_PRELUDE = """
+import json, sys, time
+t = {"python": time.time()}
+stamp, argv = sys.argv[1], sys.argv[2:]
+def note():
+    with open(stamp, "w") as f:
+        json.dump(t, f)
+import torch
+t["torch"] = time.time()
+import singa_tpu_torch
+t["port"] = time.time()
+if torch.cuda.is_available():
+    torch.cuda.init()
+t["ready"] = time.time()
+note()
+from singa_tpu_torch.core import trainer as _trainer
+from singa_tpu_torch.parallel import bootstrap as _bootstrap
+_init = _bootstrap.distributed_init
+def _timed_init(*a, **k):
+    t0 = time.time()
+    out = _init(*a, **k)
+    t["group_s"] = time.time() - t0
+    note()
+    return out
+_bootstrap.distributed_init = _timed_init
+def _first(name):
+    fn = getattr(_trainer.Trainer, name)
+    def wrapped(self, *a, **k):
+        if "first_step_s" in t or t.get("busy"):
+            return fn(self, *a, **k)
+        t["busy"], t0 = True, time.time()
+        try:
+            out = fn(self, *a, **k)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        finally:
+            t["busy"] = False
+        t["first_step_s"] = time.time() - t0
+        note()
+        return out
+    setattr(_trainer.Trainer, name, wrapped)
+for _name in ("train_step", "train_steps", "cd_step"):
+    _first(_name)
+import runpy
+if argv[0] == "-m":
+    sys.argv = [argv[1], *argv[2:]]
+    runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+elif argv[0] == "-c":
+    sys.argv = ["-c", *argv[2:]]
+    exec(compile(argv[1], "<string>", "exec"), {"__name__": "__main__"})
+else:
+    sys.argv = list(argv)
+    runpy.run_path(argv[0], run_name="__main__")
+"""
+START_DIR = [None]      # where the start notes go (a temp dir of main())
+STARTS: list = []       # (tag, seconds to ready) of every process started
+
+
+def spawn(cmd, tag):
+    """`cmd` (a Python command line) under `START_PRELUDE`: returns the
+    command to run and a `started` callable that logs the process's
+    start once it has ended."""
+    assert cmd[0] == sys.executable, cmd
+    base = START_DIR[0] or os.path.join(REPO, "build")
+    os.makedirs(base, exist_ok=True)
+    stamp = os.path.join(base, f"start_{len(STARTS)}_{os.getpid()}_"
+                         f"{re.sub(r'[^\w.-]', '_', tag)}.json")
+    STARTS.append((tag, None))
+    slot = len(STARTS) - 1
+    t0 = time.time()
+
+    def started(rc=None) -> None:
+        end = time.time()
+        try:
+            with open(stamp) as f:
+                t = json.load(f)
+            os.remove(stamp)
+        except (OSError, ValueError):
+            t = {}
+        parts = [f"ended {end - t0:.2f} s after its start"
+                 + ("" if rc is None else f" (exit {rc})")]
+        if "ready" in t:
+            parts.insert(0, f"interpreter {t['python'] - t0:.2f} s, torch "
+                         f"imported {t['torch'] - t0:.2f} s, the port "
+                         f"{t['port'] - t0:.2f} s, the card's context "
+                         f"{t['ready'] - t0:.2f} s")
+            STARTS[slot] = (tag, t["ready"] - t0)
+        if "group_s" in t:
+            parts.append(f"gloo group start {t['group_s']:.2f} s")
+        if "first_step_s" in t:
+            parts.append(f"first train step {t['first_step_s']:.2f} s")
+        log(f"[time] start {tag}: " + "; ".join(parts))
+    return [sys.executable, "-c", START_PRELUDE, stamp, *cmd[1:]], started
+
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -2622,29 +2742,27 @@ def front_train(dev, ws):
     return state_to_numpy(params, opt)
 
 
-def front_cli(ws):
-    """11a: `python -m singa_tpu_torch.main serve ... --smoke 8` as a user
-    runs it, with the static buckets and with cb=on: each must exit 0,
+def front_cli(dev, ws):
+    """11a: the CLI's `serve ... --smoke 8` (`main(argv)` in this
+    process), with the static buckets and with cb=on: each must exit 0,
     serve the workspace's step 5 and print its snapshot."""
     torch.cuda.empty_cache()
     for name, extra in (("buckets", ""), ("cb=on", FRONT_CB)):
-        cmd = [sys.executable, "-m", "singa_tpu_torch.main", "serve",
-               "-model_conf", LM_CONF, "--workspace", ws,
-               "--serve_spec", FRONT_SPEC + extra, "--smoke", "8"]
+        argv = ["serve", "-model_conf", LM_CONF, "--workspace", ws,
+                "--serve_spec", FRONT_SPEC + extra, "--smoke", "8"]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                             timeout=600)
+        code, text = run_main(argv, dev)
         wall = time.perf_counter() - t0
-        if res.returncode != 0:
-            print(res.stdout[-6000:], res.stderr[-6000:], file=sys.stderr)
-        assert res.returncode == 0, (name, res.returncode)
-        snap = json.loads([ln for ln in res.stdout.splitlines()
+        if code != 0:
+            print(text[-6000:], file=sys.stderr)
+        assert code == 0, (name, code)
+        snap = json.loads([ln for ln in text.splitlines()
                            if ln.startswith("{")][-1])
         assert snap["params_step"] == 5, snap
         assert snap["completed"] == 8 and snap["failed"] == 0, snap
         assert snap["compiles"] > 0, "the CLI did not capture on the card"
-        log(f"[front] 11a CLI serve --smoke 8 ({name}): exit 0 in "
-            f"{wall:.3f} s wall (process start, import, load, capture, 8 "
+        log(f"[front] 11a CLI serve --smoke 8 ({name}), main(argv) in "
+            f"this process: exit 0 in {wall:.3f} s wall (load, capture, 8 "
             f"requests), step 5, {snap['generated_tokens']} tokens, "
             f"{snap['compiles']} CUDA graphs captured, latency p50/p99 "
             f"{snap['p50_latency_ms']}/{snap['p99_latency_ms']} ms")
@@ -2936,7 +3054,7 @@ def phase_front(dev):
     ws = tempfile.mkdtemp(prefix="front-", dir=os.path.join(REPO, "build"))
     try:
         state10 = front_train(dev, ws)
-        front_cli(ws)
+        front_cli(dev, ws)
         front_inprocess(dev, ws, state10)
     finally:
         shutil.rmtree(ws, ignore_errors=True)
@@ -2996,6 +3114,26 @@ def run_main(argv, dev, trace=None):
     with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
         code = tmain(argv, device=None if dev == "cuda" else dev)
     return code, buf.getvalue()
+
+
+def run_main_launches(argv, dev):
+    """`run_main`, and the kernel launches the run made."""
+    from singa_tpu_torch.ops import _kernels
+    before = dict(_kernels.LAUNCHES)
+    code, text = run_main(argv, dev)
+    return code, text, {k: n - before.get(k, 0)
+                        for k, n in _kernels.LAUNCHES.items()}
+
+
+def run_one(argv, dev, tag):
+    """A one-process CLI run that a check holds a group against, through
+    `main(argv)` in this process (no process start): its log; it must
+    exit 0."""
+    t0 = time.perf_counter()
+    code, text = run_main(argv, dev)
+    assert code == 0, (tag, text[-3000:])
+    log(f"[time] in process {tag}: {time.perf_counter() - t0:.2f} s")
+    return text
 
 
 def snapshot(ws, step=None):
@@ -3058,9 +3196,12 @@ def train_a(dev, conf, ws, expect_launches):
     argv = cli_argv(conf, ws, CLI_STEPS, "--max-restarts", "2",
                     "--feeder", "on", "--fault_spec", CLI_FAULTS)
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", CLI_WRAPPER, out,
-                          "" if dev == "cuda" else dev, *argv], cwd=REPO,
-                         capture_output=True, text=True, timeout=600)
+    cmd, started = spawn([sys.executable, "-c", CLI_WRAPPER, out,
+                          "" if dev == "cuda" else dev, *argv],
+                         "12a the supervised lm.conf CLI")
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    started(res.returncode)
     wall = time.perf_counter() - t0
     text = res.stdout + res.stderr
     if res.returncode != 0:
@@ -3687,30 +3828,24 @@ def vision_distort(dev, tmp):
 
 
 def rbm_cli(dev, tmp):
-    """13c: `python -m singa_tpu_torch.main -model_conf
-    examples/mnist/rbm.conf --synthetic --steps RBM_STEPS` as a
-    subprocess exits 0; then in process, rbm.conf with rbm1 persistent
-    (PCD): the captured CD steps (one graph per RBM) must equal eager
-    ones under torch.equal, and recon must fall in each phase."""
+    """13c: the CLI (`main(argv)` in this process) on
+    examples/mnist/rbm.conf `--synthetic --steps RBM_STEPS` exits 0;
+    then rbm.conf with rbm1 persistent (PCD): the captured CD steps (one
+    graph per RBM) must equal eager ones under torch.equal, and recon
+    must fall in each phase."""
     from singa_tpu_torch import Trainer, load_model_config
     from singa_tpu_torch.data import discover_input_shapes, resolve_data_source
-    out = os.path.join(tmp, "rbm_launches.json")
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", CLI_WRAPPER, out,
-                          "" if dev == "cuda" else dev, "-model_conf",
-                          RBM_CONF, "--synthetic", "--steps", str(RBM_STEPS)],
-                         cwd=REPO, capture_output=True, text=True,
-                         timeout=600)
+    code, text, launches = run_main_launches(
+        ["-model_conf", RBM_CONF, "--synthetic", "--steps",
+         str(RBM_STEPS)], dev)
     wall = time.perf_counter() - t0
-    text = res.stdout + res.stderr
-    assert res.returncode == 0, text[-3000:]
-    with open(out) as f:
-        got = json.load(f)
+    assert code == 0, text[-3000:]
     lines = [ln.split("] ", 1)[-1] for ln in text.splitlines()
              if " cd[" in ln or "training done" in ln]
-    log(f"[vision] 13c rbm.conf CLI subprocess, {RBM_STEPS} steps: exit "
-        f"{res.returncode} in {wall:.3f} s wall; {lines}; launches "
-        f"{got['launches']}")
+    log(f"[vision] 13c rbm.conf CLI (main(argv) in this process), "
+        f"{RBM_STEPS} steps: exit {code} in {wall:.3f} s wall; {lines}; "
+        f"launches {launches}")
     assert any("cd[rbm0]" in ln for ln in lines) and \
         any("cd[rbm1]" in ln for ln in lines), lines
     runs = {}
@@ -3976,27 +4111,22 @@ def twins(dev, arrays, lm_kw, alex_batch):
 
 
 def measure_cli(dev, conf):
-    """(c) `python -m singa_tpu_torch.main ... --phase_profile` as a
-    subprocess: exit 0, and its Time per step lines carry the split."""
+    """(c) the CLI with `--phase_profile` (`main(argv)` in this process):
+    exit 0, and its Time per step lines carry the split."""
     argv = ["-model_conf", conf, "--synthetic", "--steps",
             str(CLI_PROFILE_STEPS), "--phase_profile"]
     t0 = time.perf_counter()
-    if dev == "cuda":
-        res = subprocess.run([sys.executable, "-m", "singa_tpu_torch.main",
-                              *argv], cwd=REPO, capture_output=True,
-                             text=True, timeout=600)
-        code, text = res.returncode, res.stdout + res.stderr
-    else:
-        code, text = run_main(argv, dev)
+    code, text = run_main(argv, dev)
     wall = time.perf_counter() - t0
     if code != 0:
         print(text[-8000:], file=sys.stderr)
     assert code == 0, code
     lines = [line for line in text.splitlines() if "Time per step" in line]
     assert lines and all("[device: fwd" in line for line in lines), lines
-    log(f"[measure] (c) python -m singa_tpu_torch.main -model_conf "
-        f"{os.path.relpath(conf, REPO)} --synthetic --steps "
-        f"{CLI_PROFILE_STEPS} --phase_profile: exit 0 in {wall:.3f} s wall; "
+    log(f"[measure] (c) main(['-model_conf', "
+        f"'{os.path.relpath(conf, REPO)}', '--synthetic', '--steps', "
+        f"'{CLI_PROFILE_STEPS}', '--phase_profile']) in this process: exit "
+        f"0 in {wall:.3f} s wall; "
         f"{lines[0].split('] ', 1)[-1]}")
 
 
@@ -4670,12 +4800,14 @@ def start_worker(dev, i, tmp, conf):
     obs_spec = (f"trace={tmp}/w{i}.json,events={tmp}/w{i}.jsonl,"
                 f"flightrec={tmp}/fr{i},trace_ring=4096,process=worker-{i}")
     out = open(path, "w")
-    proc = subprocess.Popen(
+    cmd, started = spawn(
         main_cmd(dev) + ["serve", "-model_conf", conf, "--pinned", "--wire",
                          "--port", "0", "--serve_spec", PROC_SPEC, "--obs",
-                         "on", "--obs_spec", obs_spec],
-        cwd=REPO, env=dict(os.environ, PYTHONUNBUFFERED="1"), stdout=out,
-        stderr=subprocess.STDOUT)
+                         "on", "--obs_spec", obs_spec], f"15e worker {i}")
+    proc = subprocess.Popen(
+        cmd, cwd=REPO, env=dict(os.environ, PYTHONUNBUFFERED="1"),
+        stdout=out, stderr=subprocess.STDOUT)
+    proc.started = started
     out.close()
     return proc, path
 
@@ -4711,10 +4843,12 @@ def phase_procs(dev, conf=LM_CONF):
     try:
         t0 = time.perf_counter()
         smoke_out = open(os.path.join(tmp, "smoke.log"), "w")
-        smoke = subprocess.Popen(
-            main_cmd(dev) + ["serve", "--fleet", "2", "--smoke", "8",
-                             "-model_conf", conf],
-            cwd=REPO, stdout=smoke_out, stderr=subprocess.STDOUT)
+        cmd, started = spawn(main_cmd(dev) + [
+            "serve", "--fleet", "2", "--smoke", "8", "-model_conf", conf],
+            "15e serve --fleet 2 --smoke 8")
+        smoke = subprocess.Popen(cmd, cwd=REPO, stdout=smoke_out,
+                                 stderr=subprocess.STDOUT)
+        smoke.started = started
         smoke_out.close()
         procs = [start_worker(dev, i, tmp, conf) for i in range(2)]
         deadline = time.monotonic() + FLEET_WAIT
@@ -4806,6 +4940,7 @@ def phase_procs(dev, conf=LM_CONF):
         for p in [p for p, _ in procs] + ([smoke] if smoke else []):
             p.kill()
             p.wait(30)
+            p.started(p.returncode)
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -5010,33 +5145,28 @@ def pipe_fleet(dev, conf, ws, vocab):
 
 
 def pipe_cli(dev, conf, ws):
-    """16b: `python -m singa_tpu_torch.main pipeline ... --fleet 2 --smoke
-    N` with the faults and the autoscaler (the CLI as its `__main__`
-    runs it, with the launch counts written to a file)."""
-    out = os.path.join(ws, "launches.json")
+    """16b: the CLI's `pipeline ... --fleet 2 --smoke N` with the faults
+    and the autoscaler (`main(argv)` in this process), and the kernel
+    launches it made."""
     argv = ["pipeline", "-model_conf", conf, "--workspace", ws,
             "--synthetic", "--steps", str(PIPE_STEPS), "--fleet", "2",
             "--smoke", str(PIPE_SMOKE), "--serve_spec", PIPE_SPEC,
             "--rollout_spec", PIPE_ROLLOUT, "--fault_spec", PIPE_FAULTS,
             "--autoscale_spec", PIPE_AUTOSCALE]
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", CLI_WRAPPER, out,
-                          "" if dev == "cuda" else dev, *argv], cwd=REPO,
-                         capture_output=True, text=True, timeout=600)
+    code, text, launches = run_main_launches(argv, dev)
     wall = time.perf_counter() - t0
-    if res.returncode != 0:
-        print((res.stdout + res.stderr)[-8000:], file=sys.stderr)
-    assert res.returncode == 0, res.returncode
+    if code != 0:
+        print(text[-8000:], file=sys.stderr)
+    assert code == 0, code
     # the snapshot line; the fleet's shutdown may log after it
-    snap = json.loads([line for line in res.stdout.splitlines()
+    snap = json.loads([line for line in text.splitlines()
                        if line.startswith("{")][-1])
     assert snap["blessed_step"] == snap["served_step"] == PIPE_STEPS, snap
     assert snap["lag_steps"] == 0 and snap["fleet"]["failed"] == 0, snap
     assert snap["train"]["error"] is None and \
         snap["train"]["failures"] == 1, snap["train"]
     assert snap["unblessed"] == 1 and "autoscale" in snap, snap
-    with open(out) as f:
-        launches = json.load(f)["launches"]
     return wall, snap, launches
 
 
@@ -5104,10 +5234,10 @@ def phase_pipeline(dev, conf=LM_CONF):
             assert all(cli_launches[k] == want
                        for k in ("flash_fwd", "flash_dq", "flash_dkv")), \
                 cli_launches
-        log(f"[pipe] 16b python -m singa_tpu_torch.main pipeline ... "
-            f"--fleet 2 --smoke {PIPE_SMOKE} --fault_spec '{PIPE_FAULTS}' "
-            f"--autoscale_spec '{PIPE_AUTOSCALE}': exit 0 in {wall:.3f} s "
-            f"wall (process start included); blessed {snap['blessed_step']} "
+        log(f"[pipe] 16b the CLI's pipeline ... --fleet 2 --smoke "
+            f"{PIPE_SMOKE} --fault_spec '{PIPE_FAULTS}' --autoscale_spec "
+            f"'{PIPE_AUTOSCALE}' (main(argv) in this process): exit 0 in "
+            f"{wall:.3f} s wall; blessed {snap['blessed_step']} "
             f"served {snap['served_step']}, {snap['fleet']['completed']} "
             f"requests, {snap['fleet']['failed']} failed, unblessed "
             f"{snap['unblessed']}, promote lag max "
@@ -5146,17 +5276,15 @@ def mlp_stream(tr, stream_seed=None):
 
 
 def elastic_cli(dev, conf, steps):
-    """17a: `python -m singa_tpu_torch.main -model_conf mlp.conf
-    --synthetic --steps N` exits 0 past the warmup."""
+    """17a: the CLI (`main(argv)` in this process) on mlp.conf
+    `--synthetic --steps N` exits 0 past the warmup."""
     t0 = time.perf_counter()
-    res = subprocess.run(main_cmd(dev) + ["-model_conf", conf, "--synthetic",
-                                          "--steps", str(steps)], cwd=REPO,
-                         capture_output=True, text=True, timeout=600)
+    code, text = run_main(["-model_conf", conf, "--synthetic", "--steps",
+                           str(steps)], dev)
     wall = time.perf_counter() - t0
-    text = res.stdout + res.stderr
-    if res.returncode != 0:
+    if code != 0:
         print(text[-8000:], file=sys.stderr)
-    assert res.returncode == 0, res.returncode
+    assert code == 0, code
     expect_in(text, "async consistency tier active: Elastic", "training done")
     return wall, [line for line in text.splitlines()
                   if "test:" in line][-1:]
@@ -5301,9 +5429,9 @@ def phase_elastic(dev, conf=MLP_CONF, cli_steps=MLP_CLI_STEPS,
         wall, tests = elastic_cli(dev, conf, cli_steps)
         tr = mlp_trainer(dev, conf, graphs=False)
         nsync = sum(1 for s in range(cli_steps) if tr.elastic.sync_now(s))
-        log(f"[elastic] 17a python -m singa_tpu_torch.main -model_conf "
-            f"{os.path.relpath(conf, REPO)} --synthetic --steps {cli_steps}:"
-            f" exit 0 in {wall:.3f} s wall (process start included); "
+        log(f"[elastic] 17a the CLI -model_conf "
+            f"{os.path.relpath(conf, REPO)} --synthetic --steps {cli_steps} "
+            f"(main(argv) in this process): exit 0 in {wall:.3f} s wall; "
             f"{nsync} sync steps (the first seeds the center, "
             f"{nsync - 1} exchanges); {tests[0].strip() if tests else ''}"
             f"")
@@ -5552,9 +5680,11 @@ def ckpt_restores(dev, tmp, hashes):
 
 def ckpt_train_on(dev, tmp, rec):
     """18c: `Trainer.resume` and the CLI's `--resume` (`main(argv)`
-    here, tensorstore hidden) on copies of the conv.conf fixture take up its orbax step
-    and train on to CKPT_TRAIN_TO with the loss finite, writing an npz
-    step beside the orbax one."""
+    here, tensorstore hidden) on copies of the conv.conf fixture take up
+    its orbax step and train on to CKPT_TRAIN_TO with the loss finite,
+    writing an orbax step beside the TPU's one (the workspace's newest
+    step is orbax), which the port lists and restores: the trainer's
+    step to the sha256 of the trainer's own state."""
     from singa_tpu_torch import (CheckpointManager, Trainer,
                                  load_model_config, synthetic_image_batches)
     conf = conf_copy(tmp, MNIST_CONF, "conv_ckpt.conf", [
@@ -5572,15 +5702,19 @@ def ckpt_train_on(dev, tmp, rec):
     ckpt_check(ckpt_leaves(p, o), rec, "Trainer.resume")
     data = synthetic_image_batches(64, (28, 28), seed=7, stream_seed=8)
     hook = [lambda s, m: losses.append(float(m["loss"]))]
-    tr.run(p, o, (next(data) for _ in range(CKPT_TRAIN_TO - step)),
-           start_step=step, workspace=ws, hooks=hook)
+    p, o, _ = tr.run(p, o, (next(data) for _ in range(CKPT_TRAIN_TO - step)),
+                     start_step=step, workspace=ws, hooks=hook)
     assert len(losses) == CKPT_TRAIN_TO - step and all(
         math.isfinite(x) for x in losses), losses
     mgr = CheckpointManager(ws, log_fn=lambda m: None, device=dev)
     assert mgr.available_steps() == [step, CKPT_TRAIN_TO], \
         mgr.available_steps()
-    assert os.path.exists(os.path.join(mgr.dir,
-                                       f"step_{CKPT_TRAIN_TO}.npz"))
+    ckpt_orbax_step(mgr.dir, CKPT_TRAIN_TO)
+    rp, ro, got = mgr.restore()
+    assert got == CKPT_TRAIN_TO, got
+    mine = ckpt_leaves(p, o)
+    ckpt_check(ckpt_leaves(rp, ro), {"leaves": ckpt_digests(mine)},
+               "the trainer's orbax step")
     cli_ws = ckpt_copy(tmp, "conv", "conv_cli")
     t0 = time.perf_counter()
     code, text = run_main(["-model_conf", conf, "--synthetic", "--steps",
@@ -5592,11 +5726,73 @@ def ckpt_train_on(dev, tmp, rec):
     done = [ln for ln in text.splitlines() if "training done" in ln][-1]
     cli_loss = float(re.search(r"loss : ([-0-9.eE+naif]+)", done).group(1))
     assert math.isfinite(cli_loss), done
-    cli_steps = CheckpointManager(cli_ws, log_fn=lambda m: None,
-                                  device=dev).available_steps()
-    assert cli_steps == [step, CKPT_TRAIN_TO], cli_steps
+    cli = CheckpointManager(cli_ws, log_fn=lambda m: None, device=dev)
+    assert cli.available_steps() == [step, CKPT_TRAIN_TO], \
+        cli.available_steps()
+    ckpt_orbax_step(cli.dir, CKPT_TRAIN_TO)
+    cp, co, got = cli.restore()
+    assert got == CKPT_TRAIN_TO, got
+    assert all(np.isfinite(v).all() for v in ckpt_leaves(cp, co).values())
     return {"step": step, "losses": losses, "cli_loss": cli_loss,
-            "cli_wall": wall}
+            "cli_wall": wall, "leaves": len(mine)}
+
+
+def ckpt_orbax_step(ckpt_dir, step):
+    """`step` in `ckpt_dir` is a finished orbax step, with no npz."""
+    assert os.path.isfile(os.path.join(ckpt_dir, str(step),
+                                       "_CHECKPOINT_METADATA")), step
+    assert not os.path.exists(os.path.join(ckpt_dir, f"step_{step}.npz"))
+
+
+def ckpt_digests(leaves) -> dict:
+    """hashes.json's record of each leaf: dtype, shape, sha256."""
+    import hashlib
+    return {k: {"dtype": v.dtype.str, "shape": list(v.shape),
+                "sha256": hashlib.sha256(
+                    np.ascontiguousarray(v).tobytes()).hexdigest()}
+            for k, v in leaves.items()}
+
+
+def ckpt_bench(dev, tmp, arrays):
+    """18g: the 12-layer bench stack at full width, its f32 params and an
+    Adam state (the slots filled from the params, so no leaf is zeros),
+    saved as an orbax step into a copy of the conv fixture's workspace
+    (its newest step is orbax), then restored by a fresh manager with
+    the native decoder: every leaf's sha256 equal to the state in
+    memory.  Write and restore ms on the host clock (the write's syncs
+    included; the files are warm in the page cache for the restore)."""
+    from singa_tpu_torch import CheckpointManager, build_net, \
+        params_from_numpy
+    from singa_tpu_torch.ops import _kernels
+    net = build(BENCH, BENCH["seq_len"])
+    p = params_from_numpy(net, {k: arrays[k] for k in net.param_specs},
+                          device=dev)
+    o = {"history": {k: v * 0.5 for k, v in p.items()},
+         "update": {k: v * v for k, v in p.items()}}
+    sync(dev)
+    want = ckpt_digests(ckpt_leaves(p, o))
+    nbytes = sum(v.numel() * v.element_size() for v in p.values()) * 3
+    ws = ckpt_copy(tmp, "conv", "bench")
+    mgr = CheckpointManager(ws, log_fn=lambda m: None, device=dev)
+    t0 = time.perf_counter()
+    mgr.save(5, p, o)
+    write_s = time.perf_counter() - t0
+    ckpt_orbax_step(mgr.dir, 5)
+    disk = sum(size for _, size in ckpt_tree(os.path.join(mgr.dir, "5")))
+    del p, o
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    rp, ro, step = CheckpointManager(ws, log_fn=lambda m: None,
+                                     device=dev).restore()
+    restore_s = time.perf_counter() - t0
+    calls = dict(_kernels.CALLS)
+    assert step == 5 and (calls["zstd_dec"] > 0 or dev != "cuda"), \
+        (step, calls)
+    ckpt_check(ckpt_leaves(rp, ro), {"leaves": want}, "the bench stack")
+    return {"leaves": len(want), "nbytes": nbytes, "disk": disk,
+            "write_ms": write_s * 1e3, "restore_ms": restore_s * 1e3,
+            "write_mbs": nbytes / write_s / 1e6,
+            "restore_mbs": nbytes / restore_s / 1e6, "calls": calls}
 
 
 def ckpt_serve(dev, ws, params):
@@ -5726,10 +5922,11 @@ def ckpt_refused_and_torn(dev, tmp, rec):
             "value": length}
 
 
-def phase_ckpt(dev):
+def phase_ckpt(dev, arrays):
     """Phase 18: the JAX package's orbax workspaces (the committed
     fixtures), read on the card with the port's own reader and native
-    zstd decoder, tensorstore hidden."""
+    zstd decoder, tensorstore hidden; the port's orbax steps written
+    into them and read back (18c, 18g)."""
     import shutil
     import tempfile
     from singa_tpu_torch.ops import _kernels
@@ -5757,10 +5954,12 @@ def phase_ckpt(dev):
         c = ckpt_train_on(dev, tmp, hashes["conv"])
         log(f"[ckpt] 18c conv.conf fixture: Trainer.resume takes up orbax "
             f"step {c['step']} and trains to {CKPT_TRAIN_TO} (losses "
-            f"{[round(x, 6) for x in c['losses']]}), npz step "
-            f"{CKPT_TRAIN_TO} beside it; main()'s --resume (the CLI, in "
-            f"this process) likewise (final loss {c['cli_loss']}, "
-            f"{c['cli_wall']:.3f} s wall)")
+            f"{[round(x, 6) for x in c['losses']]}), writing orbax step "
+            f"{CKPT_TRAIN_TO} beside the TPU's, which the port lists and "
+            f"restores with its {c['leaves']} leaves' sha256 those of the "
+            f"trainer's state; main()'s --resume (the CLI, in this process) "
+            f"likewise writes and restores orbax step {CKPT_TRAIN_TO} "
+            f"(final loss {c['cli_loss']}, {c['cli_wall']:.3f} s wall)")
         lm = b["lm_tiny"]
         d = ckpt_serve(dev, lm["ws"], lm["params"])
         log(f"[ckpt] 18d an engine following the lm_tiny fixture serves "
@@ -5788,6 +5987,17 @@ def phase_ckpt(dev):
             f"({a['out_bytes']} bytes out): native {a['native_mbs']:.1f} "
             f"MB/s ({a['native_s'] * 1e3:.3f} ms, mean of {CKPT_DECODES}), "
             f"plain {a['plain_mbs']:.3f} MB/s ({a['plain_s'] * 1e3:.1f} ms)")
+        g = ckpt_bench(dev, tmp, arrays)
+        log(f"[ckpt] 18g the bench stack ({BENCH['num_layers']}L, E="
+            f"{BENCH['embed_dim']}, V={BENCH['vocab_size']}; f32 params and "
+            f"Adam state, {g['leaves']} leaves, {g['nbytes']} bytes) saved "
+            f"as an orbax step (zstd frames of Raw blocks) into a copy of "
+            f"the conv fixture's workspace: write {g['write_ms']:.1f} ms "
+            f"({g['write_mbs']:.1f} MB/s), {g['disk']} bytes on disk; "
+            f"restored by a fresh manager with the native decoder "
+            f"{g['restore_ms']:.1f} ms ({g['restore_mbs']:.1f} MB/s, the "
+            f"files warm in the page cache; native calls {g['calls']}), "
+            f"every leaf's sha256 the state's in memory")
         log(f"[ckpt] phase 18's kernel launches: "
             f"{dict(_kernels.LAUNCHES)}")
     finally:
@@ -5808,8 +6018,9 @@ DIST_CHILD = """
 import json, sys, time
 import numpy as np
 import torch
-mode, pid, hostfile, out, dev = sys.argv[1:6]
-pid = int(pid)
+import torch.distributed as dist
+pid, hostfile, out, dev = int(sys.argv[1]), sys.argv[2], sys.argv[3], \\
+    sys.argv[4]
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 from singa_tpu_torch.parallel.bootstrap import distributed_init
@@ -5818,71 +6029,78 @@ assert distributed_init(pid, hostfile)
 init_s = time.perf_counter() - t0
 from singa_tpu_torch import Trainer, load_model_config
 from singa_tpu_torch.data import discover_input_shapes, resolve_data_source
-model = load_model_config(sys.argv[6])
-shapes = discover_input_shapes(model, force_synthetic=True)
-bs = next(l for l in model.neuralnet.layer
-          if l.type == "kShardData").data_param.batchsize
-res = {"init_s": init_s}
+from singa_tpu_torch.parallel import comm
 def sync():
     if dev == "cuda":
         torch.cuda.synchronize()
-if mode == "dp":
-    from singa_tpu_torch.parallel.mesh import make_mesh
-    from singa_tpu_torch.parallel.partition import DataParallel
-    dp = DataParallel(make_mesh())
-    tr = Trainer(model, shapes, device=dev, log_fn=lambda m: None, dp=dp)
-    it = resolve_data_source(model, bs, seed=0, force_synthetic=True)[0]
-    batches = [next(it) for _ in range(4)]
-    p, o = tr.init(seed=0)
-    p, o, m = tr.train_step(p, o, batches[0], 0)
-    sync()
-    from singa_tpu_torch.parallel import comm
-    comm.reset_stats()
-    t0 = time.perf_counter()
-    for s in range(1, int(sys.argv[7]) + 1):
-        p, o, m = tr.train_step(p, o, batches[s % 4], s)
-    float(m["loss"])
-    sync()
-    ex = comm.stats(dp.grads)
-    res.update(step_ms=(time.perf_counter() - t0) * 1e3 / int(sys.argv[7]),
-               exchange_ms=ex["seconds"] * 1e3 / ex["calls"],
-               calls=ex["calls"],
-               graphs=tr.graphs, digest=dp.agree(p),
-               nbytes=sum(v.numel() * 4 for v in p.values()))
-    # the exchange alone, the card idle: staged (a gradient-sized f32
-    # buffer to the host, all-reduced, back), then gloo alone
-    import torch.distributed as dist
-    n = sum(v.numel() for v in p.values())
-    flat, host = torch.ones(n, device=dev), torch.ones(n)
-    for name, fn in (("staged_ms", lambda: dp.mean([flat])),
-                     ("gloo_ms", lambda: dist.all_reduce(host))):
-        fn()
+# 19b and 19c, one run after another in this one group
+for run in json.loads(sys.argv[5]):
+    mode, tag, steps = run["mode"], run["tag"], run["steps"]
+    model = load_model_config(run["conf"])
+    shapes = discover_input_shapes(model, force_synthetic=True)
+    bs = next(l for l in model.neuralnet.layer
+              if l.type == "kShardData").data_param.batchsize
+    res = {"init_s": init_s}
+    if mode == "dp":
+        from singa_tpu_torch.parallel.mesh import make_mesh
+        from singa_tpu_torch.parallel.partition import DataParallel
+        dp = DataParallel(make_mesh())
+        tr = Trainer(model, shapes, device=dev, log_fn=lambda m: None,
+                     dp=dp)
+        it = resolve_data_source(model, bs, seed=0, force_synthetic=True)[0]
+        batches = [next(it) for _ in range(4)]
+        p, o = tr.init(seed=0)
+        p, o, m = tr.train_step(p, o, batches[0], 0)
         sync()
-        dist.barrier()
+        comm.reset_stats()
         t0 = time.perf_counter()
-        for _ in range(20):
-            fn()
+        for s in range(1, steps + 1):
+            p, o, m = tr.train_step(p, o, batches[s % 4], s)
+        float(m["loss"])
         sync()
-        res[name] = (time.perf_counter() - t0) * 1e3 / 20
-else:
-    from singa_tpu_torch.parallel.elastic import DistributedReplicaSet
-    tr = Trainer(model, shapes, device=dev, log_fn=lambda m: None)
-    drs = DistributedReplicaSet(tr, seed=0)
-    it = resolve_data_source(model, bs, seed=0, force_synthetic=True,
-                             stream_seed=1000 * (pid + 1))[0]
-    t0 = time.perf_counter()
-    center, hist = drs.run(it, int(sys.argv[7]), seed=0)
-    sync()
-    res.update(wall_s=time.perf_counter() - t0, graphs=tr.graphs,
-               gather_ms=drs.gather_seconds * 1e3 / max(drs.gathers, 1),
-               gathers=drs.gathers, losses=[h["loss"] for h in hist],
-               poisoned=drs.poisoned_rounds, skipped=drs.skipped_rounds)
-    np.savez(f"{out}/center_{pid}.npz",
-             **{k: v.cpu().numpy() for k, v in center.items()})
-    np.savez(f"{out}/replica_{pid}.npz",
-             **{k: v.cpu().numpy() for k, v in drs.params.items()})
-with open(f"{out}/{mode}_{pid}.json", "w") as f:
-    json.dump(res, f)
+        ex = comm.stats(dp.grads)
+        res.update(step_ms=(time.perf_counter() - t0) * 1e3 / steps,
+                   exchange_ms=ex["seconds"] * 1e3 / ex["calls"],
+                   calls=ex["calls"],
+                   graphs=tr.graphs, digest=dp.agree(p),
+                   nbytes=sum(v.numel() * 4 for v in p.values()))
+        # the exchange alone, the card idle: staged (a gradient-sized f32
+        # buffer to the host, all-reduced, back), then gloo alone
+        n = sum(v.numel() for v in p.values())
+        flat, host = torch.ones(n, device=dev), torch.ones(n)
+        for name, fn in (("staged_ms", lambda: dp.mean([flat])),
+                         ("gloo_ms", lambda: dist.all_reduce(host))):
+            fn()
+            sync()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            sync()
+            res[name] = (time.perf_counter() - t0) * 1e3 / 20
+    else:
+        from singa_tpu_torch.parallel.elastic import DistributedReplicaSet
+        tr = Trainer(model, shapes, device=dev, log_fn=lambda m: None)
+        drs = DistributedReplicaSet(tr, seed=0)
+        it = resolve_data_source(model, bs, seed=0, force_synthetic=True,
+                                 stream_seed=1000 * (pid + 1))[0]
+        t0 = time.perf_counter()
+        center, hist = drs.run(it, steps, seed=0)
+        sync()
+        res.update(wall_s=time.perf_counter() - t0, graphs=tr.graphs,
+                   gather_ms=drs.gather_seconds * 1e3 / max(drs.gathers, 1),
+                   gathers=drs.gathers, losses=[h["loss"] for h in hist],
+                   poisoned=drs.poisoned_rounds, skipped=drs.skipped_rounds)
+        np.savez(f"{out}/center_{tag}_{pid}.npz",
+                 **{k: v.cpu().numpy() for k, v in center.items()})
+        np.savez(f"{out}/replica_{tag}_{pid}.npz",
+                 **{k: v.cpu().numpy() for k, v in drs.params.items()})
+    with open(f"{out}/{tag}_{pid}.json", "w") as f:
+        json.dump(res, f)
+    del tr
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
 """
 
 
@@ -5914,9 +6132,11 @@ def run_group(cmds, tmp, tag):
         env.pop(var, None)
     logs = [open(os.path.join(tmp, f"{tag}_{i}.log"), "w+")
             for i in range(len(cmds))]
+    t0 = time.time()
+    spawned = [spawn(c, f"{tag}[{i}]") for i, c in enumerate(cmds)]
     procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=lg,
                               stderr=subprocess.STDOUT, text=True)
-             for c, lg in zip(cmds, logs)]
+             for (c, _), lg in zip(spawned, logs)]
     try:
         for p in procs:
             p.wait(timeout=DIST_WAIT)
@@ -5925,6 +6145,11 @@ def run_group(cmds, tmp, tag):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        for p, (_, started) in zip(procs, spawned):
+            started(p.returncode)
+        log(f"[time] group {tag}: {len(cmds)} processes, "
+            f"{time.time() - t0:.2f} s from the first start to the last "
+            f"exit")
     outs = []
     for p, lg in zip(procs, logs):
         lg.seek(0)
@@ -5961,8 +6186,8 @@ def dist_cli(dev, tmp):
         "cli_dp")
     dp_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    single = run_group([main_cmd(dev) + common + [
-        "--workspace", os.path.join(tmp, "ws_one")]], tmp, "cli_one")[0]
+    single = run_one(common + ["--workspace", os.path.join(tmp, "ws_one")],
+                     dev, "19a the one-process CLI")
     one_wall = time.perf_counter() - t0
     want = display_losses(single)
     assert len(want) == DP_STEPS, single[-3000:]
@@ -5991,19 +6216,24 @@ def dist_cli(dev, tmp):
             "exchange_ms": float(exch.group(2)) / max(int(exch.group(1)), 1)}
 
 
-def dist_child(mode, conf, steps, tmp, dev):
-    hf = hostfile_of(tmp, f"hostfile_{mode}", 2)
+def dist_group(dev, tmp, runs):
+    """19b and 19c: one group of 2 processes runs each of `runs` ({mode,
+    conf, steps, tag}) in turn; {tag: [each rank's result]} and the
+    group's wall time."""
+    hf = hostfile_of(tmp, "hostfile_dist", 2)
     child = os.path.join(tmp, "dist_child.py")
     with open(child, "w") as f:
         f.write(DIST_CHILD)
     t0 = time.perf_counter()
-    run_group([[sys.executable, child, mode, str(i), hf, tmp, dev, conf,
-                str(steps)] for i in range(2)], tmp, mode)
+    run_group([[sys.executable, child, str(i), hf, tmp, dev,
+                json.dumps(runs)] for i in range(2)], tmp, "dist")
     wall = time.perf_counter() - t0
-    res = []
-    for i in range(2):
-        with open(os.path.join(tmp, f"{mode}_{i}.json")) as f:
-            res.append(json.load(f))
+    res = {}
+    for run in runs:
+        res[run["tag"]] = []
+        for i in range(2):
+            with open(os.path.join(tmp, f"{run['tag']}_{i}.json")) as f:
+                res[run["tag"]].append(json.load(f))
     return res, wall
 
 
@@ -6027,19 +6257,22 @@ def single_steps_ms(dev, conf, graphs, n=DP_TIMED):
     return (time.perf_counter() - t0) * 1e3 / n, tr.graphs
 
 
-def dist_drs(dev, tmp, param_type, steps, mlp=MLP_CONF):
-    """19c: mlp.conf at its shipped width under `DistributedReplicaSet`
-    with 2 processes, against the in-process `ReplicaSet` on the card on
-    the same seeds and streams."""
-    from singa_tpu_torch.parallel.elastic import ReplicaSet
-    conf = conf_copy(tmp, mlp, f"mlp_{param_type}.conf",
+def drs_conf(tmp, mlp, param_type):
+    return conf_copy(tmp, mlp, f"mlp_{param_type}.conf",
                      [("updater {\n",
                        f'updater {{\n  param_type: "{param_type}"\n')])
-    res, wall = dist_child("drs", conf, steps, tmp, dev)
-    centers = [dict(np.load(os.path.join(tmp, f"center_{i}.npz")))
-               for i in range(2)]
-    reps = [dict(np.load(os.path.join(tmp, f"replica_{i}.npz")))
-            for i in range(2)]
+
+
+def dist_drs(dev, tmp, param_type, steps, conf, res):
+    """19c: mlp.conf at its shipped width under `DistributedReplicaSet`
+    with 2 processes (`res`, the group's results), against the
+    in-process `ReplicaSet` on the card on the same seeds and
+    streams."""
+    from singa_tpu_torch.parallel.elastic import ReplicaSet
+    centers = [dict(np.load(os.path.join(
+        tmp, f"center_{param_type}_{i}.npz"))) for i in range(2)]
+    reps = [dict(np.load(os.path.join(
+        tmp, f"replica_{param_type}_{i}.npz"))) for i in range(2)]
     for k in centers[0]:
         assert np.array_equal(centers[0][k], centers[1][k]), k
     tr = mlp_trainer(dev, conf, ngroups=2)
@@ -6062,8 +6295,7 @@ def dist_drs(dev, tmp, param_type, steps, mlp=MLP_CONF):
         np.testing.assert_allclose(res[g]["losses"],
                                    [h["loss"] for h in hist[g]],
                                    rtol=1e-5)
-    return {"wall": wall, "gap": gap, "rgap": rgap, "equal": equal,
-            "init_s": [r["init_s"] for r in res],
+    return {"gap": gap, "rgap": rgap, "equal": equal,
             "gather_ms": [r["gather_ms"] for r in res],
             "gathers": res[0]["gathers"], "graphs": res[0]["graphs"],
             # RandomSync gathers each replica's snapshot beside it
@@ -6084,9 +6316,9 @@ def phase_dist(dev, conf=MNIST_CONF, mlp=MLP_CONF, drs_steps=DRS_STEPS):
         a = dist_cli(dev, tmp)
         log(f"[dist] 19a conv.conf (batch 64, shipped width), {DP_STEPS} "
             f"steps through python -m singa_tpu_torch.main: 2 processes "
-            f"(-hostfile, data_parallel: 2) in {a['dp_wall']:.3f} s wall, "
-            f"one process in {a['one_wall']:.3f} s wall (process starts "
-            f"included); per-step losses (as the CLI prints them, 6 "
+            f"(-hostfile, data_parallel: 2) in {a['dp_wall']:.3f} s wall "
+            f"(process starts included), one process (main(argv) in this "
+            f"process) in {a['one_wall']:.3f} s; per-step losses (as the CLI prints them, 6 "
             f"decimals) within {a['loss_gap']:.3g} relative of the "
             f"single-process run's (tol {DP_LOSS_RTOL}); "
             f"final params within {a['param_gap']:.3g} of each param's "
@@ -6094,7 +6326,16 @@ def phase_dist(dev, conf=MNIST_CONF, mlp=MLP_CONF, drs_steps=DRS_STEPS):
             f"equal (sha256 {a['digest']}...); {a['exchanges']} gradient "
             f"exchanges, {a['exchange_ms']:.3f} ms each (host staging "
             f"included)")
-        res, wall = dist_child("dp", conf, DP_TIMED, tmp, dev)
+        types = ("Elastic", "RandomSync")
+        runs = [{"mode": "dp", "conf": conf, "steps": DP_TIMED,
+                 "tag": "dp"}] + [
+            {"mode": "drs", "conf": drs_conf(tmp, mlp, t),
+             "steps": drs_steps, "tag": t} for t in types]
+        group, wall = dist_group(dev, tmp, runs)
+        res = group["dp"]
+        log(f"[dist] 19b/19c one group of 2 processes ran the data-parallel "
+            f"steps and both DistributedReplicaSet runs in {wall:.1f} s wall "
+            f"(process starts included)")
         replayed, graphs = single_steps_ms(dev, conf, None)
         eager, _ = single_steps_ms(dev, conf, False)
         log(f"[dist] 19b process group start (distributed_init, gloo, "
@@ -6113,8 +6354,9 @@ def phase_dist(dev, conf=MNIST_CONF, mlp=MLP_CONF, drs_steps=DRS_STEPS):
             f"gloo all-reduce of the host buffer alone "
             f"{', '.join(f'{r['gloo_ms']:.3f}' for r in res)} ms")
         assert res[0]["digest"] == res[1]["digest"]
-        for param_type in ("Elastic", "RandomSync"):
-            d = dist_drs(dev, tmp, param_type, drs_steps, mlp)
+        for param_type, run in zip(types, runs[1:]):
+            d = dist_drs(dev, tmp, param_type, drs_steps, run["conf"],
+                         group[param_type])
             log(f"[dist] 19c mlp.conf (batch 1000, shipped width) x "
                 f"{param_type}, DistributedReplicaSet of 2 processes, "
                 f"{drs_steps} steps (graphs {d['graphs']}) in "
@@ -6125,8 +6367,7 @@ def phase_dist(dev, conf=MNIST_CONF, mlp=MLP_CONF, drs_steps=DRS_STEPS):
                 f"{d['equal']}); {d['gathers']} exchanges of "
                 f"{d['nbytes'] / 1e6:.1f} MB a process, all-gathered "
                 f"through the host "
-                f"{', '.join(f'{x:.3f}' for x in d['gather_ms'])} ms each; "
-                f"group start {', '.join(f'{x * 1e3:.1f}' for x in d['init_s'])} ms")
+                f"{', '.join(f'{x:.3f}' for x in d['gather_ms'])} ms each")
         assert not any(_kernels.LAUNCHES.values()), _kernels.LAUNCHES
         log("[dist] phase 19: 0 launches of K1-K6 on these paths")
     finally:
@@ -6420,9 +6661,9 @@ def mesh_cli(dev, tmp, cfg_kw):
     # the same config, batches and init on one process: the mesh's losses
     # and its params' move from the init (the CLI's, seed 0) against it
     ws_one = os.path.join(tmp, "ws_mesh_one")
-    one = run_group([main_cmd(dev) + [
-        "-model_conf", conf, "--synthetic", "--steps", str(MESH_STEPS),
-        "--workspace", ws_one]], tmp, "mesh_one")[0]
+    one = run_one(["-model_conf", conf, "--synthetic", "--steps",
+                   str(MESH_STEPS), "--workspace", ws_one], dev,
+                  "20d the one-process CLI")
     want = display_losses(one)
     assert len(want) == MESH_STEPS, one[-3000:]
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses_of, want))
@@ -6469,7 +6710,7 @@ def lm_tp(dev, tmp, extra=()):
         for i in range(2)], tmp, "lm_tp")
     wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    one = run_group([main_cmd(dev) + common], tmp, "lm_one")[0]
+    one = run_one(common, dev, "20e the one-process CLI")
     one_wall = time.perf_counter() - t0
     want = display_losses(one)
     assert len(want) == LMTP_STEPS, one[-3000:]
@@ -6564,6 +6805,10 @@ from singa_tpu_torch.parallel import comm
 from singa_tpu_torch.parallel.bootstrap import distributed_init
 from singa_tpu_torch.parallel.mesh import make_mesh
 from singa_tpu_torch.parallel.partition import DataParallel
+# autograd's first backward with output gradients imports sympy (through
+# torch.fx's symbolic shapes); imported here, beside the other ranks,
+# rather than inside a pipelined step that the other ranks wait on
+import torch.fx.experimental.symbolic_shapes
 assert distributed_init(pid, hostfile)
 def sync():
     if dev == "cuda":
@@ -6784,9 +7029,8 @@ def stage_cli(dev, tmp, cfg_kw):
         shifts.append(re.search(r"pipe shifts: .*", out).group(0))
     assert len(losses) == 1, losses
     got = next(iter(losses))
-    one = run_group([main_cmd(dev) + [
-        "-model_conf", conf, "--synthetic", "--steps", str(PIPECLI_STEPS)]],
-        tmp, "pipecli_one")[0]
+    one = run_one(["-model_conf", conf, "--synthetic", "--steps",
+                   str(PIPECLI_STEPS)], dev, "21e the one-process CLI")
     want = display_losses(one)
     assert len(want) == PIPECLI_STEPS, one[-3000:]
     gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -7052,7 +7296,7 @@ def moe_mesh_cli(dev, tmp):
         "-cluster_conf", CLUSTER_CONF, "-hostfile", hf, "-procsID", str(i)]
         for i in range(8)], tmp, "moemesh")
     wall = time.perf_counter() - t0
-    one = run_group([main_cmd(dev) + common], tmp, "moemesh_one")[0]
+    one = run_one(common, dev, "22a the one-process CLI")
     want = display_losses(one)
     assert len(want) == MOE_MESH_STEPS, one[-3000:]
     digests, losses = set(), set()
@@ -7175,6 +7419,10 @@ from singa_tpu_torch.parallel import comm
 from singa_tpu_torch.parallel.bootstrap import distributed_init
 from singa_tpu_torch.parallel.mesh import make_mesh
 from singa_tpu_torch.parallel.partition import DataParallel
+# autograd's first backward with output gradients imports sympy (through
+# torch.fx's symbolic shapes); imported here, beside the other ranks,
+# rather than inside a pipelined step that the other ranks wait on
+import torch.fx.experimental.symbolic_shapes
 assert distributed_init(pid, hostfile)
 def sync():
     if dev == "cuda":
@@ -7641,6 +7889,12 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Where the environment sets PYTHONDONTWRITEBYTECODE, every process
+    # this script starts compiles torch's Python source anew (3-5 s of
+    # each start): the children share one bytecode cache under build/
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(REPO, "build",
+                                                     "pycache")
     dev = "cuda"
     global CARD
     smi = card()
@@ -7717,7 +7971,7 @@ def main() -> int:
     took("phase 16")
     phase_elastic(dev)
     took("phase 17")
-    phase_ckpt(dev)
+    phase_ckpt(dev, arrays)
     took("phase 18")
     phase_dist(dev)
     took("phase 19")
@@ -7732,6 +7986,13 @@ def main() -> int:
     mixed = phase_mixed(dev, arrays)
     log(f"[mixed] phase 23's launches on each rank of 23b: {mixed}")
     took("phase 23")
+
+    ready = [x for _, x in STARTS if x is not None]
+    if ready:
+        log(f"[time] {len(STARTS)} processes started; each from its start "
+            f"to torch, the port and the card's context ready: median "
+            f"{float(np.median(ready)):.2f} s, max {max(ready):.2f} s, sum "
+            f"{sum(ready):.1f} s")
 
     kernels = []
     for name, res, replaces in (

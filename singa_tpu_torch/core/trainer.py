@@ -188,6 +188,26 @@ class TimerInfo:
         self.times.clear()
         self.steps = 0
 
+    def register_into(self, registry,
+                      prefix: str = "singa_train") -> None:
+        """Register the phase totals into an `obs.MetricsRegistry` as a
+        pull-time collector: `<prefix>_steps_total` and
+        `<prefix>_phase_<phase>_seconds_total`, the JAX package's
+        series."""
+        from ..obs.metrics import Sample
+
+        def collect():
+            out = [Sample(f"{prefix}_steps_total", "counter",
+                          "training steps timed", float(self.steps))]
+            for phase, secs in sorted(self.times.items()):
+                out.append(Sample(
+                    f"{prefix}_phase_{phase}_seconds_total", "counter",
+                    f"cumulative host seconds in the {phase!r} phase",
+                    secs))
+            return out
+
+        registry.register_collector(collect)
+
 
 def _index(batch, i: int):
     """Step `i` of a stacked (nested) batch dict."""
@@ -911,6 +931,10 @@ class Trainer:
                 if not chunked:
                     batch = next(train_iter)
                     t1 = time.perf_counter()
+                    # the JAX loop places the batch here (`_batch_place`,
+                    # a no-op without a mesh); the port's step copies the
+                    # host batch itself, so this stage holds no work
+                    t2 = time.perf_counter()
                     with obs.span("trainer.chunk", start=step, steps=1):
                         params, opt_state, m = self.train_step(
                             params, opt_state, batch, step,
@@ -932,21 +956,25 @@ class Trainer:
                         self.timer.add("stage",
                                        fd.stage_seconds - staged_credit[0])
                         staged_credit[0] = fd.stage_seconds
+                        t1 = t2 = time.perf_counter()
                     else:
                         batches = [next(train_iter) for _ in range(n)]
+                        t1 = time.perf_counter()
                         with obs.span("feeder.stage", start=step, steps=n):
                             chunk = stager.stage(batches)
-                    t1 = time.perf_counter()
+                        t2 = time.perf_counter()
                     batches = chunk.take()
                     with obs.span("trainer.chunk", start=step, steps=n):
                         params, opt_state, stacked = self.train_steps(
                             params, opt_state, batches, step, n,
                             stacked=True, poison=poison)
                     last_batch[0] = _index(batches, n - 1)
-                t2 = time.perf_counter()
-                pending.append((step, stacked, t1))
+                t3 = time.perf_counter()
+                pending.append((step, stacked, t2))
                 self.timer.add("wait", t1 - t0)
-                self.timer.add("train", t2 - t1)
+                if t2 > t1:
+                    self.timer.add("stage", t2 - t1)
+                self.timer.add("train", t3 - t2)
                 self.timer.steps += n
                 # the first train dispatch latches the cold start
                 perf.mark_training_ready()

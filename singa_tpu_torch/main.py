@@ -616,8 +616,10 @@ def pipeline_main(argv, device: DeviceLike = None) -> int:
                           log_fn=obs.get_logger("trainer"), device=dev,
                           seed=args.seed, health=health)
         reg = obs.registry()
-        if reg is not None and health is not None:
-            health.register_into(reg)
+        if reg is not None:
+            trainer.timer.register_into(reg)
+            if health is not None:
+                health.register_into(reg)
 
         from .core.pipeline import PipelineController, PipelineSpec
         from .core.supervisor import Supervisor, TrainingAborted
@@ -871,9 +873,13 @@ def _train(args, device: DeviceLike, model, cluster, ptype, log) -> int:
                       n_micro=(cluster.pipeline_microbatches
                                if cluster else 0))
     trainer.phase_profile = args.phase_profile
+    # additive metric collectors (no-op without --obs on): the per-phase
+    # timer and the health verdicts feed the periodic dump
     reg = obs.registry()
-    if reg is not None and health is not None:
-        health.register_into(reg)
+    if reg is not None:
+        trainer.timer.register_into(reg)
+        if health is not None:
+            health.register_into(reg)
 
     workspace = args.workspace or (cluster.workspace if cluster else None)
     # an explicit --workspace is a request to checkpoint: default to a

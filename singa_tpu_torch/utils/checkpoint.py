@@ -27,6 +27,18 @@ other.  Such a step's health verdict sits in the manifest under the
 bare step (`"7"`).  `available_steps` lists both kinds, and a workspace
 holding both restores the newest step of either.
 
+Where the newest step of a workspace is orbax (a TPU user's workspace
+the card resumed), `save` writes orbax too, so the JAX package, which
+lists only orbax steps where orbax imports, sees the card's steps: the
+files of a `StandardSave` (`_write_orbax`: zarr v2 leaves in their own
+dtype, bf16 as zarr `bfloat16`, in zstd frames of Raw blocks, in an
+OCDBT database that `utils/ocdbt.py` writes), under a hidden name,
+synced, renamed to `<step>`, then `_CHECKPOINT_METADATA`, so a writer
+killed before it leaves nothing either package lists.  A save of a step
+that exists replaces it whole.  The newest `ORBAX_MAX_TO_KEEP` orbax
+steps are kept, as the JAX manager keeps them.  Everywhere else npz
+stays the format.
+
 `restore` verifies the snapshot against the manifest and walks back to
 the previous good one past any corrupt or partial snapshot (on an orbax
 step, torn bytes: a CRC32C or a length that does not match, a frame
@@ -38,20 +50,26 @@ ok).  `save(..., health=)` records a verdict: the Trainer writes the
 health monitor's (`core/trainer.py`) and the serving engine reads them
 (`serve/engine.py`).  Saves and restores run inside the `ckpt.save` and
 `ckpt.restore` spans and consult their fault sites; the `torn` kind at
-`ckpt.save` truncates the renamed snapshot to half and records no
-manifest entry, a save that "succeeded" with garbage on disk.
+`ckpt.save` truncates the renamed snapshot (an orbax step's largest
+file) to half and records no manifest entry, a save that "succeeded"
+with garbage on disk.
 
 Snapshots hold numpy arrays: `save` takes tensors or arrays (moved to
-the host; bf16 tensors are stored as f32) and `restore` returns numpy
+the host; bf16 tensors are stored as f32 in an npz snapshot, as
+bfloat16 in an orbax step) and `restore` returns numpy
 (an orbax step's bf16 leaves widened to f32, which holds every bf16
 value exactly), which the caller places (`Trainer.resume`).
 """
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import json
 import os
+import shutil
+import time
+import uuid
 import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -61,9 +79,9 @@ import torch
 from .. import obs
 from ..device import DeviceLike, resolve_device
 from . import faults
-from .ocdbt import (FileStore, OcdbtStore, OrbaxTornStepError,
+from .ocdbt import (FileStore, OcdbtStore, OcdbtWriter, OrbaxTornStepError,
                     OrbaxUnreadableError)
-from .zarr import read_array
+from .zarr import V2_DTYPES, read_array, v2_entries
 from .zstd import Codec
 
 # Parameter-layout generation, the JAX package's: bump when a change
@@ -72,6 +90,21 @@ from .zstd import Codec
 LAYOUT_VERSION = 2
 
 _MANIFEST = "MANIFEST.json"
+# the orbax steps a workspace keeps, the JAX manager's `max_to_keep`
+ORBAX_MAX_TO_KEEP = 3
+# what the JAX package's orbax writes into a step's
+# `_CHECKPOINT_METADATA` (the timestamps are added at the save)
+_CHECKPOINT_METADATA = {
+    "item_handlers": {"default": "orbax.checkpoint._src.handlers."
+                      "standard_checkpoint_handler."
+                      "StandardCheckpointHandler"},
+    "metrics": {}, "performance_metrics": {}, "custom_metadata": {}}
+# a leaf's `_sharding` entry.  Orbax names the saving host's device there
+# ("TFRT_CPU_0", "TPU_0(...)"), and a templateless restore on a host
+# without that device raises, which the JAX manager takes for a torn
+# step and walks past.  An empty entry restores, templateless, as numpy
+# on any host, and a restore with a template takes the template's.
+_SHARDING = ""
 
 
 class LayoutMismatchError(RuntimeError):
@@ -101,7 +134,14 @@ def _atomic_write(path: str, data: bytes) -> None:
 
 def _tear(path: str) -> None:
     """Simulate a torn write (fault kind "torn"): truncate the snapshot
-    to half — a save that returned success but left garbage on disk."""
+    to half — a save that returned success but left garbage on disk.  On
+    an orbax step directory the largest file inside is torn."""
+    if os.path.isdir(path):
+        files = [os.path.join(r, f) for r, _, fs in os.walk(path)
+                 for f in fs]
+        if not files:
+            return
+        path = max(files, key=os.path.getsize)
     size = os.path.getsize(path)
     with open(path, "r+b") as f:
         f.truncate(size // 2)
@@ -233,13 +273,19 @@ class CheckpointManager:
     def _save(self, step: int, params: Dict[str, Any],
               opt_state: Dict[str, Any],
               health: Optional[Dict[str, Any]]) -> None:
-        if self.latest_step() is not None:
+        latest = self.latest_step()
+        if latest is not None:
             # never mix layouts in one directory (the marker is
             # per-directory)
             self._check_version()
         act = faults.maybe_fault("ckpt.save")
         state = {"params": params, "opt_state": opt_state,
                  "step": np.asarray(step)}
+        if latest is not None and self._is_orbax(latest):
+            # a workspace whose newest step is orbax stays one that a
+            # JAX host with orbax lists
+            self._save_orbax(step, state, act, health)
+            return
         arrays = {k: _to_numpy(v) for k, v in _flatten("", state).items()}
         path = os.path.join(self.dir, f"step_{step}.npz")
         # tmp + atomic rename: a crash mid-write leaves a *.tmp the
@@ -262,17 +308,81 @@ class CheckpointManager:
             return
         self._manifest_record(step, path, health=health)
 
+    def _save_orbax(self, step: int, state: Dict[str, Any],
+                    act: Optional[str],
+                    health: Optional[Dict[str, Any]]) -> None:
+        """Write `state` as orbax step `step`: under a hidden name that
+        neither package lists, synced, renamed to `<step>` (a finished
+        step of that number, or the wreck of a writer that died before
+        finishing it, is moved aside first and removed after), then
+        `_CHECKPOINT_METADATA`, which makes it a step.  Then the oldest
+        orbax steps past the newest `ORBAX_MAX_TO_KEEP` go, as the JAX
+        manager's `max_to_keep` prunes them."""
+        stepdir = os.path.join(self.dir, str(step))
+        tag = f"{os.getpid()}-{uuid.uuid4().hex[:8]}"
+        tmp = os.path.join(self.dir, f".{step}.writing-{tag}")
+        try:
+            _write_orbax(tmp, state)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        self._write_version()
+        old = None
+        if os.path.lexists(stepdir):
+            if not self._finished(step):
+                self.log(f"warning: clearing unfinished orbax step "
+                         f"directory {step} (a writer died mid-save); "
+                         f"re-saving")
+            old = os.path.join(self.dir, f".{step}.replaced-{tag}")
+            os.replace(stepdir, old)
+        os.replace(tmp, stepdir)
+        _fsync_dir(self.dir)
+        now = time.time_ns()
+        _atomic_write(os.path.join(stepdir, "_CHECKPOINT_METADATA"),
+                      json.dumps({**_CHECKPOINT_METADATA,
+                                  "init_timestamp_nsecs": now,
+                                  "commit_timestamp_nsecs": now}).encode())
+        _fsync_dir(stepdir)
+        if old is not None:
+            shutil.rmtree(old, ignore_errors=True)
+        self._prune_orbax()
+        if act == "torn":
+            # the rename "succeeded" but the data never reached the
+            # disk; no verdict either (a crash before it)
+            _tear(stepdir)
+            return
+        man = self._read_manifest()
+        if health is not None:
+            man[str(step)] = {"step": step, "health": health}
+        elif str(step) in man:
+            # a replaced step's verdict does not describe the new bytes
+            del man[str(step)]
+        else:
+            return
+        _atomic_write(self._manifest_path(),
+                      json.dumps(man, indent=1, sort_keys=True).encode())
+
+    def _prune_orbax(self) -> None:
+        steps = sorted(int(f) for f in os.listdir(self.dir)
+                       if f.isdigit() and self._finished(int(f)))
+        for s in steps[:-ORBAX_MAX_TO_KEEP]:
+            shutil.rmtree(os.path.join(self.dir, str(s)), ignore_errors=True)
+
     # -- listing -----------------------------------------------------------
+    def _finished(self, step: int) -> bool:
+        """Whether `step` is a finished orbax step directory (one holding
+        `_CHECKPOINT_METADATA`, which orbax writes last)."""
+        return os.path.isfile(os.path.join(self.dir, str(step),
+                                           "_CHECKPOINT_METADATA"))
+
     def _is_orbax(self, step: int) -> bool:
         """Whether `step` is a finished orbax step directory: digit-named,
         holding `_CHECKPOINT_METADATA`, which orbax writes last (a
         directory without it is a save in flight or the wreck of a
         writer that died mid-save, and is not listed).  A step that is
         also an npz snapshot is read from the npz."""
-        return (os.path.isfile(os.path.join(self.dir, str(step),
-                                            "_CHECKPOINT_METADATA"))
-                and not os.path.exists(
-                    os.path.join(self.dir, f"step_{step}.npz")))
+        return self._finished(step) and not os.path.exists(
+            os.path.join(self.dir, f"step_{step}.npz"))
 
     def available_steps(self) -> List[int]:
         """All snapshot steps on disk, npz snapshots and finished orbax
@@ -405,6 +515,77 @@ class CheckpointManager:
         with np.load(path) as data:
             state = _unflatten({k: data[k] for k in data.files})
         return state["params"], state["opt_state"], int(state["step"])
+
+
+def _orbax_leaf(v) -> Tuple[np.ndarray, str]:
+    """A leaf as its stored bytes and zarr v2 dtype: a bf16 tensor as its
+    uint16 bits ("bfloat16", as orbax writes it), the rest in their own
+    dtype."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach()
+        if v.dtype == torch.bfloat16:
+            return v.view(torch.int16).cpu().numpy().view("<u2"), "bfloat16"
+        v = v.cpu().numpy()
+    a = np.asarray(v)
+    name = a.dtype.str
+    if name not in V2_DTYPES:
+        raise ValueError(f"an orbax step cannot hold a {a.dtype} leaf")
+    return a, name
+
+
+def _write_orbax(stepdir: str, state: Dict[str, Any]) -> None:
+    """`state` as the files of an orbax step at `stepdir` (a new
+    directory), all but `_CHECKPOINT_METADATA`: the JAX package's
+    `StandardSave` of it, as the committed fixtures hold it.  Each leaf
+    is a zarr v2 array at its key path joined with `.`, in an OCDBT
+    database at `default/`; a tensor leaf is a "jax.Array" (with a
+    `_sharding` entry and an array metadata record), a numpy one (the
+    step) an "np.ndarray"."""
+    base = os.path.join(stepdir, "default")
+    os.makedirs(os.path.join(base, "array_metadatas"))
+    db = OcdbtWriter(base)
+    tree, sharding, records = {}, {}, []
+    for flat, v in _flatten("", state).items():
+        keys = tuple(flat.split("|"))
+        arr, dtype_name = _orbax_leaf(v)
+        name = ".".join(keys)
+        for key, parts in v2_entries(name, arr, dtype_name):
+            db.put(key, parts)
+        value: Dict[str, Any] = {"value_type": "np.ndarray",
+                                 "skip_deserialize": False}
+        if isinstance(v, torch.Tensor):
+            value = {"value_type": "jax.Array", "skip_deserialize": False,
+                     "write_shape": list(arr.shape)}
+            sharding[base64.b64encode(name.encode()).decode()] = \
+                _SHARDING
+            records.append({"array_metadata": {
+                "param_name": name, "write_shape": list(arr.shape),
+                "chunk_shape": list(arr.shape), "ext_metadata": None}})
+        tree[str(keys)] = {
+            "key_metadata": [{"key": k, "key_type": 2} for k in keys],
+            "value_metadata": value}
+    db.close()
+    meta = {"tree_metadata": tree, "use_ocdbt": True, "use_zarr3": False,
+            "store_array_data_equal_to_fill_value": True,
+            "custom_metadata": None}
+    for rel, doc in (("_METADATA", meta), ("_sharding", sharding),
+                     ("array_metadatas/process_0",
+                      {"array_metadatas": records})):
+        with open(os.path.join(base, rel), "wb") as f:
+            f.write(json.dumps(doc).encode())
+            f.flush()
+            os.fsync(f.fileno())
+    for d in (os.path.join(base, "d"), os.path.join(base, "array_metadatas"),
+              base, stepdir):
+        _fsync_dir(d)
+
+
+def _fsync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 
 def _read_orbax(stepdir: str, codec: Codec) -> Dict[str, Any]:

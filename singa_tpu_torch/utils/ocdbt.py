@@ -1,4 +1,5 @@
-"""A read-only OCDBT key-value store: the database under an orbax step.
+"""OCDBT key-value stores, read and written: the database under an orbax
+step.
 
 Orbax writes a step's arrays through tensorstore into an OCDBT database
 (`<step>/default/`): `manifest.ocdbt` at its root, B+tree nodes, version
@@ -17,6 +18,13 @@ everything before it.  Inside, arrays are stored by column: a data file
 table (each path prefix-coded against the one before, a base path and a
 path relative to it), then each field of every entry in turn.
 
+`OcdbtWriter(root)` writes such a database the smallest way: one
+version, inline in the manifest; one B+tree leaf node holding every key,
+with each value of at most `MAX_INLINE_VALUE_BYTES` inline and the rest
+in one data file under `d/`, the node after them; nodes and manifest
+uncompressed (compression 0).  The config is orbax's (1024 bytes
+inline, 100 MB a decoded node, the single-file manifest).
+
 `OcdbtStore(root, codec)` takes the manifest's config and its latest
 version (inline, or the newest leaf of its version tree), walks the
 B+tree once when it opens (keys are stored by prefix: an interior entry
@@ -34,14 +42,21 @@ reads keys from a plain directory, for a step written with
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Tuple
+import time
+import uuid
+from typing import Dict, List, Optional, Sequence, Tuple
 
-from .zstd import Codec, ZstdError
+from .zstd import Codec, ZstdError, crc32c
 
 MANIFEST_MAGIC = 0x0CDB3A2A
 BTREE_MAGIC = 0x0CDB20DE
 VERSION_MAGIC = 0x0CDB1234
 _MISSING = (1 << 64) - 1        # offset and length of an absent root
+# orbax's config for the databases it writes
+# (`tensorstore_utils.add_ocdbt_write_options`)
+MAX_INLINE_VALUE_BYTES = 1024
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
 
 
 class OrbaxUnreadableError(RuntimeError):
@@ -365,3 +380,136 @@ class FileStore:
         except OSError as e:
             raise OrbaxTornStepError(f"{path} does not read "
                                      f"({type(e).__name__}: {e})") from e
+
+
+# -- writing -----------------------------------------------------------------
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _column(values) -> bytes:
+    return b"".join(_varint(v) for v in values)
+
+
+def encode_envelope(body: bytes, magic: int) -> bytes:
+    """An encoded OCDBT file holding `body`: its magic, its length,
+    format version 0, compression 0 (none), the body and the CRC32C of
+    everything before it."""
+    size = 4 + 8 + 2 + len(body) + 4
+    data = (magic.to_bytes(4, "big") + size.to_bytes(8, "little")
+            + _varint(0) + _varint(0) + body)
+    return data + crc32c(data).to_bytes(4, "little")
+
+
+def _prefixed(items: Sequence[bytes]) -> Tuple[bytes, bytes, bytes]:
+    """(prefix lengths of all but the first, suffix lengths, suffixes) of
+    sorted byte strings, each stored against the one before it."""
+    pre, suf, tails = [], [], []
+    prev = b""
+    for i, item in enumerate(items):
+        n = 0
+        if i:
+            top = min(len(prev), len(item))
+            while n < top and prev[n] == item[n]:
+                n += 1
+            pre.append(n)
+        suf.append(len(item) - n)
+        tails.append(item[n:])
+        prev = item
+    return _column(pre), _column(suf), b"".join(tails)
+
+
+def _file_table(paths: Sequence[str]) -> bytes:
+    """A data file table of `paths`, each relative to the base path of
+    the file holding the table (base path lengths 0)."""
+    pre, suf, tails = _prefixed([p.encode() for p in paths])
+    return _varint(len(paths)) + pre + suf + _column([0] * len(paths)) + tails
+
+
+class OcdbtWriter:
+    """One OCDBT database written at `root` (a directory that holds none):
+    `put` each key's value, then `close`, which writes the B+tree leaf
+    node and `manifest.ocdbt` and syncs every file.  Values longer than
+    `MAX_INLINE_VALUE_BYTES` go into one data file, `d/<32 hex digits>`,
+    in the order they were put; the leaf node follows them there."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.data_rel = f"d/{uuid.uuid4().hex}"
+        os.makedirs(os.path.join(root, "d"))
+        self._data = open(os.path.join(root, self.data_rel), "wb")
+        self._offset = 0
+        # key -> its bytes (inline) or (offset, length) in the data file
+        self._entries: Dict[bytes, object] = {}
+
+    def put(self, key: str, parts: Sequence) -> None:
+        """The value of `key`: `parts`, buffers written one after
+        another."""
+        k = key.encode()
+        if k in self._entries:
+            raise ValueError(f"OCDBT key {key!r} put twice")
+        size = sum(memoryview(p).nbytes for p in parts)
+        if size <= MAX_INLINE_VALUE_BYTES:
+            self._entries[k] = b"".join(bytes(p) for p in parts)
+            return
+        for p in parts:
+            self._data.write(p)
+        self._entries[k] = (self._offset, size)
+        self._offset += size
+
+    def _leaf(self) -> bytes:
+        keys = sorted(self._entries)
+        values = [self._entries[k] for k in keys]
+        indirect = [v for v in values if isinstance(v, tuple)]
+        pre, suf, tails = _prefixed(keys)
+        body = (bytes([0])                          # height 0: a leaf
+                + _file_table([self.data_rel] if indirect else [])
+                + _varint(len(keys)) + pre + suf + tails
+                + _column(len(v) if isinstance(v, bytes) else v[1]
+                          for v in values)
+                + _column(int(isinstance(v, tuple)) for v in values)
+                + _column(0 for _ in indirect)      # data file id
+                + _column(off for off, _ in indirect)
+                + b"".join(v for v in values if isinstance(v, bytes)))
+        if len(body) > MAX_DECODED_NODE_BYTES:
+            raise ValueError(f"{len(keys)} keys do not fit one OCDBT leaf "
+                             f"node of {MAX_DECODED_NODE_BYTES} bytes")
+        return body
+
+    def close(self) -> None:
+        node = encode_envelope(self._leaf(), BTREE_MAGIC)
+        node_at = self._offset
+        self._data.write(node)
+        self._data.flush()
+        os.fsync(self._data.fileno())
+        self._data.close()
+        indirect = sum(v[1] for v in self._entries.values()
+                       if isinstance(v, tuple))
+        body = (uuid.uuid4().bytes
+                + _varint(0)                        # the single-file kind
+                + _varint(MAX_INLINE_VALUE_BYTES)
+                + _varint(MAX_DECODED_NODE_BYTES)
+                + bytes([VERSION_TREE_ARITY_LOG2])
+                + _varint(0)                        # no compression
+                + _file_table([self.data_rel])
+                # one inline version: generation 1, its root the leaf
+                + _varint(1) + _varint(1) + bytes([0])
+                + _varint(0) + _varint(node_at) + _varint(len(node))
+                + _varint(len(self._entries)) + _varint(len(node))
+                + _varint(indirect)
+                + time.time_ns().to_bytes(8, "little")
+                + _varint(0))                       # no version tree nodes
+        path = os.path.join(self.root, "manifest.ocdbt")
+        with open(path, "wb") as f:
+            f.write(encode_envelope(body, MANIFEST_MAGIC))
+            f.flush()
+            os.fsync(f.fileno())

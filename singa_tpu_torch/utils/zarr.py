@@ -18,6 +18,11 @@ CRC32C.
   decoded through its own codecs; an inner chunk that was never written
   takes the fill value).
 
+`v2_entries(path, array, dtype_name)` is the writer's side: the
+`.zarray` and the one chunk of an array stored whole (orbax's chunk for a
+leaf on one device), in a zstd frame of Raw blocks, as the key-value
+pairs to put into a store.
+
 The chunk grid is assembled into one numpy array.  bfloat16 comes back
 as float32, widened by a 16-bit shift, which holds every bf16 value
 exactly.  Another codec, filter, dtype or layout raises
@@ -38,7 +43,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from .ocdbt import OrbaxTornStepError, OrbaxUnreadableError
-from .zstd import Codec, ZstdError
+from .zstd import Codec, ZstdError, raw_frame
 
 # stored dtype name -> (numpy dtype of the stored bytes, little-endian)
 V2_DTYPES = {"<f4": "<f4", "<f2": "<f2", "<i4": "<i4", "<i8": "<i8",
@@ -162,6 +167,31 @@ def _read_v2(store, path: str, meta: dict, codec: Codec) -> np.ndarray:
         chunk = np.frombuffer(raw, dtype).reshape(chunks, order=order)
         _place(out, idx, chunks, chunk)
     return _widen(out, bf16)
+
+
+def v2_entries(path: str, array: np.ndarray, dtype_name: str) -> list:
+    """[(key, parts)] of the zarr v2 array at `path` holding `array`
+    (C order, its stored bytes: a bfloat16 array as its uint16 bits) as
+    one chunk, compressor zstd (a frame of Raw blocks), as tensorstore
+    writes them for orbax: sorted compact JSON, fill value null."""
+    if V2_DTYPES.get(dtype_name) != array.dtype.str:
+        raise ValueError(f"zarr v2 dtype {dtype_name!r} does not store a "
+                         f"{array.dtype.str} array")
+    shape = list(array.shape)
+    meta = {"chunks": [max(s, 1) for s in shape],
+            "compressor": {"id": "zstd", "level": 1},
+            "dimension_separator": ".", "dtype": dtype_name,
+            "fill_value": None, "filters": None, "order": "C",
+            "shape": shape, "zarr_format": 2}
+    out = [(f"{path}/.zarray",
+            [json.dumps(meta, sort_keys=True, separators=(",", ":"))
+             .encode()])]
+    if array.size:
+        key = ".".join("0" for _ in shape) or "0"
+        out.append((f"{path}/{key}",
+                    raw_frame(np.ascontiguousarray(array).reshape(-1)
+                              .view(np.uint8).data)))
+    return out
 
 
 # -- v3 ---------------------------------------------------------------------

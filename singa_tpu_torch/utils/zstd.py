@@ -21,6 +21,10 @@ block, literals and table mode it takes.
 `Codec(native)` is what the checkpoint reader calls: the plain functions
 here, or the native ones built from `csrc/zstd_dec.cu`
 (`ops/_kernels.py`), with no fallback from one to the other.
+
+The checkpoint writer's frames are the smallest valid form, with no
+entropy coder: `raw_frame` cuts its input into Raw blocks of at most
+128 KiB under a single-segment header that states the content size.
 """
 
 from __future__ import annotations
@@ -640,6 +644,40 @@ def content_size(src) -> Optional[int]:
     if pos != len(src):
         raise ZstdError("frame past the end of the data")
     return total
+
+
+# -- encoding: frames of Raw blocks ------------------------------------------
+
+def _frame_header(size: int) -> bytes:
+    """The magic and header of a single-segment frame that states its
+    content size, `size` bytes, and carries no checksum (RFC 8878
+    3.1.1.1): the field takes 1, 2, 4 or 8 bytes as the size needs."""
+    if size < 256:
+        code, fcs = 0, size.to_bytes(1, "little")
+    elif size < 256 + (1 << 16):
+        code, fcs = 1, (size - 256).to_bytes(2, "little")
+    elif size < 1 << 32:
+        code, fcs = 2, size.to_bytes(4, "little")
+    else:
+        code, fcs = 3, size.to_bytes(8, "little")
+    return MAGIC.to_bytes(4, "little") + bytes([code << 6 | 0x20]) + fcs
+
+
+def raw_frame(data) -> List:
+    """One zstd frame holding `data` (any buffer) in Raw blocks of at most
+    128 KiB: the pieces to write one after another, the blocks as views
+    of `data`, so a large array is written with no copy."""
+    mv = memoryview(data).cast("B")
+    n = len(mv)
+    parts = [_frame_header(n)]
+    if n == 0:
+        return parts + [(1).to_bytes(3, "little")]     # last, Raw, 0 bytes
+    for pos in range(0, n, BLOCK_MAX):
+        size = min(BLOCK_MAX, n - pos)
+        last = int(pos + size == n)
+        parts += [(size << 3 | last).to_bytes(3, "little"),
+                  mv[pos:pos + size]]
+    return parts
 
 
 # -- XXH64 (the content checksum) and CRC32C (OCDBT) ------------------------

@@ -115,6 +115,44 @@ def test_phase_profile_logs_the_device_split(capsys):
                          for line in lines)
 
 
+def _train_series(run, argv, ws):
+    """The `singa_train_*` series of the last metrics dump that a CLI run
+    with `--obs on` wrote to `ws/obs/events.jsonl`."""
+    assert run([*argv, "--workspace", ws, "--obs", "on", "--obs_spec",
+                "metrics_period_s=600"]) == 0
+    with open(os.path.join(ws, "obs", "events.jsonl")) as f:
+        dumps = [e["metrics"] for e in map(json.loads, f)
+                 if e.get("kind") == "metrics"]
+    return {k: v for k, v in dumps[-1].items()
+            if k.startswith("singa_train")}
+
+
+# the unchunked loop, the synchronous chunked loop (stage apart from
+# wait) and the pipeline subcommand's supervised trainer
+@pytest.mark.parametrize("argv", [
+    ["-model_conf", CONF, "--synthetic", "--steps", "6"],
+    ["-model_conf", CONF, "--synthetic", "--steps", "8", "--scan_chunk",
+     "4", "--feeder", "off"],
+    ["pipeline", "-model_conf", CONF, "--synthetic", "--steps", "8",
+     "--smoke", "2", "--serve_spec", "buckets=2x16,max_new_tokens=4",
+     "--rollout_spec", "poll_s=0.1,window_s=0.25,min_requests=1"],
+], ids=["unchunked", "chunked", "pipeline"])
+def test_obs_exports_the_trainer_timer_as_the_jax_cli_does(argv, tmp_path):
+    """C13: under `--obs on` the metrics dump holds the trainer's timer,
+    `singa_train_steps_total` and a `singa_train_phase_<phase>_seconds_
+    total` per phase, under the names the JAX CLI writes on the same
+    argv."""
+    steps = int(argv[argv.index("--steps") + 1])
+    got = _train_series(lambda a: tmain.main(a, device="cpu"), argv,
+                        str(tmp_path / "port"))
+    assert got["singa_train_steps_total"] >= steps, got
+    for phase in ("wait", "stage", "train"):
+        assert got[f"singa_train_phase_{phase}_seconds_total"] >= 0, got
+    assert got["singa_train_phase_train_seconds_total"] > 0, got
+    want = _train_series(jmain.main, argv, str(tmp_path / "jax"))
+    assert set(got) == set(want)
+
+
 def test_the_cli_runs_on_the_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device; the no-card "

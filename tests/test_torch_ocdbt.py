@@ -669,6 +669,40 @@ def test_the_fixtures_equal_the_jax_restore_and_their_hashes(tmp_path,
     assert CheckpointManager(ws, device="cpu").latest_step() == rec["step"]
 
 
+def test_a_step_two_processes_wrote_restores_to_its_hashes(tmp_path):
+    """`lm_tiny_tp2`: the JAX CLI's step of lm_tiny.conf under
+    tensor_parallel: 2 on 2 processes, whose model-sharded leaves are
+    split between `ocdbt.process_0/` and `ocdbt.process_1/`, restores in
+    the port to the sha256 of the JAX restore (with its trainer's tree
+    as template) of every leaf, and equals tensorstore key for key."""
+    with open(os.path.join(FIXTURES, "hashes.json")) as f:
+        rec = json.load(f)["lm_tiny_tp2"]
+    ws = _copy(os.path.join(FIXTURES, "lm_tiny_tp2"), tmp_path)
+    default = os.path.join(ws, "checkpoints", str(rec["step"]), "default")
+    assert os.path.isdir(os.path.join(default, "ocdbt.process_1", "d"))
+    store = OcdbtStore(default, PLAIN)
+    assert {f[0][0] for f in store._entries.values()
+            if isinstance(f, tuple)} >= {"ocdbt.process_0/",
+                                         "ocdbt.process_1/"}
+    kv = ts.KvStore.open({"driver": "ocdbt",
+                          "base": f"file://{default}/"}).result()
+    keys = [k.decode() for k in kv.list().result()]
+    assert keys == store.list()
+    for k in keys:
+        assert store.read(k) == kv.read(k).result().value, k
+    p, o, step = CheckpointManager(ws, device="cpu").restore()
+    assert step == rec["step"]
+    got = {f"params|{k}": v for k, v in p.items()}
+    got.update({f"opt_state|{s}|{k}": v for s, d in o.items()
+                for k, v in d.items()})
+    assert set(got) == set(rec["leaves"])
+    for k, v in got.items():
+        d = rec["leaves"][k]
+        assert [v.dtype.str, list(v.shape)] == [d["dtype"], d["shape"]], k
+        assert hashlib.sha256(np.ascontiguousarray(v).tobytes()
+                              ).hexdigest() == d["sha256"], k
+
+
 # -- the native decoder (csrc/zstd_dec.cu), built with g++ -------------------
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(

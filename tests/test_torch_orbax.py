@@ -143,9 +143,14 @@ def test_cli_resume_trains_on_and_restores_the_newest_of_either_kind(
     out = capsys.readouterr()
     assert f"resumed from step {STEPS}" in out.out + out.err
     mgr = _mgr(ws)
-    # the port writes npz beside the orbax steps; the newest wins
+    # the port writes orbax where the newest step is orbax, so the JAX
+    # manager lists its step too; the newest wins
     assert mgr.available_steps() == [8, STEPS, STEPS + 4]
-    assert os.path.exists(os.path.join(mgr.dir, f"step_{STEPS + 4}.npz"))
+    assert jckpt.CheckpointManager(ws).available_steps() == \
+        [8, STEPS, STEPS + 4]
+    assert os.path.isfile(os.path.join(mgr.dir, str(STEPS + 4),
+                                       "_CHECKPOINT_METADATA"))
+    assert not os.path.exists(os.path.join(mgr.dir, f"step_{STEPS + 4}.npz"))
     assert mgr.restore()[2] == STEPS + 4
     assert mgr.restore(STEPS + 3)[2] == STEPS
 
@@ -271,13 +276,23 @@ def test_without_tensorstore_the_workspace_is_never_skipped(
                        "--smoke", "1"], device="cpu") == 0
 
 
-def test_a_step_in_both_kinds_reads_the_npz(ws):
+def test_a_step_in_both_kinds_reads_the_npz(ws, tmp_path):
     """The port's own npz of a step wins over an orbax directory of the
-    same step."""
+    same step.  A save into this workspace writes orbax (its newest step
+    is orbax), so the npz is made in a fresh workspace, where npz is the
+    format, and copied in with its manifest record."""
     mgr = _mgr(ws)
     p, o, _ = mgr.restore(8)
     p = {k: v + 1.0 for k, v in p.items()}
-    mgr.save(8, p, o)
+    fresh = _mgr(str(tmp_path / "fresh"))
+    fresh.save(8, p, o)
+    shutil.copy(os.path.join(fresh.dir, "step_8.npz"), mgr.dir)
+    with open(os.path.join(mgr.dir, "MANIFEST.json")) as f:
+        man = json.load(f)
+    man["step_8.npz"] = fresh._read_manifest()["step_8.npz"]
+    with open(os.path.join(mgr.dir, "MANIFEST.json"), "w") as f:
+        json.dump(man, f)
+    assert mgr.available_steps() == [8, STEPS]
     got = mgr.restore(8)[0]
     for k in p:
         np.testing.assert_array_equal(got[k], p[k])
