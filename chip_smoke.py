@@ -69,7 +69,11 @@ non-zero before the last line is printed:
    capture's recorded launches), a profiled replay must hold those
    kernels by name, and the loss must fall.  Step time, tokens/s, an
    eager step's forward / backward / update split and the profile are
-   printed.  Then eager steps (`graphs=False`) against replays from one
+   printed; with the step captured under an obs session, one more
+   replay's device phases from its graph's marks must sum (forward +
+   backward + update) to within 3% of its length between two CUDA
+   events, with the head's within forward + backward.
+   Then eager steps (`graphs=False`) against replays from one
    copied start: after 10 steps, and again after 51, params and Adam
    state must be equal under `torch.equal`; between them 3 rounds of 10
    steps each in turns (tokens/s), `train_steps(10)` with one sync, a
@@ -1558,6 +1562,14 @@ LOSS_MARGIN = 0.1
 
 
 def phase_train(dev, arrays):
+    from singa_tpu_torch import obs
+    # the step is captured under an obs session: its graph then records
+    # the device marks that `check_device_phases` reads
+    with obs.session():
+        return train_bench(dev, arrays)
+
+
+def train_bench(dev, arrays):
     from singa_tpu_torch import synthetic_token_batches
     from singa_tpu_torch.ops import _kernels
     from singa_tpu_torch.ops.head_loss import (head_stats, logits_f32,
@@ -1648,7 +1660,51 @@ def phase_train(dev, arrays):
     prof = profile("train_step (replay)", lambda: tr.train_step(
         params, opt, batch, TRAIN_STEPS + 2), ms, top=16)
     check_replay_profile(prof, PROFILED_PER_STEP)
+    check_device_phases(tr)
     return launches
+
+
+# the replayed step's device phases must sum to its event-timed length
+# within this share
+PHASE_SUM_RTOL = 0.03
+
+
+def check_device_phases(tr) -> None:
+    """One more replay of the captured train step, between two CUDA
+    events: its device phases, read from the marks its graph records
+    (`TimerInfo.device_phases`), must sum (forward + backward + update)
+    to within PHASE_SUM_RTOL of its length between the events, and the
+    LM head's forward and backward must lie within forward +
+    backward."""
+    from singa_tpu_torch.core.trainer import DEVICE_PHASES
+    graph = tr._train_graph
+    torch.cuda.synchronize()
+    graph.read_marks()          # an earlier replay's, left unread
+    before = tr.timer.device_phases() or {"samples": 0}
+    captured, = graph._graphs.values()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    captured.graph.replay()
+    ev[1].record()
+    torch.cuda.synchronize()
+    graph._unread = captured
+    graph.read_marks()
+    got = tr.timer.device_phases()
+    assert got is not None and got["samples"] == before["samples"] + 1, \
+        (before, got, graph.marks_error)
+    ms = {k: (got[k] - before.get(k, 0.0)) * 1e3 for k in DEVICE_PHASES
+          if k in got}
+    replay_ms = ev[0].elapsed_time(ev[1])
+    total = ms["step.forward"] + ms["step.backward"] + ms["step.update"]
+    log(f"[train] device phases of one replay (its graph's marks): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f"; forward + backward + update {total:.3f} ms against the "
+        f"replay's {replay_ms:.3f} ms between events "
+        f"({100 * (total / replay_ms - 1):+.2f}%, within "
+        f"{100 * PHASE_SUM_RTOL:.0f}%)")
+    assert abs(total - replay_ms) <= PHASE_SUM_RTOL * replay_ms, \
+        (ms, replay_ms)
+    assert ms["step.head"] <= ms["step.forward"] + ms["step.backward"], ms
 
 
 def check_replay_profile(prof, want) -> None:
@@ -4195,7 +4251,9 @@ def measure_costs(dev, lm_steps=4):
         f"{compiles} before and after; obs.perf: "
         + json.dumps({k: {**{m.replace('singa_program_', ''): v
                              for m, v in d.items()},
-                          "step_ms": round(cost[k]["step_seconds"] * 1e3, 4)}
+                          "step_ms": (round(cost[k]["seconds"] * 1e3
+                                            / cost[k]["calls"], 4)
+                                      if cost[k].get("calls") else None)}
                       for k, d in sorted(got.items())}))
     want = ("singa_program_flops", "singa_program_mfu") if dev == "cuda" \
         else ("singa_program_flops",)

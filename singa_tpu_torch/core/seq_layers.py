@@ -50,6 +50,7 @@ from ..config.schema import ParamConfig
 from ..ops import attention as attn_ops
 from ..ops import head_loss, loss as loss_ops, moe as moe_ops
 from .layers import Layer, LayerError, ParamSpec, _cast, register_layer
+from .step_graph import mark, mark_grad
 
 # (layer name, seq_len, head_dim) triples that already warned about the
 # dense route
@@ -517,6 +518,11 @@ class LMHeadLossLayer(Layer, _HeadProjection):
 
     def apply(self, params, srcs, ctx):
         hidden, labels = srcs
+        # the head's device marks in a captured train step: its forward
+        # from the weight's cast, its backward up to the hidden's
+        # gradient (`core/step_graph.py`; nothing when not captured)
+        mark("head.start")
+        hidden = mark_grad(hidden, "head.grad")
         w, is_vE = self.head_weight(params, ctx.compute_dtype)
         b, s, e = hidden.shape
         h2, l2 = hidden.reshape(b * s, e), labels.reshape(-1)
@@ -528,4 +534,5 @@ class LMHeadLossLayer(Layer, _HeadProjection):
             loss, prec = loss_ops.chunked_lm_xent(
                 h2, w, l2, chunk_size=self.chunk, topk=self.topk,
                 scale=self.scale, w_is_vE=is_vE)
+        mark("head.end")
         return {"loss": loss, "precision": prec}

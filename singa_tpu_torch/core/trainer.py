@@ -54,13 +54,24 @@ thread by default).
 How the trainer measures itself (`:62-99`, `:474-556`, `:853-972`):
 the train and eval steps harvest their analytic FLOPs into CostWatch
 (`obs.perf`, `utils/flops.py`) at first use, so /metrics carries
-`singa_program_flops` and, with `run`'s step times, `singa_program_mfu`.
-`profile_phases` traces one eager step on clones of the state and pins
-its device fwd/bwd/update split on `TimerInfo` (`run` calls it at the
-first display step under `phase_profile` or SINGA_TPU_PHASE_PROFILE=1);
-with `ModelProto.debug`, `run` logs `NeuralNet.debug_info` of an eager
-forward and backward at each display step.  Neither moves the params,
-the optimizer state, the generators or the data stream.
+`singa_program_flops` and, with `TimerInfo`'s `train` seconds and steps
+(`obs.perf.time_source`), `singa_program_mfu`.  A train step captured
+while an `obs` session is active records device marks at its phase
+boundaries (`step.start`,
+`step.forward`, `step.backward`, `step.update`, and the LM head's
+`head.start`, `head.end`, `head.grad`), event-record nodes that every
+replay records anew; a replay whose marks are read before the next adds
+its `step.forward`, `step.backward`, `step.update` and `step.head`
+device seconds to `TimerInfo` (`device_phases`), with no synchronise.
+`train_step` opens the host spans `trainer.step_prepare` (`_own`,
+`set_step`, the capture at a geometry's first step, `_seed_layers`)
+and `trainer.replay`.  `profile_phases` traces one eager step on clones
+of the state and pins its device fwd/bwd/update split on `TimerInfo`
+(`run` calls it at the first display step under `phase_profile` or
+SINGA_TPU_PHASE_PROFILE=1); with `ModelProto.debug`, `run` logs
+`NeuralNet.debug_info` of an eager forward and backward at each display
+step.  Neither moves the params, the optimizer state, the generators or
+the data stream.
 
 The async consistency tier (`:179-182`, `:711-719`, `:780-787`,
 `:973-976`): when the updater asks for Elastic or RandomSync
@@ -122,7 +133,7 @@ from ..weights import opt_state_from_numpy, params_from_numpy
 from . import seq_layers  # noqa: F401  (registers the layer types)
 from .layers import LAYER_REGISTRY, fold_in, layer_seed
 from .net import NeuralNet, build_net
-from .step_graph import StepGraph, leaves
+from .step_graph import StepGraph, leaves, mark
 from .updater import make_updater
 
 
@@ -151,6 +162,15 @@ class Performance:
         self.counter = 0
 
 
+#: the device phases of a replayed train step, from its marks (name:
+#: (start mark, end mark)); `step.head` adds the head's backward
+#: (`step.forward` to `head.grad`) to its forward
+DEVICE_PHASES = {"step.forward": ("step.start", "step.forward"),
+                 "step.backward": ("step.forward", "step.backward"),
+                 "step.update": ("step.backward", "step.update"),
+                 "step.head": ("head.start", "head.end")}
+
+
 @dataclass
 class TimerInfo:
     """Per-phase wall-time accumulator (worker.h:91-114): `wait` (the
@@ -159,13 +179,48 @@ class TimerInfo:
     `train` (the steps, and the drain's wait for their metrics).  The
     device's fwd/bwd/update split, which the reference timed around each
     phase call, comes from a one-shot trace of an eager step
-    (`Trainer.profile_phases`) and rides along as `phase_shares`."""
+    (`Trainer.profile_phases`) and rides along as `phase_shares`.
+
+    Beside them, the device seconds of each phase of the replayed train
+    step (`DEVICE_PHASES`), summed over the replays whose marks were
+    read (`add_marks`, `device_samples` of them; `core/step_graph.py`)
+    and read through `device_phases`.  They are counters: `reset` keeps
+    them."""
     times: Dict[str, float] = field(default_factory=dict)
     steps: int = 0
     phase_shares: Optional[Dict[str, float]] = None
+    device: Dict[str, float] = field(default_factory=dict)
+    device_samples: int = 0
 
     def add(self, phase: str, seconds: float) -> None:
         self.times[phase] = self.times.get(phase, 0.0) + seconds
+
+    def add_marks(self, at: Dict[str, float]) -> None:
+        """Add one replay's phases from its marks (seconds since the
+        first): a phase whose marks the step did not record is left
+        out."""
+        for phase, (a, b) in DEVICE_PHASES.items():
+            if a in at and b in at:
+                secs = at[b] - at[a]
+                if phase == "step.head":
+                    if "head.grad" not in at:
+                        continue
+                    secs += at["head.grad"] - at["step.forward"]
+                self.device[phase] = self.device.get(phase, 0.0) + secs
+        self.device_samples += 1
+
+    def device_phases(self) -> Optional[Dict[str, float]]:
+        """{"samples": n, phase: device seconds summed over n replays},
+        or None before any replay was read (eager steps, the CPU, a
+        graph captured without an `obs` session)."""
+        if not self.device_samples:
+            return None
+        return {"samples": self.device_samples, **self.device}
+
+    def program_seconds(self) -> Dict[str, tuple]:
+        """{"train_step": (steps, seconds)} of the `train` phase, for
+        CostWatch's MFU (`obs.perf.time_source`)."""
+        return {"train_step": (self.steps, self.times.get("train", 0.0))}
 
     def to_string(self) -> str:
         total = sum(self.times.values()) or 1.0
@@ -193,7 +248,9 @@ class TimerInfo:
         """Register the phase totals into an `obs.MetricsRegistry` as a
         pull-time collector: `<prefix>_steps_total` and
         `<prefix>_phase_<phase>_seconds_total`, the JAX package's
-        series."""
+        series; and, once a replay's marks were read,
+        `<prefix>_device_samples_total` and
+        `<prefix>_device_<phase>_seconds_total` (`step_forward`, ...)."""
         from ..obs.metrics import Sample
 
         def collect():
@@ -203,6 +260,16 @@ class TimerInfo:
                 out.append(Sample(
                     f"{prefix}_phase_{phase}_seconds_total", "counter",
                     f"cumulative host seconds in the {phase!r} phase",
+                    secs))
+            if self.device_samples:
+                out.append(Sample(f"{prefix}_device_samples_total",
+                                  "counter", "replays whose device phases "
+                                  "were read", float(self.device_samples)))
+            for phase, secs in sorted(self.device.items()):
+                out.append(Sample(
+                    f"{prefix}_device_{phase.replace('.', '_')}"
+                    f"_seconds_total", "counter",
+                    f"device seconds of {phase!r} over the read replays",
                     secs))
             return out
 
@@ -302,10 +369,13 @@ class Trainer:
         # graph of this trainer was captured over
         self._state: Dict[str, Any] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self.timer = TimerInfo()
         self._train_graph = (StepGraph("train_step", self._pool,
                                        writes=("params", "opt"),
-                                       generators=tuple(self._gens.values()))
+                                       generators=tuple(self._gens.values()),
+                                       on_marks=self.timer.add_marks)
                              if self.graphs else None)
+        perf.time_source(self.timer.program_seconds)
         # contrastive divergence: the chain's generator, one graph per
         # RBM (keyed by its index) and the PCD chains (`cd_step`)
         cd = model_cfg.alg == "kContrastiveDivergence"
@@ -318,7 +388,6 @@ class Trainer:
         self.test_step = self._eval_step(self.test_net)
         self.val_step = self._eval_step(self.val_net)
         self.perf = Performance()
-        self.timer = TimerInfo()
         # `run` profiles the phases at its first display step when set
         # (or SINGA_TPU_PHASE_PROFILE=1); the last profile's device time
         # by (phase, kernel), phase None for unattributed work
@@ -472,7 +541,9 @@ class Trainer:
                     compute_dtype=self.compute_dtype, rng=self.seed,
                     step=step, generators=self._gens, shard=shard,
                     par=self.dp)
+            mark("step.forward")
             grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+            mark("step.backward")
         finally:
             for p in tensors:
                 p.requires_grad_(False)
@@ -490,7 +561,9 @@ class Trainer:
         `step.grad` fault's scale) multiplies the gradients first.  With a
         health monitor the metrics gain the probes, over a copy of the
         params taken before the update (the updater writes them in
-        place)."""
+        place).  Captured, it records the device marks of
+        `DEVICE_PHASES` (`core/step_graph.py` `mark`)."""
+        mark("step.start")
         metrics, grads, _ = self._grads(params, batch, step)
         grads = {k: g if g is not None else torch.zeros_like(params[k])
                  for k, g in grads.items()}
@@ -511,6 +584,7 @@ class Trainer:
         with profiler.phase("update"):
             self.updater.apply(grads, params, opt_state,
                                multipliers=self.multipliers)
+        mark("step.update")
         if old is not None:
             from ..utils.health import health_probes
             metrics = {**metrics, **health_probes(
@@ -549,23 +623,27 @@ class Trainer:
             perf.harvest("train_step", flops=net_train_flops(self.train_net))
             self._train_harvested = True
         if not self.graphs:
-            self.updater.set_step(step, params, self.multipliers)
-            self._seed_layers(step)
+            with obs.span("trainer.step_prepare", step=step):
+                self.updater.set_step(step, params, self.multipliers)
+                self._seed_layers(step)
             return params, opt_state, self._step(params, opt_state, batch,
                                                  step, poison)
-        state = _own(self._state, params, opt_state)
-        self.updater.set_step(step, state["params"], self.multipliers)
-        if poison is not None:
+        with obs.span("trainer.step_prepare", step=step):
+            state = _own(self._state, params, opt_state)
+            self.updater.set_step(step, state["params"], self.multipliers)
+            if poison is None:
+                both = {"params": state["params"], "opt": state["opt"]}
+                body = functools.partial(self._train_body, step=step)
+                key = self.train_net.step_variant(step)
+                # warm-up draws from the generators: capture before
+                # seeding (at the geometry's first step only)
+                self._train_graph.capture(body, both, batch, key)
             self._seed_layers(step)
+        if poison is not None:
             return state["params"], state["opt"], self._step(
                 state["params"], state["opt"], batch, step, poison)
-        both = {"params": state["params"], "opt": state["opt"]}
-        body = functools.partial(self._train_body, step=step)
-        key = self.train_net.step_variant(step)
-        # warm-up draws from the generators: capture before seeding
-        self._train_graph.capture(body, both, batch, key)
-        self._seed_layers(step)
-        metrics = self._train_graph(body, both, batch, key)
+        with obs.span("trainer.replay", step=step):
+            metrics = self._train_graph(body, both, batch, key)
         return state["params"], state["opt"], metrics
 
     def train_steps(self, params, opt_state, batches, start_step: int,
@@ -853,9 +931,8 @@ class Trainer:
         saved = None
         stopped = False     # by a signal, here or on another rank
         # the newest chunk's last batch, for the debug step and the
-        # phase profile; the end of the last drained chunk's fetch
+        # phase profile
         last_batch = [None]
-        fetched = [0.0]
 
         def drain():
             if pending:
@@ -864,18 +941,10 @@ class Trainer:
 
         def drain_chunks():
             while pending:
-                s0, stacked, t_start = pending.pop(0)
+                s0, stacked = pending.pop(0)
                 t = time.perf_counter()
                 per_step = self.drain_metrics(stacked)
-                now = time.perf_counter()
-                self.timer.add("train", now - t)
-                # a step's time for MFU: from its chunk's dispatch (or the
-                # end of the chunk before, whose work it queued behind) to
-                # the fetch of its metrics, never the enqueue alone
-                perf.observe_step("train_step",
-                                  (now - max(t_start, fetched[0]))
-                                  / len(per_step))
-                fetched[0] = now
+                self.timer.add("train", time.perf_counter() - t)
                 for s, metrics in enumerate(per_step, start=s0):
                     if self.health is not None:
                         self._observe(s, metrics)
@@ -970,7 +1039,7 @@ class Trainer:
                             stacked=True, poison=poison)
                     last_batch[0] = _index(batches, n - 1)
                 t3 = time.perf_counter()
-                pending.append((step, stacked, t2))
+                pending.append((step, stacked))
                 self.timer.add("wait", t1 - t0)
                 if t2 > t1:
                     self.timer.add("stage", t2 - t1)

@@ -9,9 +9,10 @@ ROADMAP's remaining items (fleet router health, canary promotion,
 pipeline mode) consume.  Four rules:
 
   1. **~zero cost off.**  `obs.span(...)` / `obs.emit_event(...)` are
-     one module-global read when no session is active — the same
-     discipline as `faults.maybe_fault`.  Instrumented hot paths pay
-     nothing until `--obs on`.
+     a module-global read (and, for `span`, torch.profiler's flag) when
+     no session is active — the same discipline as
+     `faults.maybe_fault`.  Instrumented hot paths pay nothing until
+     `--obs on` or a profiler.
   2. **telemetry never kills work.**  Every record/write path consults
      the `obs.emit` fault site and swallows ALL failures into drop
      counters (`tests/test_obs.py` proves a faulted emit still
@@ -32,10 +33,21 @@ pipeline mode) consume.  Four rules:
 
 CLI: `--obs on|off` plus `--obs_spec 'trace=path,events=path,
 metrics_period_s=5'` (main.py), mirroring `--health_spec`.  Artifacts:
-a Chrome trace JSON (Perfetto-loadable next to the device traces that
-`utils/profiler.trace` exports), a JSONL event log, and flight-recorder
-dumps (`flightrec.py`); `collect.py` merges per-process buffers into
-one fleet trace.  See docs/OBSERVABILITY.md.
+a Chrome trace JSON, a JSONL event log, and flight-recorder dumps
+(`flightrec.py`); `collect.py` merges per-process buffers into one
+fleet trace.  See docs/OBSERVABILITY.md.
+
+The Tracer's file and a device trace do not share a clock: the Tracer
+stamps microseconds from its own `perf_counter` origin, torch.profiler's
+export microseconds from its `baseTimeNanoseconds`, an instant of the
+Unix epoch.  So while a torch.profiler
+session collects, `span` also opens a `record_function` range of the
+span's name: the span then lands in the profiler's own export, as a
+`user_annotation` event on its clock beside the card's kernels, with or
+without an obs session.  (A profiler records the ranges of the threads
+it profiles: the one that started it, or every thread where it was
+started with `profile_all_threads`.)  `utils/profiler.phase` is such a
+span, so the port has one span API.
 
 The port's own copy of `singa_tpu/obs/__init__.py`.  Its Supervisor,
 trainer, feeder, checkpoints, train-and-serve pipeline
@@ -54,7 +66,7 @@ from .flightrec import FlightRecorder
 from .log import EventLog, Logger, MetricsDumper
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       Sample, parse_prometheus)
-from .trace import NULL_HANDLE, NULL_SPAN, Tracer
+from .trace import NULL_HANDLE, NULL_SPAN, ProfiledSpan, Tracer, profiling
 
 __all__ = [
     "ObsSpec", "Observability", "TailSampler", "enable", "disable",
@@ -276,14 +288,16 @@ class session:
 def span(name: str, corr: Optional[str] = None,
          trace: Optional[str] = None, parent: Optional[int] = None,
          **attrs):
-    """Open a trace span, or the shared null span when off.
+    """Open a trace span, or the shared null span when no session is
+    active and no torch.profiler collects.  While a profiler collects
+    the span is also a `record_function` range of `name` (see the
+    module docstring); `attrs` reach the session's Tracer only.
     `trace`/`parent` anchor under a remote or cross-thread parent
     (the receive side of an `X-Trace-Id`/`X-Parent-Span` hop)."""
     o = _ACTIVE
-    if o is None:
-        return NULL_SPAN
-    return o.tracer.span(name, corr=corr, trace=trace, parent=parent,
-                         **attrs)
+    inner = NULL_SPAN if o is None else o.tracer.span(
+        name, corr=corr, trace=trace, parent=parent, **attrs)
+    return ProfiledSpan(name, inner) if profiling() else inner
 
 
 def current_corr() -> Optional[str]:

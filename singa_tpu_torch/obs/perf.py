@@ -30,9 +30,12 @@ folded into one process-global `PerfWatch`.
     CUDA graph carries no cost analysis, so nothing is read off a
     captured program; nothing counts the bytes a program moves either,
     so the JAX package's `singa_program_bytes` and arithmetic intensity
-    have no counterpart.  `observe_step` keeps each program's latest
-    wall time, and `collect()` derives `singa_program_mfu` from the two
-    and the card's peak.
+    have no counterpart.  The owners count each program's calls and
+    their seconds where they time them anyway (the engine's
+    `ServeStats.program_calls`, the trainer's `TimerInfo`, under their
+    own locks) and register the reader with `time_source`;
+    `collect()` derives `singa_program_mfu` = flops x calls / (seconds
+    x the card's peak) from them at scrape.
 
 Cold-start readiness rides along: `mark_serving_ready()` /
 `mark_training_ready()` are first-call-wins latches measuring process
@@ -54,6 +57,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+import weakref
 from contextlib import contextmanager
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
@@ -148,8 +152,10 @@ class PerfWatch:
         # total ever observed across set_memory calls and scrapes
         self._memory: Dict[Tuple[str, str], int] = {}
         self._watermark = 0
-        # CostWatch: program -> {"flops":…, "step_seconds":…}
+        # CostWatch: program -> {"flops":…}; the owners' call counters,
+        # bound methods held weakly (a dead owner drops out)
         self._cost: Dict[str, Dict[str, float]] = {}
+        self._timings: List[weakref.WeakMethod] = []
 
     # -- CompileWatch -------------------------------------------------------
     @contextmanager
@@ -302,14 +308,32 @@ class PerfWatch:
                 entry["flops"] = float(flops)
             return dict(entry)
 
-    def observe_step(self, program: str, seconds: float) -> None:
-        """Record the latest wall time of one execution of `program`, so
-        that MFU (flops / (seconds · peak)) can be derived at scrape."""
-        if seconds <= 0:
-            return
+    def time_source(self, method) -> None:
+        """Register `method`, a bound method returning {program: (calls,
+        seconds)} summed since its owner began, for MFU.  Held weakly;
+        registering the same one twice counts it once."""
+        ref = weakref.WeakMethod(method)
         with self._lock:
-            self._cost.setdefault(program, {})["step_seconds"] = \
-                float(seconds)
+            if ref not in self._timings:
+                self._timings.append(ref)
+
+    def program_times(self) -> Dict[str, Tuple[int, float]]:
+        """{program: (calls, seconds)} summed over the live sources."""
+        with self._lock:
+            self._timings = [r for r in self._timings if r() is not None]
+            methods = [r() for r in self._timings]
+        out: Dict[str, Tuple[int, float]] = {}
+        for fn in methods:
+            if fn is None:
+                continue
+            try:
+                got = fn()
+            except Exception:  # noqa: BLE001 — telemetry never kills
+                continue
+            for program, (calls, secs) in got.items():
+                n, t = out.get(program, (0, 0.0))
+                out[program] = (n + int(calls), t + float(secs))
+        return out
 
     # -- export -------------------------------------------------------------
     def collect(self) -> List[Sample]:
@@ -322,6 +346,7 @@ class PerfWatch:
             serving = self._serving_ready_s
             training = self._training_ready_s
             cost = {k: dict(v) for k, v in self._cost.items()}
+        times = self.program_times()
         out: List[Sample] = []
         for program, n in sorted(compiles.items()):
             out.append(Sample(
@@ -397,19 +422,26 @@ class PerfWatch:
         for program, entry in sorted(cost.items()):
             lab = (("program", program),)
             flops = entry.get("flops")
-            step = entry.get("step_seconds")
+            calls, secs = times.get(program, (0, 0.0))
             if flops:
                 out.append(Sample("singa_program_flops", "gauge",
                                   "model FLOPs per execution", flops, lab))
-            if flops and step and peak:
+            if flops and calls and secs > 0 and peak:
                 out.append(Sample("singa_program_mfu", "gauge",
                                   "achieved FLOP/s over the card's bf16 "
-                                  "peak", flops / (step * peak), lab))
+                                  "peak", flops * calls / (secs * peak),
+                                  lab))
         return out
 
     def snapshot(self) -> Dict[str, Any]:
-        """Structured view for benches and flight-recorder dumps."""
+        """Structured view for benches and flight-recorder dumps; a
+        program's cost entry gains its `calls` and `seconds`."""
+        times = self.program_times()
         with self._lock:
+            cost = {k: dict(v) for k, v in self._cost.items()}
+            for k, entry in cost.items():
+                if k in times:
+                    entry["calls"], entry["seconds"] = times[k]
             _, hsum, hcount = self.compile_hist.snapshot()
             by_component: Dict[str, int] = {}
             for (_s, component), nbytes in self._memory.items():
@@ -428,7 +460,7 @@ class PerfWatch:
                 "training_ready_s": self._training_ready_s,
                 "memory_components": by_component,
                 "hbm_watermark_bytes": self._watermark,
-                "cost": {k: dict(v) for k, v in self._cost.items()},
+                "cost": cost,
             }
 
     def flightrec_context(self) -> Dict[str, Any]:
@@ -545,8 +577,8 @@ def harvest(program: str, compiled=None,
     return _WATCH.harvest(program, compiled, flops=flops)
 
 
-def observe_step(program: str, seconds: float) -> None:
-    _WATCH.observe_step(program, seconds)
+def time_source(method) -> None:
+    _WATCH.time_source(method)
 
 
 def snapshot() -> Dict[str, Any]:

@@ -28,15 +28,23 @@ Design targets (docs/OBSERVABILITY.md):
 
 Export format: `{"traceEvents": [...], "displayTimeUnit": "ms"}` with
 `ph: "X"` complete events (ts/dur in microseconds) plus `ph: "M"`
-thread-name and process-name metadata — the same trace-event schema
-`utils/profiler.parse_trace_ops` consumes from device traces, so both
-files load side by side in Perfetto / chrome://tracing.  The dict
+thread-name and process-name metadata — the trace-event schema
+`utils/profiler.parse_trace_ops` consumes from device traces.  The dict
 additionally carries `process`, `pid`, and `wall_origin_s` top-level
 keys (legal extras in the Chrome schema): `wall_origin_s` is the
 wall-clock instant of this tracer's ts=0, which is what lets
 `obs/collect.py` re-anchor buffers from different processes onto one
-merged timeline.  (`utils/profiler.trace` writes the device traces, as
-torch.profiler's Chrome export.)
+merged timeline.
+
+A device trace (torch.profiler's Chrome export, which
+`utils/profiler.trace` writes) is on another clock: its ts count
+microseconds from the export's `baseTimeNanoseconds`, an instant of the
+Unix epoch, this file's from the tracer's `perf_counter` origin, so the
+two do not line up side by side.
+What puts a span on the device trace's clock is `ProfiledSpan`:
+`obs.span` opened while a profiler collects is also a `record_function`
+range, which the profiler exports as a `user_annotation` event among
+the card's kernels.
 
 The port's own copy of `singa_tpu/obs/trace.py`, which is JAX-free
 (the port imports nothing of the JAX package).
@@ -51,6 +59,9 @@ import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..utils import faults
 
@@ -107,6 +118,33 @@ class NullSpan:
 
 
 NULL_SPAN = NullSpan()
+
+
+def profiling() -> bool:
+    """Whether a torch.profiler session collects in this process (on
+    any thread)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class ProfiledSpan:
+    """A span (a Tracer's or the null span) inside a `record_function`
+    range of the same name: the range lands in a torch.profiler export
+    as a `user_annotation` event, on the profiler's clock."""
+    __slots__ = ("_range", "_inner")
+
+    def __init__(self, name: str, inner):
+        self._range = torch.profiler.record_function(name)
+        self._inner = inner
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self._inner.__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        try:
+            return self._inner.__exit__(*exc)
+        finally:
+            self._range.__exit__(*exc)
 
 
 class _SpanCtx:

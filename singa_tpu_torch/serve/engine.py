@@ -73,7 +73,10 @@ have.  Here each program is counted once, by `utils.flops.
 counted_flops` over an eager call on its warm-up inputs before its
 capture (the serving programs run none of the ctypes kernels a FLOP
 counter cannot see), and harvested into `obs.perf`; `harvest_costs()`
-re-records those counts and never captures or counts again.
+re-records those counts and never captures or counts again.  Every
+program call is counted with its seconds from launch to output on the
+host (`ServeStats.program_calls`), from which `obs.perf` derives each
+program's MFU.
 """
 
 from __future__ import annotations
@@ -381,6 +384,8 @@ class InferenceEngine:
                              f"{self.device}")
         self.graphs = graphs is not False and self.device.type == "cuda"
         self.stats = stats if stats is not None else ServeStats()
+        # CostWatch's MFU reads the program calls `_call` counts
+        perf.time_source(self.stats.program_calls)
         self.log = log_fn
         self.ckpt = (CheckpointManager(workspace, log_fn=log_fn,
                                        device=self.device)
@@ -875,7 +880,11 @@ class InferenceEngine:
               ) -> np.ndarray:
         """Run program `key` once on host `inputs` and fetch its output:
         a replay of its graph (captured here if warm-up did not), or an
-        eager call.  The generator is seeded first, for this call."""
+        eager call.  The generator is seeded first, for this call.
+        Spans `engine.launch` (inputs to the card and the replay's
+        enqueue) and `engine.fetch` (the blocking copy of the output);
+        `stats.observe_call` counts the call and its seconds from launch
+        to output on the host."""
         self._maybe_stall()
         fn, graph = self._program(key)
         with self._lock:
@@ -884,13 +893,15 @@ class InferenceEngine:
                 self._capture(key, state, inputs)
             self._next_generator()
             t0 = time.perf_counter()
-            if graph is not None:
-                out = graph(fn, state, inputs)
-            else:
-                out = fn(state, {k: torch.from_numpy(np.array(v)).to(
-                    self.device) for k, v in inputs.items()})
-            out = out.cpu().numpy()
-            perf.observe_step(key[0], time.perf_counter() - t0)
+            with obs.span("engine.launch", program=key[0]):
+                if graph is not None:
+                    out = graph(fn, state, inputs)
+                else:
+                    out = fn(state, {k: torch.from_numpy(np.array(v)).to(
+                        self.device) for k, v in inputs.items()})
+            with obs.span("engine.fetch", program=key[0]):
+                out = out.cpu().numpy()
+            self.stats.observe_call(key[0], t0, time.perf_counter())
             if key[0] in ("generate", "cb_prefill"):
                 perf.mark_serving_ready()      # first warm token (latch)
             return out

@@ -7,7 +7,16 @@ caller's thread (`engine.warmup`) before the loop thread starts, since a
 capture fails while another thread works on the card; the loop thread
 only replays.  Its telemetry is the reference's: the `scheduler.admit`
 and `scheduler.prefill` spans, the `serve.shed` and `serve.cb_retire`
-events, and the `kv_pool` MemoryWatch component.
+events, and the `kv_pool` MemoryWatch component.  Besides, the loop's
+host work between two program calls is spanned: `scheduler.iterate`
+(one iteration) holds `scheduler.expire`, `scheduler.admit_pending`
+(the in-loop admission round, with a `scheduler.prefill` and a
+`scheduler.emit` per request), `scheduler.decode` (with its
+`scheduler.emit`: the tokens' emission and the retires after the
+fetch) and `scheduler.account`; the engine's `engine.launch` and
+`engine.fetch` nest inside.  The engine's `ServeStats` counts the cb
+calls, their seconds and the host gaps between them; the loop tells
+it when it waits on an empty queue (`cb_idle`), so a wait is no gap.
 
 The static MicroBatcher ties a request's fate to its batch: the
 bucket program decodes all `max_new_tokens` for every row, so one long
@@ -471,31 +480,38 @@ class ContinuousScheduler:
     def _loop(self) -> None:
         while True:
             with self._cv:
+                if not self._pending and not self._active.any():
+                    self.engine.stats.cb_idle()
                 while (not self._pending and not self._active.any()
                        and not self._stop):
                     self._cv.wait(0.05)
                 if self._stop:
                     return
-            self._iterate()
+            with obs.span("scheduler.iterate"):
+                self._iterate()
 
     def _iterate(self) -> None:
         """One scheduler step: expire, admit, decode, account."""
         now = time.monotonic()
-        self._expire_pending(now)
+        with obs.span("scheduler.expire"):
+            self._expire_pending(now)
         # ONE hold covers this step's prefills AND decode — the per-step
         # no-tear guarantee (see module docstring)
         with self.engine.hold() as (params, step_no):
             try:
-                self._admit_pending(params, step_no)
+                with obs.span("scheduler.admit_pending"):
+                    self._admit_pending(params, step_no)
                 if self._active.any():
-                    self._decode_step(params, step_no)
+                    with obs.span("scheduler.decode"):
+                        self._decode_step(params, step_no)
             except Exception as e:  # noqa: BLE001 — fail step, keep serving
                 self._fail_step(e)
                 return
         if self.kv is not None:
-            self.stats.observe_cb_step(int(self._active.sum()),
-                                       self.kv.blocks_in_use)
-            self.stats.gauge("cb_blocks_in_use", self.kv.blocks_in_use)
+            with obs.span("scheduler.account"):
+                self.stats.observe_cb_step(int(self._active.sum()),
+                                           self.kv.blocks_in_use)
+                self.stats.gauge("cb_blocks_in_use", self.kv.blocks_in_use)
 
     def _expire_pending(self, now: float) -> None:
         with self._cv:
@@ -607,14 +623,15 @@ class ContinuousScheduler:
                          f"{req.corr} failed, server continues")
                 req.ticket._fail(RuntimeError(f"prefill failed: {e}"))
                 return
-            self._slot_req[slot] = req
-            self._active[slot] = True
-            self._ntoks[slot] = req.plen
-            self._last[slot] = tok0
-            req.produced.append(tok0)
-            req.ticket._emit(tok0)
-            self._maybe_retire(slot, tok0, step_no,
-                               time.monotonic())
+            with obs.span("scheduler.emit"):
+                self._slot_req[slot] = req
+                self._active[slot] = True
+                self._ntoks[slot] = req.plen
+                self._last[slot] = tok0
+                req.produced.append(tok0)
+                req.ticket._emit(tok0)
+                self._maybe_retire(slot, tok0, step_no,
+                                   time.monotonic())
 
     def _decode_step(self, params, step_no: int) -> None:
         faults.maybe_fault("serve.batch")
@@ -622,15 +639,16 @@ class ContinuousScheduler:
             params, self.kv.pools, self._last, self._ntoks,
             self.kv.table_array())
         now = time.monotonic()
-        for slot in np.flatnonzero(self._active):
-            slot = int(slot)
-            self._ntoks[slot] += 1
-            tok = int(nxt[slot])
-            self._last[slot] = tok
-            req = self._slot_req[slot]
-            req.produced.append(tok)
-            req.ticket._emit(tok)
-            self._maybe_retire(slot, tok, step_no, now)
+        with obs.span("scheduler.emit"):
+            for slot in np.flatnonzero(self._active):
+                slot = int(slot)
+                self._ntoks[slot] += 1
+                tok = int(nxt[slot])
+                self._last[slot] = tok
+                req = self._slot_req[slot]
+                req.produced.append(tok)
+                req.ticket._emit(tok)
+                self._maybe_retire(slot, tok, step_no, now)
 
     def _maybe_retire(self, slot: int, tok: int, step_no: int,
                       now: float) -> None:

@@ -29,7 +29,15 @@ handler, the bench smoke, and tests all see the same semantics:
   * `observe_cb_step` feeds the continuous-batching occupancy pair:
     `cb_slot_occupancy` (active slots / compiled slots, averaged over
     scheduler steps) and `cb_block_utilization` (KV blocks in use /
-    pool size).
+    pool size);
+  * `observe_call` counts each engine program call and its seconds
+    from launch to its output on the host (`program_calls`, which
+    `obs.perf` reads for MFU), and for the cb programs the host gaps:
+    from one cb program's output on the host to the next one's launch,
+    unless the scheduler waited on an empty queue between them
+    (`cb_idle`).  `cb_counters` reads the cb prefill, decode and gap
+    tallies.  These stay out of `snapshot()`, whose fields are the JAX
+    package's.
 
 `register_into(registry)` additionally exposes every snapshot field
 through an `obs.MetricsRegistry` pull-time collector (the /metrics
@@ -110,6 +118,13 @@ class ServeStats:
         self.cb_slot_capacity = 0      # gauge: compiled slot count S
         self.cb_blocks_total = 0       # gauge: usable pool blocks
         self.cb_blocks_in_use = 0      # gauge: blocks held right now
+        # engine program calls: program -> [calls, seconds from launch
+        # to output on the host]; host gaps between cb programs while
+        # the loop has work: [count, seconds]; the last cb output's
+        # instant (perf_counter), None after an idle wait
+        self._calls: Dict[str, list] = {}
+        self._cb_gaps = [0, 0.0]
+        self._cb_out: Optional[float] = None
         # batching
         self.batches = 0
         self.batched_requests = 0
@@ -197,7 +212,45 @@ class ServeStats:
             self.cb_block_use_steps += int(blocks_in_use)
             self._cb_t.append((time.monotonic(), int(active_slots)))
 
+    def observe_call(self, program: str, launch: float,
+                     out: float) -> None:
+        """One call of engine program `program`: launched at `launch`,
+        its output on the host at `out` (perf_counter seconds)."""
+        with self._lock:
+            c = self._calls.setdefault(program, [0, 0.0])
+            c[0] += 1
+            c[1] += out - launch
+            if program.startswith("cb_"):
+                if self._cb_out is not None:
+                    self._cb_gaps[0] += 1
+                    self._cb_gaps[1] += launch - self._cb_out
+                self._cb_out = out
+
+    def cb_idle(self) -> None:
+        """The scheduler waits with no work: the next cb launch opens no
+        host gap."""
+        with self._lock:
+            self._cb_out = None
+
     # -- reads -------------------------------------------------------------
+    def program_calls(self) -> Dict[str, tuple]:
+        """{program: (calls, seconds from launch to output on the
+        host)} of every engine program called so far."""
+        with self._lock:
+            return {k: tuple(v) for k, v in self._calls.items()}
+
+    def cb_counters(self) -> Dict[str, float]:
+        """The cb programs' tallies: prefill and decode calls and their
+        seconds from launch to output on the host, and the host gaps
+        between them while the loop had work (count, seconds)."""
+        with self._lock:
+            pre = self._calls.get("cb_prefill", (0, 0.0))
+            dec = self._calls.get("cb_decode", (0, 0.0))
+            return {"prefill_calls": pre[0], "prefill_seconds": pre[1],
+                    "decode_calls": dec[0], "decode_seconds": dec[1],
+                    "host_gaps": self._cb_gaps[0],
+                    "host_gap_seconds": self._cb_gaps[1]}
+
     def latency_quantile(self, q: float) -> Optional[float]:
         """Seconds at quantile `q` (p50/p95/p99 in snapshot) over the
         recent-completion reservoir (nearest-rank), or None before any
@@ -330,7 +383,8 @@ class ServeStats:
         as a pull-time collector (counters for the monotonic tallies,
         gauges for the derived/point-in-time values) — additive;
         snapshot() semantics are untouched, so /metrics and /stats
-        agree by construction."""
+        agree by construction.  `cb_counters` go out beside them as
+        `<prefix>_cb_<name>_total` counters."""
         from ..obs.metrics import Sample
 
         counters = ("submitted", "completed", "failed", "expired",
@@ -362,6 +416,10 @@ class ServeStats:
             out += [Sample(f"{prefix}_{k}", "gauge",
                            f"serving gauge {k!r}", float(snap[k]))
                     for k in gauges if snap.get(k) is not None]
+            out += [Sample(f"{prefix}_cb_{k}_total", "counter",
+                           f"continuous-batching program counter {k!r}",
+                           float(v))
+                    for k, v in self.cb_counters().items()]
             return out
 
         registry.register_collector(collect)

@@ -9,8 +9,9 @@ EAGER step (`Trainer.profile_phases`), whose device time is attributed
 by what launched it:
 
   * the forward runs inside the `phase("fwd")` range and the update
-    inside `phase("update")`, which the trainer's step opens (they cost
-    nothing at a replay: a range is host bookkeeping);
+    inside `phase("update")`, which the trainer's step opens: each is
+    an `obs.span`, so a profiler that collects records it and a replay
+    (host bookkeeping that a capture does not keep) has none;
   * the backward's kernels launch from the autograd engine's thread, in
     no range of the caller's, so they are attributed by the op that
     launched them: an op under `autograd::engine::evaluate_function: …`
@@ -45,9 +46,11 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def phase(name: str):
-    """The record_function range of train-step phase `name` ("fwd" or
-    "update")."""
-    return torch.profiler.record_function(RANGES[name])
+    """The span of train-step phase `name` ("fwd" or "update"):
+    `obs.span(RANGES[name])`, a `record_function` range of that name
+    while a profiler collects."""
+    from .. import obs
+    return obs.span(RANGES[name])
 
 
 def _leaves(tree):

@@ -281,7 +281,9 @@ def test_train_and_eval_steps_harvest_their_flops():
     cost = watch.snapshot()["cost"]
     assert cost["train_step"]["flops"] == \
         flops.net_train_flops(tr.train_net)
-    assert cost["train_step"]["step_seconds"] > 0
+    # MFU's time: the train timer's steps and seconds (TimerInfo)
+    assert cost["train_step"]["calls"] == tr.timer.steps > 0
+    assert cost["train_step"]["seconds"] == tr.timer.times["train"] > 0
     assert cost["eval_step[kTest]"]["flops"] == \
         flops.net_forward_flops(tr.test_net)
     samples = {(s.name, s.labels) for s in watch.collect()}
