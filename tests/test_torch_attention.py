@@ -14,6 +14,8 @@ import torch
 from singa_tpu.ops import attention as jattn
 from singa_tpu_torch.ops import attention as tattn
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 RTOL, ATOL = 1e-4, 1e-5
 

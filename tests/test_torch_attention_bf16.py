@@ -28,6 +28,8 @@ import torch
 from singa_tpu.ops import attention as jattn
 from singa_tpu_torch.ops import attention as tattn
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 B, S, D = 2, 256, 32
 BLOCK = 128

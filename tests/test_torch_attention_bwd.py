@@ -24,6 +24,8 @@ from singa_tpu_torch.ops import attention as tattn
 from singa_tpu_torch.ops import head_loss as thead
 from singa_tpu_torch.ops import loss as tloss
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 RTOL, ATOL = 1e-3, 1e-4
 B, S, H, HKV, D = 2, 256, 4, 2, 32

@@ -34,6 +34,8 @@ from singa_tpu_torch.core.trainer import Trainer
 from singa_tpu_torch.data.records import Record, SingleLabelImageRecord
 from singa_tpu_torch.ops import augment
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 MNIST = {"data": {"pixel": (28, 28), "label": ()}}
 

@@ -49,6 +49,8 @@ from singa_tpu_torch.main import main as tmain
 from singa_tpu_torch.models import rbm
 from singa_tpu_torch.utils.checkpoint import CheckpointManager
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV_VARS = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")
@@ -307,14 +309,10 @@ def test_cd_ranks_draw_what_one_process_draws(tmp_path, data):
     p = params_from_numpy(tr.train_net, init, device="cpu")
     o = tr.updater.init(p)
     recons = []
-    # one thread, as the children: a matmul's sums follow the threads
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        p, o, _ = tr.run(p, o, iter(batches),
-                         hooks=[lambda s, m: recons.append(m["recon"])])
-    finally:
-        torch.set_num_threads(threads)
+    # one thread (port_fixture), as the children: a matmul's sums
+    # follow the threads
+    p, o, _ = tr.run(p, o, iter(batches),
+                     hooks=[lambda s, m: recons.append(m["recon"])])
     np.savez(tmp_path / "init.npz", **init)
     np.savez(tmp_path / "batches.npz", **{
         f"{f}{i}": b["data"][f] for i, b in enumerate(batches)

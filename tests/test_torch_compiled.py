@@ -41,6 +41,8 @@ from singa_tpu_torch.models.transformer import \
 from singa_tpu_torch.utils.checkpoint import CheckpointManager
 from singa_tpu_torch.weights import state_to_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S = 128

@@ -33,6 +33,7 @@ from singa_tpu_torch.data.shard import Shard
 from singa_tpu_torch.utils.faults import FaultSchedule, FaultSpec, inject
 
 from lmdb_fixture import write_lmdb
+from port_fixture import one_torch_thread  # noqa: F401
 from test_torch_supervisor import assert_equal, data, mlp, port_trainer
 
 pytestmark = pytest.mark.port

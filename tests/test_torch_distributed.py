@@ -59,6 +59,8 @@ from singa_tpu_torch.utils.checkpoint import CheckpointManager
 from singa_tpu_torch.utils.faults import FaultSchedule, inject
 from singa_tpu_torch.weights import params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONV = os.path.join(REPO, "examples", "mnist", "conv.conf")
@@ -589,13 +591,9 @@ def test_distributed_replica_set_matches_the_replica_set(tmp_path,
     rs = tel.ReplicaSet(tr, ngroups=2, seed=0)
     iters = [synthetic_image_batches(32, seed=11, stream_seed=60 + g)
              for g in range(2)]
-    # one thread, as the children: a matmul's sums follow the threads
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        center, hist = rs.run(iters, steps=12, seed=0)
-    finally:
-        torch.set_num_threads(threads)
+    # one thread (port_fixture), as the children: a matmul's sums
+    # follow the threads
+    center, hist = rs.run(iters, steps=12, seed=0)
     for k in center:
         assert torch.equal(torch.from_numpy(centers[0][k]),
                            torch.from_numpy(centers[1][k])), k

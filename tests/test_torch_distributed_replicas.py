@@ -31,6 +31,7 @@ from singa_tpu_torch.data.synthetic import synthetic_image_batches
 from singa_tpu_torch.parallel import elastic as tel
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from port_fixture import one_torch_thread  # noqa: E402,F401
 from test_torch_distributed import MNIST, _spawn  # noqa: E402
 from test_torch_elastic import _mlp_text  # noqa: E402
 
@@ -113,13 +114,9 @@ def test_three_processes_match_the_replica_set_of_three_groups(tmp_path,
             tr.cfg.updater, 3)
     iters = [synthetic_image_batches(32, seed=11, stream_seed=60 + g)
              for g in range(3)]
-    # one thread, as the children: a matmul's sums follow the threads
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        center, hist = rs.run(iters, steps=STEPS, seed=0)
-    finally:
-        torch.set_num_threads(threads)
+    # one thread (port_fixture), as the children: a matmul's sums
+    # follow the threads
+    center, hist = rs.run(iters, steps=STEPS, seed=0)
     for k in center:
         for g in range(3):
             assert torch.equal(torch.from_numpy(centers[g][k]), center[k]), \

@@ -40,6 +40,8 @@ from singa_tpu_torch.parallel import elastic as tel
 from singa_tpu_torch.utils import faults as tfaults
 from singa_tpu_torch.weights import opt_state_from_numpy, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 MLP = "examples/mnist/mlp.conf"
 SHAPES = {"data": {"pixel": (28, 28), "label": ()}}

@@ -46,6 +46,8 @@ from singa_tpu_torch.parallel.comm import AxisGroup
 from singa_tpu_torch.utils.checkpoint import CheckpointManager
 from singa_tpu_torch.weights import params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV_VARS = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")

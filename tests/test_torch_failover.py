@@ -54,6 +54,8 @@ from singa_tpu_torch.serve.router import _accepted_kwargs
 from singa_tpu_torch.utils.checkpoint import CheckpointManager
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 PKGS = {"jax": SimpleNamespace(serve=jserve, log=jlog),
         "torch": SimpleNamespace(serve=tserve, log=tlog)}

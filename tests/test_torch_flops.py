@@ -24,6 +24,8 @@ from singa_tpu_torch.models.transformer import transformer_lm
 from singa_tpu_torch.utils import flops
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 CONFS = ["mnist/conv.conf", "mnist/mlp.conf", "mnist/rbm.conf",

@@ -21,6 +21,8 @@ from singa_tpu.ops import loss as jloss
 from singa_tpu_torch.ops import head_loss as thead
 from singa_tpu_torch.ops import loss as tloss
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 N, E, V = 64, 128, 512
 BN, BV = 16, 128

@@ -31,6 +31,8 @@ from singa_tpu_torch.weights import numpy_params, params_from_numpy
 from test_torch_supervisor import (SHAPES, assert_equal, data, jax_trainer,
                                    jdata, mlp, port_trainer, uninterrupted)
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 
 SPECS = [None, "", "grad_norm_max=1e4, spike_mad=8; patience=2,"

@@ -25,6 +25,8 @@ from singa_tpu_torch.serve.kvcache import PagedKVCache, init_pools
 from singa_tpu_torch.utils.checkpoint import CheckpointManager
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 PKG_DIR = os.path.dirname(singa_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)

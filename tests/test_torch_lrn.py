@@ -24,6 +24,8 @@ from singa_tpu.ops.lrn_pallas import lrn_bwd_pallas, lrn_fwd_pallas
 
 from singa_tpu_torch.ops import lrn as tlrn
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 ALPHA, KNORM = 0.5, 1.0     # a normalisation far from the identity
 # (local_size, beta) pairs per relu setting: all four combinations of

@@ -36,6 +36,8 @@ from singa_tpu_torch.data.shard import Shard
 from singa_tpu_torch.utils.checkpoint import CheckpointManager
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 CONF = os.path.join(os.path.dirname(__file__), "..", "examples",
                     "transformer", "lm_tiny.conf")

@@ -52,6 +52,8 @@ from singa_tpu_torch.utils import checkpoint as tckpt
 from singa_tpu_torch.weights import (numpy_params, opt_state_from_numpy,
                                      params_from_numpy, state_to_numpy)
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 LM_CONF = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples", "transformer", "lm.conf")

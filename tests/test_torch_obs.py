@@ -28,6 +28,8 @@ from singa_tpu_torch.serve import InferenceEngine, ServeSpec
 from singa_tpu_torch.serve import engine as tengine_mod
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 PKGS = {"jax": jobs, "torch": tobs}
 PAIRS = [(a, b) for a in PKGS for b in PKGS]

@@ -59,6 +59,8 @@ from singa_tpu_torch.utils.ocdbt import (BTREE_MAGIC, MANIFEST_MAGIC,
                                          OcdbtStore, decode_envelope)
 from singa_tpu_torch.utils.zarr import read_array
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 PLAIN = zstd.Codec(native=False)
 FIXTURES = os.path.join(os.path.dirname(__file__), "torch_fixtures", "orbax")

@@ -37,6 +37,8 @@ from singa_tpu_torch.utils.checkpoint import (CheckpointManager,
                                               LayoutMismatchError,
                                               OrbaxUnreadableError)
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 CONF = os.path.join(os.path.dirname(__file__), "..", "examples",
                     "transformer", "lm_tiny.conf")

@@ -36,6 +36,8 @@ from singa_tpu_torch.utils.checkpoint import CheckpointManager
 from singa_tpu_torch.utils.ocdbt import (MAX_INLINE_VALUE_BYTES, OcdbtStore,
                                          OcdbtWriter)
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 HERE = os.path.dirname(__file__)
 FIXTURES = os.path.join(HERE, "torch_fixtures", "orbax")

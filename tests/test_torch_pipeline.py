@@ -38,6 +38,7 @@ from singa_tpu_torch.main import main as tmain
 from singa_tpu_torch.obs.metrics import MetricsRegistry as TRegistry
 from singa_tpu_torch.utils.checkpoint import CheckpointManager as TCkpt
 
+from port_fixture import one_torch_thread  # noqa: F401
 from test_torch_router import Stub
 
 pytestmark = pytest.mark.port

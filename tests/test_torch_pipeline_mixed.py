@@ -50,6 +50,8 @@ from singa_tpu.parallel import make_mesh as jmake_mesh
 from singa_tpu_torch.models.transformer import (synthetic_token_batches,
                                                 transformer_lm)
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV_VARS = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")

@@ -28,6 +28,8 @@ from singa_tpu_torch.obs import perf
 from singa_tpu_torch.utils import flops, profiler
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 CONV = os.path.join(EXAMPLES, "mnist", "conv.conf")

@@ -36,6 +36,8 @@ from singa_tpu_torch.models import rbm
 from singa_tpu_torch.utils.checkpoint import CheckpointManager
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 REPO = __file__.rsplit("/tests/", 1)[0]
 SHAPES = {"data": {"pixel": (28, 28), "label": ()}}

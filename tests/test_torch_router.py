@@ -34,6 +34,8 @@ import singa_tpu_torch.utils.faults as tfaults
 from singa_tpu_torch.obs.metrics import MetricsRegistry as TRegistry
 from singa_tpu_torch.utils.checkpoint import CheckpointManager as TCkpt
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 PKGS = {
     "jax": SimpleNamespace(serve=jserve, faults=jfaults, collect=jcollect,

@@ -44,6 +44,8 @@ from singa_tpu_torch.ops import attention as tatt
 from singa_tpu_torch.parallel.comm import AxisGroup
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -50,6 +50,8 @@ from singa_tpu_torch.weights import numpy_params, params_from_numpy
 jgen = importlib.import_module("singa_tpu.models.generate")
 tgen = importlib.import_module("singa_tpu_torch.models.generate")
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 RTOL = ATOL = 1e-5
 POOL_RTOL_OF_MAX = 1e-6

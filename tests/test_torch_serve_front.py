@@ -51,6 +51,8 @@ from singa_tpu_torch.serve import (InferenceEngine, InferenceServer,
                                    ServeSpec, ServeStats)
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 RTOL = ATOL = 1e-5
 VOCAB, SEQ = 64, 16

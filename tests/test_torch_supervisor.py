@@ -40,6 +40,8 @@ from singa_tpu_torch.utils.faults import (Backoff, FaultError,
 from singa_tpu_torch.utils.health import HealthMonitor
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 
 SHAPES = {"data": {"pixel": (28, 28), "label": ()}}

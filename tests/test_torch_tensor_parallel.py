@@ -57,6 +57,8 @@ from singa_tpu_torch.parallel.partition import (pad_params, param_shardings,
 from singa_tpu_torch.utils.checkpoint import CheckpointManager
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONV = os.path.join(REPO, "examples", "mnist", "conv.conf")

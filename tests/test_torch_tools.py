@@ -30,6 +30,7 @@ from singa_tpu_torch.tools import viz
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
 from lmdb_fixture import write_lmdb
+from port_fixture import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.port
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")

@@ -28,6 +28,8 @@ from singa_tpu_torch.serve.stats import ServeStats
 from singa_tpu_torch.utils import profiler
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 VOCAB, SEQ = 64, 16
 CFG = dict(vocab_size=VOCAB, num_layers=2, embed_dim=32, num_heads=4,

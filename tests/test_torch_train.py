@@ -43,6 +43,8 @@ from singa_tpu_torch.utils import checkpoint as tckpt
 from singa_tpu_torch.weights import (opt_state_from_numpy, params_from_numpy,
                                      state_to_numpy)
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 UPDATERS = ["kSGD", "kNesterov", "kAdaGrad", "kRMSProp", "kAdaDelta",
             "kAdam"]

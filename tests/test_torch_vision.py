@@ -44,6 +44,8 @@ from singa_tpu_torch.ops import dropout as tdropout
 from singa_tpu_torch.ops import pool as tpool
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 REPO = __file__.rsplit("/tests/", 1)[0]
 B = 4

@@ -37,6 +37,8 @@ from singa_tpu_torch.serve import InferenceEngine, InferenceServer, ServeSpec
 from singa_tpu_torch.serve.router import EngineUnavailable
 from singa_tpu_torch.weights import numpy_params, params_from_numpy
 
+from port_fixture import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.port
 PKGS = {"jax": jwire, "torch": twire}
 VOCAB, SEQ = 64, 16
